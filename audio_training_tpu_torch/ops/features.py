@@ -1,0 +1,81 @@
+"""Featurization ops: waveform -> mel image and the normalizers (port of
+``audio_training_tpu/ops/features.py:26-115``, the reference's per-batch
+``tf.data`` maps, ``tfdataset.py:1883-2059``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from audio_training_tpu_torch.config import FeaturizerConfig
+from audio_training_tpu_torch.ops.mel import mel_filterbank
+from audio_training_tpu_torch.ops.stft import stft_tf_style
+
+
+def mag_transform(x: torch.Tensor, a: torch.Tensor | float) -> torch.Tensor:
+    """Trainable magnitude compression ``x**sigmoid(a)``
+    (badwinner2.MagTransform, badwinner2.py:47-49); ``a`` is taken in
+    ``x``'s dtype, as the JAX version does."""
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    return x ** torch.sigmoid(a)
+
+
+def normalize_minmax(data: torch.Tensor) -> torch.Tensor:
+    """Global min-max to [-1, 1] (tfdataset.py:1897-1902)."""
+    max_v = data.max()
+    min_v = data.min()
+    return 2.0 * ((data - min_v) / (max_v - min_v)) - 1.0
+
+
+def normalize_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-last-axis min-max used after mixup (tfdataset.normalize,
+    tfdataset.py:1916-1934): subtract row min, divide by row max (of the
+    shifted data), add 1e-6, then map to [-1, 1]."""
+    x = x - x.amin(dim=-1, keepdim=True)
+    x = x / x.amax(dim=-1, keepdim=True) + 0.000001
+    return (x - 0.5) * 2.0
+
+
+def build_mel_weights(cfg: FeaturizerConfig) -> np.ndarray:
+    """Host-side constant (n_mels, n_fft//2+1) mel matrix for a config."""
+    break_freq = 700.0 if cfg.htk else cfg.break_freq
+    return mel_filterbank(
+        cfg.sr, cfg.n_mels, cfg.fmin, cfg.fmax, cfg.n_fft, break_freq
+    )
+
+
+def mel_power(
+    raw: torch.Tensor,
+    mel_weights: torch.Tensor,
+    n_fft: int = 4096,
+    hop: int = 281,
+    power: int = 2,
+) -> torch.Tensor:
+    """(B, samples) -> (B, n_mels, frames) f32 mel power, tf-stft framing.
+
+    The reference squares the complex STFT and then takes the modulus
+    (tfdataset.py:2044-2046); ``|z^2| == |z|^2``, so this computes the
+    power spectrogram directly.
+    """
+    spec = stft_tf_style(raw, n_fft, hop)  # (B, T, F)
+    p = spec.real**2 + spec.imag**2
+    if power != 2:
+        p = torch.sqrt(p) ** power
+    return torch.einsum("mf,btf->bmt", mel_weights.to(p.dtype), p)
+
+
+def raw_to_mel(
+    raw: torch.Tensor,
+    mel_weights: torch.Tensor,
+    n_fft: int = 4096,
+    hop: int = 281,
+    power: int = 2,
+    channels: int = 3,
+) -> torch.Tensor:
+    """Batched waveform -> mel image, training-pipeline convention
+    (tfdataset.raw_to_mel, tfdataset.py:2008-2059).
+    Output: ``(B, n_mels, frames, channels)``."""
+    image = mel_power(raw, mel_weights, n_fft, hop, power)[..., None]
+    if channels > 1:
+        image = image.repeat_interleave(channels, dim=-1)
+    return image

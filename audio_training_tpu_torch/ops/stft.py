@@ -1,0 +1,44 @@
+"""Short-time Fourier transform, tf.signal convention (port of
+``audio_training_tpu/ops/stft.py:28-73``).
+
+``stft_tf_style`` reproduces ``tf.signal.stft(x, n_fft, hop,
+fft_length=n_fft, pad_end=True)``, the training pipeline's framing
+(``tfdataset.py:2026-2034``): frame ``t`` starts at sample ``t*hop`` and the
+tail is zero-padded, so there are ``ceil(n/hop)`` frames (513 for 3 s at
+48 kHz, hop 281) and the last ones read past the clip into zeros.  It is
+built from ``unfold`` and ``torch.fft.rfft``; ``torch.stft`` frames
+differently and is not used.  The centered (librosa) convention comes with
+the long-recording Predictor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def hann_window(n: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window — matches ``tf.signal.hann_window`` and
+    librosa's default ``get_window('hann', fftbins=True)``."""
+    k = np.arange(n, dtype=np.float64)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * k / n)).astype(dtype)
+
+
+def num_frames_tf(n_samples: int, hop: int) -> int:
+    return -(-n_samples // hop)
+
+
+def num_frames_centered(n_samples: int, hop: int) -> int:
+    return 1 + n_samples // hop
+
+
+def stft_tf_style(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Hann-windowed.  x: (..., n_samples) real.  Returns (..., frames,
+    n_fft//2+1) complex."""
+    n = x.shape[-1]
+    frames = num_frames_tf(n, hop)
+    pad = (frames - 1) * hop + n_fft - n
+    framed = F.pad(x, (0, max(pad, 0))).unfold(-1, n_fft, hop)
+    framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
+    return torch.fft.rfft(framed, n=n_fft, dim=-1)
