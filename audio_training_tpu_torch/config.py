@@ -1,13 +1,16 @@
-"""Featurizer configuration, copied from ``audio_training_tpu/config.py``.
+"""Configuration, copied from ``audio_training_tpu/config.py``.
 
 The port keeps its own copy so that it never imports the JAX package.
-Only the constants and ``FeaturizerConfig`` are ported so far; the split,
-sampling, train and inference configs follow with the slices that use them.
+Ported so far: the constants, ``FeaturizerConfig``, ``InferenceConfig`` and
+``config_from_dict``; the split, sampling and train configs follow with the
+slices that use them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 # Invariant constants of the reference stack (tfdataset.py:42-57,
 # audiodataset.py:107-119).  These are *defaults*; every one is overridable
@@ -97,3 +100,20 @@ class FeaturizerConfig:
     def input_shape(self) -> tuple[int, int, int]:
         # DIMENSIONS = (160, 513, 1) (tfdataset.py:175-180)
         return (self.n_mels, self.mel_frames, self.channels)
+
+
+@dataclass(frozen=True)
+class InferenceConfig:
+    """Sliding-window inference parameters (predict.py:503, preeval.py)."""
+
+    threshold: float = 0.7
+    aggregation: str = "mean"  # mean | max | votes
+    max_window_batch: int = 64
+    bucket_sizes: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
+
+
+def config_from_dict(cls: type, data: dict) -> Any:
+    """Build a config dataclass from a JSON dict, ignoring unknown keys
+    (a run's ``metadata.txt`` ``featurizer`` entry)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in data.items() if k in names})

@@ -10,10 +10,11 @@ power, an ``einsum`` with the mel weights and the ``ops.pcen`` pointwise
 math.  The batch-global PCEN min-max runs in torch on the output in both
 cases, in the output's dtype, as in the JAX class (``:869-872``).
 
-Ported modes: mel power and PCEN with tf ``pad_end`` framing, any hop and
-frame count, f32 or bf16 output, the exact f32 ``"highest"`` tier.  The
-other precision tiers, ``center=True``, ``normalize_waveform`` and
-``frontend_params`` raise ``ValueError``; ROADMAP.md queues them.
+Ported modes: mel power and PCEN with tf ``pad_end`` framing or the
+centered (librosa) framing of the long-recording Predictor
+(``center=True``), any hop and frame count, f32 or bf16 output, the exact
+f32 ``"highest"`` tier.  The other precision tiers, ``normalize_waveform``
+and ``frontend_params`` raise ``ValueError``; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -27,14 +28,20 @@ import torch
 from audio_training_tpu_torch.ops.cuda.build import load_library
 from audio_training_tpu_torch.ops.features import mel_power
 from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
-from audio_training_tpu_torch.ops.stft import hann_window, num_frames_tf
+from audio_training_tpu_torch.ops.stft import (
+    hann_window,
+    num_frames_centered,
+    num_frames_tf,
+)
 
 N_FFT = 4096
 MAX_BINS = 1024  # bins 0..1023: the kernel computes no bin above these
 _DEFERRED = "ROADMAP.md queue item 1 (K1's remaining modes)"
 
-# Launches of each kernel since the last reset, counted where they launch.
-_LAUNCHES = {"fused_featurizer_mel": 0, "fused_featurizer_pcen": 0}
+# Launches of each kernel since the last reset, counted where they launch;
+# the mel kernel is counted by framing mode.
+_LAUNCHES = {"fused_featurizer_mel": 0, "fused_featurizer_mel_centered": 0,
+             "fused_featurizer_pcen": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -61,7 +68,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_featurizer")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ff_mel_power.argtypes = [
-        ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, ptr, i32, ptr,
     ]
     lib.ff_mel_power.restype = i32
@@ -108,11 +115,13 @@ def fused_featurizer_plain(
     hop: int,
     pcen_params: tuple[float, float, float, float, float] | None = None,
     out_dtype: torch.dtype = torch.float32,
+    center: bool = False,
 ) -> torch.Tensor:
     """The plain version of the kernel: (B, samples) f32 -> (B, n_mels,
     frames) mel power, or the un-normalized PCEN image when ``pcen_params
-    = (gain, bias, root, smooth, eps)``, converted to ``out_dtype``."""
-    out = mel_power(raw, mel_weights, N_FFT, hop)
+    = (gain, bias, root, smooth, eps)``, converted to ``out_dtype``;
+    ``center`` selects the centered framing."""
+    out = mel_power(raw, mel_weights, N_FFT, hop, center=center)
     if pcen_params is not None:
         out = pcen(out, *pcen_params, time_axis=2, normalize=False)
     return out.to(out_dtype)
@@ -122,7 +131,9 @@ class FusedFeaturizer:
     """Waveform -> PCEN'd (or raw) mel, one kernel per batch (two with
     PCEN).  Parity contracts as in the JAX class: mel power matches the
     tf-stft rfft path, PCEN matches ``ops.pcen.pcen`` including the frame-0
-    EMA seed and the batch-global min-max."""
+    EMA seed and the batch-global min-max.  ``center=True`` frames as
+    ``ops.stft.stft_centered`` does (pad 2048 zeros both sides, ``1 +
+    n//hop`` frames), in the kernel without a padded copy."""
 
     def __init__(
         self,
@@ -146,11 +157,8 @@ class FusedFeaturizer:
                 f"precision {precision!r}: only the exact f32 'highest' tier "
                 f"is ported; the others come with {_DEFERRED}"
             )
-        if center:
-            raise ValueError(
-                f"center=True (librosa framing) comes with {_DEFERRED}"
-            )
         self.hop = hop
+        self.center = center
         self.n_mels = mel_weights.shape[0]
         self.pcen_params = (gain, bias, root, smooth, eps)
         self.mel_weights = torch.as_tensor(
@@ -207,7 +215,7 @@ class FusedFeaturizer:
         params = self.pcen_params if pcen else None
         if raw.device.type == "cpu":
             out = fused_featurizer_plain(
-                raw, self.mel_weights, self.hop, params, out_dtype
+                raw, self.mel_weights, self.hop, params, out_dtype, self.center
             )
         else:
             out = self._launch(raw, params, out_dtype)
@@ -223,14 +231,17 @@ class FusedFeaturizer:
         batch, samples = raw.shape
         if not 0 < batch <= 65535:
             raise ValueError(f"batch {batch} outside the kernel's grid")
-        frames = num_frames_tf(samples, self.hop)
+        if self.center:
+            left_pad, frames = N_FFT // 2, num_frames_centered(samples, self.hop)
+        else:
+            left_pad, frames = 0, num_frames_tf(samples, self.hop)
         mel_dtype = out_dtype if pcen_params is None else torch.float32
         mel = torch.empty(
             (batch, self.n_mels, frames), dtype=mel_dtype, device=raw.device
         )
         with torch.cuda.device(raw.device):
             _check(_library().ff_mel_power(
-                raw.data_ptr(), batch, samples, self.hop, frames,
+                raw.data_ptr(), batch, samples, self.hop, left_pad, frames,
                 self.window.data_ptr(), self.stage_tw.data_ptr(),
                 self.post_tw.data_ptr(), self.band_start.data_ptr(),
                 self.band_len.data_ptr(), self.band_off.data_ptr(),
@@ -238,7 +249,8 @@ class FusedFeaturizer:
                 mel.data_ptr(), int(mel_dtype == torch.bfloat16),
                 _stream(),
             ), "mel power")
-        _LAUNCHES["fused_featurizer_mel"] += 1
+        _LAUNCHES["fused_featurizer_mel_centered" if self.center
+                  else "fused_featurizer_mel"] += 1
         if pcen_params is None:
             return mel
         return pcen_rows(mel, pcen_params, out_dtype)

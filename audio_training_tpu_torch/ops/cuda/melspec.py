@@ -1,0 +1,143 @@
+"""Fused power spectrum + mel projection: the CUDA kernel ``csrc/melspec.cu``
+and its plain PyTorch version.
+
+Port of ``audio_training_tpu/ops/pallas/melspec.py`` (``_power_mel_kernel``
+and ``fused_power_mel``).  ``out[b, t, m] = sum_f (re^2 + im^2)[b, t, f] *
+W[f, m]`` in exact fp32, output ``(B, T, M)`` time-major.  For CUDA tensors
+the wrappers launch the kernel or raise; for CPU tensors they compute
+:func:`power_mel_plain`.
+
+Two entries: :func:`fused_power_mel` keeps the JAX signature (real and
+imaginary parts as two float32 tensors); :func:`fused_power_mel_complex`
+takes the complex64 STFT itself, which the kernel reads interleaved through
+``torch.view_as_real``, so the caller pays for no re/im split copy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from audio_training_tpu_torch.ops.cuda.build import load_library
+
+# Launches of the kernel since the last reset, counted where it launches.
+_LAUNCHES = {"power_mel": 0}
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library("melspec")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.pm_power_mel.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, ptr]
+    lib.pm_power_mel.restype = i32
+    return lib
+
+
+def power_mel_plain(
+    stft_re: torch.Tensor, stft_im: torch.Tensor, mel_weights_t: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of the kernel: (B, T, F) x2, (F, M) -> (B, T, M)."""
+    return torch.einsum(
+        "btf,fm->btm", stft_re * stft_re + stft_im * stft_im, mel_weights_t
+    )
+
+
+def _check_weights(mel_weights_t: torch.Tensor, n_freq: int, device) -> None:
+    if mel_weights_t.ndim != 2 or mel_weights_t.dtype != torch.float32:
+        raise ValueError(
+            f"mel_weights_t must be (F, M) float32, got "
+            f"{tuple(mel_weights_t.shape)} {mel_weights_t.dtype}"
+        )
+    if mel_weights_t.shape[0] != n_freq:
+        raise ValueError(
+            f"mel_weights_t has {mel_weights_t.shape[0]} bins, the STFT "
+            f"{n_freq}"
+        )
+    if mel_weights_t.device != device:
+        raise ValueError(
+            f"mel_weights_t is on {mel_weights_t.device}, the STFT on {device}"
+        )
+
+
+def fused_power_mel(
+    stft_re: torch.Tensor, stft_im: torch.Tensor, mel_weights_t: torch.Tensor
+) -> torch.Tensor:
+    """``out[b, t, m] = sum_f (re^2 + im^2)[b, t, f] * W[f, m]``.
+
+    stft_re / stft_im: (B, T, F) float32; mel_weights_t: (F, M) float32.
+    Returns (B, T, M) float32."""
+    if (stft_re.ndim != 3 or stft_re.dtype != torch.float32
+            or stft_im.shape != stft_re.shape
+            or stft_im.dtype != torch.float32
+            or stft_im.device != stft_re.device):
+        raise ValueError(
+            "stft_re / stft_im must be two (B, T, F) float32 tensors on one "
+            f"device, got {tuple(stft_re.shape)} {stft_re.dtype} "
+            f"{stft_re.device} and {tuple(stft_im.shape)} {stft_im.dtype} "
+            f"{stft_im.device}"
+        )
+    _check_weights(mel_weights_t, stft_re.shape[-1], stft_re.device)
+    if stft_re.device.type == "cpu":
+        return power_mel_plain(stft_re, stft_im, mel_weights_t)
+    if not (stft_re.is_contiguous() and stft_im.is_contiguous()):
+        raise ValueError("stft_re / stft_im must be contiguous")
+    return _launch(stft_re.data_ptr(), stft_im.data_ptr(), 1,
+                   stft_re.shape, mel_weights_t)
+
+
+def fused_power_mel_complex(
+    spec: torch.Tensor, mel_weights_t: torch.Tensor
+) -> torch.Tensor:
+    """:func:`fused_power_mel` of ``spec.real`` and ``spec.imag``, for a
+    (B, T, F) complex64 STFT, read in place."""
+    if spec.ndim != 3 or spec.dtype != torch.complex64:
+        raise ValueError(
+            f"spec must be (B, T, F) complex64, got {tuple(spec.shape)} "
+            f"{spec.dtype}"
+        )
+    _check_weights(mel_weights_t, spec.shape[-1], spec.device)
+    if spec.device.type == "cpu":
+        return power_mel_plain(spec.real, spec.imag, mel_weights_t)
+    if not spec.is_contiguous():
+        raise ValueError("spec must be contiguous (time-major (B, T, F))")
+    pairs = torch.view_as_real(spec)  # (B, T, F, 2) float32, interleaved
+    re = pairs.data_ptr()
+    return _launch(re, re + pairs.element_size(), 2, spec.shape,
+                   mel_weights_t)
+
+
+def _launch(re: int, im: int, stride: int, shape: torch.Size,
+            mel_weights_t: torch.Tensor) -> torch.Tensor:
+    device = mel_weights_t.device
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    if not mel_weights_t.is_contiguous():
+        raise ValueError("mel_weights_t must be contiguous")
+    batch, frames, n_freq = shape
+    rows, n_mels = batch * frames, mel_weights_t.shape[1]
+    if not 0 < rows < 2**31 or n_freq == 0:
+        raise ValueError(f"no kernel launch for an STFT of shape "
+                         f"{tuple(shape)}")
+    out = torch.empty((batch, frames, n_mels), dtype=torch.float32,
+                      device=device)
+    with torch.cuda.device(device):
+        err = _library().pm_power_mel(
+            re, im, stride, rows, n_freq, mel_weights_t.data_ptr(), n_mels,
+            out.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"power_mel launch failed: cudaError {err}")
+    _LAUNCHES["power_mel"] += 1
+    return out

@@ -1,6 +1,7 @@
 """Featurization ops: waveform -> mel image and the normalizers (port of
 ``audio_training_tpu/ops/features.py:26-115``, the reference's per-batch
-``tf.data`` maps, ``tfdataset.py:1883-2059``)."""
+``tf.data`` maps, ``tfdataset.py:1883-2059``), and the host-side band-pass
+filter of the long-recording windows (``:305-341``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 
 from audio_training_tpu_torch.config import FeaturizerConfig
 from audio_training_tpu_torch.ops.mel import mel_filterbank
-from audio_training_tpu_torch.ops.stft import stft_tf_style
+from audio_training_tpu_torch.ops.stft import stft_centered, stft_tf_style
 
 
 def mag_transform(x: torch.Tensor, a: torch.Tensor | float) -> torch.Tensor:
@@ -50,14 +51,19 @@ def mel_power(
     n_fft: int = 4096,
     hop: int = 281,
     power: int = 2,
+    center: bool = False,
 ) -> torch.Tensor:
-    """(B, samples) -> (B, n_mels, frames) f32 mel power, tf-stft framing.
+    """(B, samples) -> (B, n_mels, frames) f32 mel power, tf-stft framing,
+    or with ``center`` the librosa centered framing of the Predictor.
 
     The reference squares the complex STFT and then takes the modulus
     (tfdataset.py:2044-2046); ``|z^2| == |z|^2``, so this computes the
     power spectrogram directly.
     """
-    spec = stft_tf_style(raw, n_fft, hop)  # (B, T, F)
+    if center:
+        spec = stft_centered(raw, n_fft, hop).transpose(-1, -2)  # (B, T, F)
+    else:
+        spec = stft_tf_style(raw, n_fft, hop)  # (B, T, F)
     p = spec.real**2 + spec.imag**2
     if power != 2:
         p = torch.sqrt(p) ** power
@@ -79,3 +85,47 @@ def raw_to_mel(
     if channels > 1:
         image = image.repeat_interleave(channels, dim=-1)
     return image
+
+
+# ---------------------------------------------------------------------------
+# Host-side DSP (scipy; ops/features.py:305-341 of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def butter_bandpass_sos(lowcut: float, highcut: float, fs: float, order: int = 2):
+    """Design the band/low/high-pass used for per-track filtering
+    (tfdataset.butter_bandpass / predict_utils, scipy host-side)."""
+    from scipy.signal import butter
+
+    nyq = 0.5 * fs
+    low = lowcut / nyq
+    high = highcut / nyq
+    if low <= 0 and high <= 0:
+        return None
+    if high >= 1 or high <= 0:
+        if low <= 0:
+            return None
+        return butter(order, low, btype="highpass", output="sos")
+    if low <= 0:
+        return butter(order, high, btype="lowpass", output="sos")
+    if low >= high:
+        # non-increasing critical frequencies would raise in scipy; the
+        # reference's write side returns None for this malformed-metadata
+        # case (audiodataset.py:1369-1372)
+        return None
+    return butter(order, [low, high], btype="bandpass", output="sos")
+
+
+def butter_bandpass_filter(
+    data: np.ndarray, lowcut: float, highcut: float, fs: float = 48000, order: int = 2
+) -> np.ndarray:
+    """Host IIR bandpass (tfdataset.butter_bandpass_filter,
+    tfdataset.py:2068-2075)."""
+    from scipy.signal import sosfilt
+
+    if lowcut <= 0 and highcut <= 0:
+        return data
+    sos = butter_bandpass_sos(lowcut, highcut, fs, order)
+    if sos is None:
+        return data
+    return np.float32(sosfilt(sos, data))

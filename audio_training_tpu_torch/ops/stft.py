@@ -1,14 +1,18 @@
-"""Short-time Fourier transform, tf.signal convention (port of
-``audio_training_tpu/ops/stft.py:28-73``).
+"""Short-time Fourier transforms (port of
+``audio_training_tpu/ops/stft.py:28-99``).
 
 ``stft_tf_style`` reproduces ``tf.signal.stft(x, n_fft, hop,
 fft_length=n_fft, pad_end=True)``, the training pipeline's framing
 (``tfdataset.py:2026-2034``): frame ``t`` starts at sample ``t*hop`` and the
 tail is zero-padded, so there are ``ceil(n/hop)`` frames (513 for 3 s at
-48 kHz, hop 281) and the last ones read past the clip into zeros.  It is
-built from ``unfold`` and ``torch.fft.rfft``; ``torch.stft`` frames
-differently and is not used.  The centered (librosa) convention comes with
-the long-recording Predictor.
+48 kHz, hop 281) and the last ones read past the clip into zeros.
+
+``stft_centered`` is librosa's centered convention, used by the
+long-recording Predictor: the signal is padded with ``n_fft//2`` zeros on
+both sides and there are ``1 + n//hop`` frames.
+
+Both are built from ``unfold`` and ``torch.fft.rfft``; ``torch.stft``
+frames differently and is not used.
 """
 
 from __future__ import annotations
@@ -42,3 +46,15 @@ def stft_tf_style(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     framed = F.pad(x, (0, max(pad, 0))).unfold(-1, n_fft, hop)
     framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
     return torch.fft.rfft(framed, n=n_fft, dim=-1)
+
+
+def stft_centered(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """librosa-style centered STFT, Hann-windowed, constant (zero) pad.
+    x: (..., n_samples) real.  Returns (..., n_fft//2+1, frames) complex —
+    the librosa (freq, time) axis order, as a transposed view of the
+    time-major spectrum."""
+    half = n_fft // 2
+    # unfold gives (n + n_fft - n_fft) // hop + 1 = num_frames_centered
+    framed = F.pad(x, (half, half)).unfold(-1, n_fft, hop)
+    framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
+    return torch.fft.rfft(framed, n=n_fft, dim=-1).transpose(-1, -2)

@@ -10,18 +10,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2. build every kernel from ``audio_training_tpu_torch/csrc`` (all nvcc
    processes at once) and print ptxas' registers / shared memory / spills;
 3. each kernel against its plain PyTorch version on the card at the
-   production geometry (B=8, 160 mels x 513 frames, TF32 off): mel power
-   f32 (global relative error < 1e-5), bf16 output (bitwise the cast of
-   the f32 output), PCEN (absolute error < 1e-4);
+   production geometry (160 mels x 513 frames, TF32 off), at B=8 and at
+   each path's own batch: mel power f32 in tf framing (B=256) and centered
+   framing (B=64, and a 28,100-sample clip where the two frame counts
+   differ), global relative error < 1e-5; bf16 output bitwise the cast of
+   the f32 output; PCEN (absolute error < 1e-4); the power-mel kernel at
+   the Predictor's n_fft=2048 shape (B=64 x 513 frames x 1025 bins x 160
+   mels), global relative error < 1e-5;
 4. the paths, each with the launch counts zeroed just before and read just
    after: the badwinner2 serving chain at full width (normalize_rows ->
    fused featurizer, bf16 image -> BadWinner2 bf16, 62 labels, B=256,
-   random weights from a torch seed) answering 3 requests, and
-   ``make_fused_infer_fn(use_pcen=True)`` once; kernel-path logits agree
-   with the plain-featurizer path in f32 at B=8;
-5. timing with CUDA events after warm-up at B=256: each kernel, its plain
-   version, one PyTorch library call computing the same function, the
-   whole chain (ms per batch, audio-seconds per second) and peak memory.
+   random weights from a torch seed) answering 3 requests;
+   ``make_fused_infer_fn(use_pcen=True)`` once; and the long-recording
+   ``Predictor.predict_recording`` on a 60 s synthetic 48 kHz recording
+   (noise and chirps from a numpy seed) with the same bf16 badwinner2, once
+   at n_fft=4096 (the centered fused featurizer) and once at n_fft=2048
+   (centered STFT + the power-mel kernel).  Kernel-path logits agree with
+   the plain-featurizer path in f32 at B=8, and the Predictor's f32
+   probabilities with the plain featurizer's on the same windows;
+5. timing with CUDA events after warm-up: each kernel at its path's batch,
+   its plain version, one PyTorch library call computing the same
+   function; the badwinner2 chain (ms per batch, audio-seconds per second)
+   and peak memory; the centered STFT that feeds the power-mel kernel; the
+   Predictor's host detection and windowing once, then per geometry its
+   device ms per 64-window batch and the featurizer's part of it,
+   recording-seconds per second end to end, and the host's share of that
+   wall time from a profiled run).
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -40,20 +54,26 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 BATCH = 256
 CHECK_BATCH = 8
+WINDOW_BATCH = 64  # the Predictor's max_window_batch
 NUM_LABELS = 62
 REQUESTS = 3
 SEED = 0
+RECORDING_S = 60.0
+SHORT_CLIP = 28100  # 100 hops: 100 tf frames, 101 centered frames
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
 # f32 logits of the kernel path vs the plain-featurizer path, relative to
 # max |logit|: the featurizers differ at ~1e-6 of the mel scale and the CNN
-# adds f32 rounding only (TF32 off)
+# adds f32 rounding only (TF32 off); the same bound for the Predictor's
+# probabilities, relative to max |p|
 LOGIT_REL_TOL = 1e-4
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 KERNEL_SOURCE = "audio_training_tpu_torch/csrc/fused_featurizer.cu"
 TPU_KERNEL = "audio_training_tpu/ops/pallas/fused_featurizer.py:286"
+MELSPEC_SOURCE = "audio_training_tpu_torch/csrc/melspec.cu"
+MELSPEC_TPU_KERNEL = "audio_training_tpu/ops/pallas/melspec.py:36"
 
 
 def fail(msg: str) -> None:
@@ -87,7 +107,28 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def synthetic_recording(seconds: float, sr: int, seed: int):
+    """Noise and intermittent chirps of at most 1.5 s, from a numpy seed (a
+    constant tone raises its own row median and detects nothing)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = 0.005 * rng.standard_normal(int(seconds * sr))
+    start = 0.5
+    while start < seconds - 2.0:
+        dur = rng.uniform(0.4, 1.5)
+        f0, f1 = rng.uniform(1000.0, 8000.0, 2)
+        t = np.arange(int(dur * sr)) / sr
+        phase = 2 * np.pi * (f0 * t + (f1 - f0) * t**2 / (2 * dur))
+        i = int(start * sr)
+        x[i : i + len(t)] += (rng.uniform(0.2, 0.8) * np.sin(phase)
+                              * np.hanning(len(t)))
+        start += dur + rng.uniform(1.0, 4.0)
+    return x.astype(np.float32)
+
+
 def main() -> None:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -124,13 +165,18 @@ def main() -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
     from audio_training_tpu_torch.config import FeaturizerConfig
+    from audio_training_tpu_torch.detect import (
+        get_end, get_tracks_from_signals, signal_noise)
+    from audio_training_tpu_torch.infer import Predictor, extract_track_windows
     from audio_training_tpu_torch.infer.fused import make_fused_infer_fn
     from audio_training_tpu_torch.models import build_model
     from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.ops.cuda import melspec
     from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
     from audio_training_tpu_torch.ops.features import (
-        build_mel_weights, normalize_rows)
+        build_mel_weights, mel_power, normalize_rows)
     from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
+    from audio_training_tpu_torch.ops.stft import stft_centered
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,6 +229,67 @@ def main() -> None:
     mel_err = max(e[0] for e in errs)
     pcen_err = max(e[1] for e in errs)
 
+    # centered framing: the Predictor's featurizer at n_fft=4096
+    fzc = ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length, center=True,
+                              device=dev)
+
+    def check_centered(raw: torch.Tensor) -> float:
+        b, n = raw.shape
+        mel_k = fzc(raw, pcen=False)
+        mel_p = ffz.fused_featurizer_plain(raw, mel_w, cfg.hop_length,
+                                           center=True)
+        check(mel_k.shape == (b, cfg.n_mels, 1 + n // cfg.hop_length),
+              f"centered mel shape {tuple(mel_k.shape)}")
+        err = (mel_k - mel_p).abs().max().item()
+        rel = err / mel_p.abs().max().item()
+        log(f"check B={b} x {n} samples centered mel f32: global rel err "
+            f"{rel:.3e} (limit {MEL_REL_TOL}), max abs err {err:.3e}")
+        check(rel < MEL_REL_TOL, "centered mel kernel disagrees with plain")
+        same = torch.equal(fzc(raw, pcen=False, out_dtype=torch.bfloat16),
+                           mel_k.to(torch.bfloat16))
+        log(f"check B={b} centered mel bf16: bitwise the cast of the f32 "
+            f"output: {same}")
+        check(same, "bf16 centered mel differs from the cast f32 output")
+        return err
+
+    centered_err = max(
+        check_centered(normalize_rows(clips(CHECK_BATCH))),
+        check_centered(normalize_rows(clips(WINDOW_BATCH))),
+        check_centered(normalize_rows(torch.randn(
+            4, SHORT_CLIP, generator=gen, device=dev))))
+
+    # the power-mel kernel at the Predictor's n_fft=2048 geometry
+    cfg2 = FeaturizerConfig(n_fft=2048)
+    mel2_np = build_mel_weights(cfg2)
+    w2_t = torch.as_tensor(np.ascontiguousarray(mel2_np.T), device=dev)
+
+    def spectra(batch: int) -> torch.Tensor:
+        """Time-major (B, T, F) complex STFT of normalized clips."""
+        raw = normalize_rows(clips(batch))
+        return stft_centered(raw, cfg2.n_fft, cfg2.hop_length).transpose(1, 2)
+
+    def check_power_mel(spec: torch.Tensor) -> float:
+        b, t, f = spec.shape
+        out_k = melspec.fused_power_mel_complex(spec, w2_t)
+        out_p = melspec.power_mel_plain(spec.real, spec.imag, w2_t)
+        check(out_k.shape == (b, t, cfg2.n_mels),
+              f"power mel shape {tuple(out_k.shape)}")
+        err = (out_k - out_p).abs().max().item()
+        rel = err / out_p.abs().max().item()
+        log(f"check B={b} power mel ({t} frames x {f} bins x {cfg2.n_mels} "
+            f"mels): global rel err {rel:.3e} (limit {MEL_REL_TOL}), max abs "
+            f"err {err:.3e}")
+        check(rel < MEL_REL_TOL, "power mel kernel disagrees with plain")
+        same = torch.equal(melspec.fused_power_mel(
+            spec.real.contiguous(), spec.imag.contiguous(), w2_t), out_k)
+        log(f"check B={b} power mel: re/im entry equals the complex entry: "
+            f"{same}")
+        check(same, "the two power mel entries disagree")
+        return err
+
+    pm_err = max(check_power_mel(spectra(CHECK_BATCH)),
+                 check_power_mel(spectra(WINDOW_BATCH)))
+
     # ---- 4. the paths -----------------------------------------------------
     cpu_gen = torch.Generator().manual_seed(SEED)
     model = build_model("badwinner2", NUM_LABELS, logits_only=True,
@@ -234,7 +341,8 @@ def main() -> None:
     pcen_counts = ffz.launch_counts()
     log(f"path make_fused_infer_fn(use_pcen=True): B={BATCH}, "
         f"launches {pcen_counts}")
-    check(min(pcen_counts.values()) >= 1,
+    check(pcen_counts["fused_featurizer_mel"] >= 1
+          and pcen_counts["fused_featurizer_pcen"] >= 1,
           "the PCEN path did not launch both kernels")
     check(tuple(pcen_logits.shape) == (BATCH, NUM_LABELS),
           f"pcen-path logits shape {tuple(pcen_logits.shape)}")
@@ -243,7 +351,69 @@ def main() -> None:
           and image.min().item() == -1.0 and image.max().item() == 1.0,
           "PCEN image not finite in [-1, 1]")
 
-    # ---- 5. timing at B=256 ---------------------------------------------
+    # The long-recording Predictor, at both featurizer geometries
+    recording = synthetic_recording(RECORDING_S, cfg.sr, SEED)
+    labels = [f"label{i}" for i in range(NUM_LABELS)]
+    predictors, predictor_counts = {}, {}
+    for n_fft in (4096, 2048):
+        pcfg = FeaturizerConfig(n_fft=n_fft)
+        pred = Predictor(model, labels, pcfg, device=dev)
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        melspec.reset_launch_counts()
+        tracks, results = pred.predict_recording(recording, cfg.sr)
+        torch.cuda.synchronize()
+        counts = {
+            "fused_featurizer_mel_centered":
+                ffz.launch_counts()["fused_featurizer_mel_centered"],
+            "power_mel": melspec.launch_counts()["power_mel"]}
+        k1, k2 = counts.values()
+        windows = extract_track_windows(
+            recording, cfg.sr, tracks, segment_length=pcfg.segment_length,
+            stride=pcfg.segment_stride, fmin=pcfg.fmin, fmax=pcfg.fmax,
+            rng=np.random.default_rng(SEED)).windows
+        named = sum(bool(r and r.labels) for r in results)
+        log(f"path Predictor.predict_recording n_fft={n_fft}: "
+            f"{RECORDING_S:.0f} s at {cfg.sr} Hz, {len(tracks)} tracks, "
+            f"{len(windows)} windows, {named} tracks labelled, launches "
+            f"{counts}")
+        if n_fft == 4096:
+            check(k1 >= 1 and k2 == 0,
+                  "the n_fft=4096 Predictor did not run the centered mel "
+                  "kernel alone")
+        else:
+            check(k2 >= 1 and k1 == 0,
+                  "the n_fft=2048 Predictor did not run the power mel "
+                  "kernel alone")
+        check(len(tracks) >= 1 and any(r is not None for r in results),
+              "the Predictor found no track to classify")
+        probs = pred.predict_windows(windows)
+        check(probs.shape == (len(windows), NUM_LABELS)
+              and bool(np.isfinite(probs).all())
+              and probs.min() >= 0.0 and probs.max() <= 1.0,
+              "Predictor probabilities not finite in [0, 1]")
+
+        # f32: the kernel path against the plain featurizer, same windows
+        pred32 = Predictor(model32, labels, pcfg, device=dev)
+        probs_k = pred32.predict_windows(windows)
+        w_dev = torch.as_tensor(build_mel_weights(pcfg), device=dev)
+        probs_p = []
+        with torch.no_grad():
+            for i in range(0, len(windows), WINDOW_BATCH):
+                raw_w = torch.as_tensor(windows[i : i + WINDOW_BATCH],
+                                        device=dev)
+                mel = mel_power(normalize_rows(raw_w), w_dev, n_fft,
+                                pcfg.hop_length, center=True)
+                probs_p.append(pred32.classify(mel).cpu().numpy())
+        probs_p = np.concatenate(probs_p)
+        p_rel = np.abs(probs_k - probs_p).max() / np.abs(probs_p).max()
+        log(f"check Predictor n_fft={n_fft} f32 probabilities, kernel vs "
+            f"plain featurizer, {len(windows)} windows: rel err {p_rel:.3e} "
+            f"(limit {LOGIT_REL_TOL})")
+        check(p_rel < LOGIT_REL_TOL, "kernel-path probabilities disagree")
+        predictors[n_fft], predictor_counts[n_fft] = pred, counts
+
+    # ---- 5. timing -------------------------------------------------------
     raw = normalize_rows(requests[0])
     frames, n_mels = cfg.mel_frames, cfg.n_mels
     hann = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
@@ -331,6 +501,111 @@ def main() -> None:
             log(f"  conv {e.device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
                 f"in {e.input_shapes[:2]}")
 
+    # ---- the Predictor's kernels at its batch of 64 windows --------------
+    raw64 = normalize_rows(clips(WINDOW_BATCH))
+    frames_c = 1 + cfg.samples_per_clip // cfg.hop_length
+
+    def library_centered() -> torch.Tensor:
+        spec = torch.stft(raw64, cfg.n_fft, cfg.hop_length, window=hann,
+                          center=True, pad_mode="constant",
+                          return_complex=True)
+        return torch.matmul(mel_w, spec.real**2 + spec.imag**2)
+
+    lib_ref = ffz.fused_featurizer_plain(raw64, mel_w, cfg.hop_length,
+                                         center=True)
+    lib_rel = ((library_centered() - lib_ref).abs().max()
+               / lib_ref.abs().max()).item()
+    check(lib_rel < MEL_REL_TOL,
+          f"centered library yardstick disagrees ({lib_rel})")
+    cen_ms = time_ms(lambda: fzc(raw64, pcen=False))
+    cen_plain_ms = time_ms(lambda: ffz.fused_featurizer_plain(
+        raw64, mel_w, cfg.hop_length, center=True), iters=5)
+    cen_lib_ms = time_ms(library_centered, iters=5)
+    cen_flops = WINDOW_BATCH * frames_c * (cfg.n_fft + 11 * 1024 * 10
+                                           + 19 * n_bins + 2 * nnz)
+    cen_bytes = (raw64.numel() * 4 + WINDOW_BATCH * n_mels * frames_c * 4
+                 + table_bytes)
+    cen_bound_ms, cen_bound_by = bound(cen_flops, cen_bytes)
+    log(f"time centered mel kernel (f32 out) B={WINDOW_BATCH}: {cen_ms:.4f} "
+        f"ms, plain {cen_plain_ms:.4f} ms, library stft(center)+matmul "
+        f"{cen_lib_ms:.4f} ms, bound {cen_bound_ms:.4f} ms ({cen_bound_by}; "
+        f"{cen_flops / 1e9:.2f} GFLOP, {cen_bytes / 1e6:.1f} MB), roofline "
+        f"share {cen_bound_ms / cen_ms:.3f} {card}")
+
+    spec64 = spectra(WINDOW_BATCH)
+    pm_ms = time_ms(lambda: melspec.fused_power_mel_complex(spec64, w2_t))
+    pm_plain_ms = time_ms(lambda: melspec.power_mel_plain(
+        spec64.real, spec64.imag, w2_t), iters=5)
+    pm_lib_ms = time_ms(lambda: torch.matmul(
+        spec64.real**2 + spec64.imag**2, w2_t), iters=5)
+    # the rest of the n_fft=2048 featurizer: the centered STFT (framing and
+    # cuFFT) that feeds the power-mel kernel
+    stft_ms = time_ms(lambda: stft_centered(raw64, cfg2.n_fft,
+                                            cfg2.hop_length), iters=5)
+    rows, n_freq = WINDOW_BATCH * spec64.shape[1], spec64.shape[2]
+    # what this data needs: |X|^2 (3 flops a bin) and 2 flops for each
+    # non-zero of the band-sparse bank; the kernel does the dense product
+    pm_flops = rows * (3 * n_freq + 2 * int((mel2_np > 0).sum()))
+    pm_dense_flops = rows * (3 * n_freq + 2 * n_freq * cfg2.n_mels)
+    pm_bytes = spec64.numel() * 8 + rows * cfg2.n_mels * 4 + w2_t.numel() * 4
+    pm_bound_ms, pm_bound_by = bound(pm_flops, pm_bytes)
+    log(f"time power mel kernel B={WINDOW_BATCH} ({rows} rows x {n_freq} bins "
+        f"x {cfg2.n_mels} mels): {pm_ms:.4f} ms, plain {pm_plain_ms:.4f} ms, "
+        f"library matmul {pm_lib_ms:.4f} ms, bound {pm_bound_ms:.4f} ms "
+        f"({pm_bound_by}; {pm_flops / 1e9:.3f} GFLOP needed, "
+        f"{pm_bytes / 1e6:.1f} MB), roofline share {pm_bound_ms / pm_ms:.3f}; "
+        f"dense product {pm_dense_flops / 1e9:.2f} GFLOP, its operations "
+        f"bound {pm_dense_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms; "
+        f"stft_centered feeding it {stft_ms:.4f} ms {card}")
+
+    # ---- the Predictor end to end --------------------------------------
+    # Host detection and windowing do not depend on the featurizer's
+    # geometry: timed once.
+    t0 = time.perf_counter()
+    end = get_end(recording, cfg.sr)
+    signals, _ = signal_noise(recording, cfg.sr)
+    tracks = get_tracks_from_signals(signals, end)
+    detect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    windows = extract_track_windows(
+        recording, cfg.sr, tracks, segment_length=cfg.segment_length,
+        stride=cfg.segment_stride, fmin=cfg.fmin, fmax=cfg.fmax).windows
+    windows_s = time.perf_counter() - t0
+    log(f"time Predictor host stages on {RECORDING_S:.0f} s: detect "
+        f"{detect_s * 1e3:.1f} ms (numpy/scipy), windows "
+        f"{windows_s * 1e3:.1f} ms, {len(tracks)} tracks, {len(windows)} "
+        f"windows")
+    for n_fft, pred in predictors.items():
+
+        @torch.no_grad()
+        def one_batch():
+            return pred.classify(pred.featurize(raw64))
+
+        batch_ms = time_ms(one_batch, iters=5)
+        feat_ms = time_ms(lambda: pred.featurize(raw64), iters=5)
+        t0 = time.perf_counter()
+        pred.predict_windows(windows)
+        classify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred.predict_recording(recording, cfg.sr)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        # device time does not depend on who detected the tracks
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pred.predict_recording(recording, cfg.sr, tracks=tracks)
+            torch.cuda.synchronize()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        log(f"time Predictor n_fft={n_fft}: {batch_ms:.3f} ms device per "
+            f"{WINDOW_BATCH}-window batch (bf16 CNN), of which the "
+            f"featurizer {feat_ms:.3f} ms; predict_recording of "
+            f"{RECORDING_S:.0f} s with {len(windows)} windows: "
+            f"{wall_s * 1e3:.1f} ms wall, {RECORDING_S / wall_s:.1f} "
+            f"recording-s/s (classify {classify_s * 1e3:.1f} ms); device "
+            f"busy {busy_ms:.1f} ms in a profiled run, host share "
+            f"{1 - busy_ms / (wall_s * 1e3):.3f} {card}")
+
     kernels = [
         {"name": "fused_featurizer_mel", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -344,6 +619,18 @@ def main() -> None:
          "max_abs_err": pcen_err, "ms": pcen_ms, "plain_ms": pcen_plain_ms,
          "bound_ms": pcen_bound_ms, "bound_by": pcen_bound_by,
          "library_ms": None},
+        {"name": "fused_featurizer_mel_centered", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+         "launches": predictor_counts[4096]["fused_featurizer_mel_centered"],
+         "max_abs_err": centered_err, "ms": cen_ms, "plain_ms": cen_plain_ms,
+         "bound_ms": cen_bound_ms, "bound_by": cen_bound_by,
+         "library_ms": cen_lib_ms},
+        {"name": "power_mel", "route": "cuda",
+         "source": MELSPEC_SOURCE, "replaces": MELSPEC_TPU_KERNEL,
+         "launches": predictor_counts[2048]["power_mel"],
+         "max_abs_err": pm_err, "ms": pm_ms, "plain_ms": pm_plain_ms,
+         "bound_ms": pm_bound_ms, "bound_by": pm_bound_by,
+         "library_ms": pm_lib_ms},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,162 @@
+"""``python -m audio_training_tpu_torch.cli.predict`` against the JAX CLI's
+``predict_file``, end to end on the CPU.
+
+A run directory holds ``metadata.txt`` and the port's weights file, written
+from converted badwinner2 weights; the JAX side runs its Predictor on the
+same Flax variables.  Both read the same WAV (the small 8 kHz, n_fft=512
+geometry of tests/test_infer.py::test_predictor_end_to_end, so the JAX
+Predictor runs K2 in interpret mode).  Tracks must match exactly; labels
+and tags exactly; confidences, rounded percentages of probabilities that
+agree to 1e-4, to within 1.  Each flag of the JAX CLI that the port does not
+take yet must exit non-zero naming its ROADMAP item.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+from audio_training_tpu.cli.predict import predict_file as jax_predict_file
+from audio_training_tpu.config import FeaturizerConfig as JaxConfig
+from audio_training_tpu.config import InferenceConfig as JaxInferenceConfig
+from audio_training_tpu.infer import Predictor as JaxPredictor
+from audio_training_tpu_torch.cli import predict
+from audio_training_tpu_torch.models.convert import (
+    badwinner2_state_dict_from_flax,
+)
+from audio_training_tpu_torch.train.checkpoints import (
+    load_state_dict,
+    save_state_dict,
+)
+
+from test_torch_badwinner2 import flax_variables
+
+torch.set_num_threads(2)
+
+SR = 8000
+CFG = dict(sr=SR, n_fft=512, hop_length=100, n_mels=96, fmax=3500.0)
+LABELS = ["kiwi", "morepo2", "noise", "tui", "bellbird", "human", "other"]
+
+
+def _recording(seed, freq):
+    t = np.arange(SR * 8) / SR
+    x = (np.sin(2 * np.pi * freq * t) * (t % 4 < 1.2)).astype(np.float32)
+    return x + 0.01 * np.random.default_rng(seed).standard_normal(
+        len(x)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """(run dir, JAX module, Flax variables, two WAV paths)."""
+    root = tmp_path_factory.mktemp("cli")
+    jcfg = JaxConfig(**CFG)
+    module, v = flax_variables((1, jcfg.n_mels, jcfg.mel_frames, 1),
+                               num_labels=len(LABELS))
+    run_dir = root / "run"
+    save_state_dict(run_dir / "val-loss.pt", badwinner2_state_dict_from_flax(v))
+    meta = {"name": "badwinner2", "labels": LABELS, "ebird_labels": LABELS,
+            "multi_label": True, "channels": 1, "featurizer": CFG,
+            "mean_sub": False, "db_scale": False}
+    (run_dir / "metadata.txt").write_text(json.dumps(meta))
+    wavs = root / "wavs"
+    wavs.mkdir()
+    paths = []
+    for i, freq in enumerate((1500, 2200)):
+        path = wavs / f"rec{i}.wav"
+        wavfile.write(path, SR, _recording(i, freq))
+        paths.append(path)
+    (wavs / "notes.txt").write_text("not audio")
+    return run_dir, module, v, paths
+
+
+def _jax_tracks(run, path, threshold, aggregation="mean"):
+    _, module, v, _ = run
+    pred = JaxPredictor(module, v, LABELS, JaxConfig(**CFG),
+                        JaxInferenceConfig(threshold=0.7,
+                                           aggregation=aggregation))
+    tracks, _ = jax_predict_file(pred, path, threshold=threshold)
+    return tracks
+
+
+def _assert_tracks_match(got, want):
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        for key in ("start", "end", "freq_start", "freq_end", "positions"):
+            assert g[key] == w[key]
+        assert len(g["predictions"]) == len(w["predictions"]) == 1
+        gp, wp = g["predictions"][0], w["predictions"][0]
+        assert gp["labels"] == wp["labels"]
+        assert gp.get("raw_tag") == wp.get("raw_tag")
+        confs = zip(gp["confidences"] + [gp.get("raw_confidence", 0)],
+                    wp["confidences"] + [wp.get("raw_confidence", 0)])
+        assert all(abs(a - b) <= 1 for a, b in confs)
+
+
+@pytest.mark.parametrize("aggregation", ["mean", "votes"])
+def test_file_matches_jax_predict_file(run, tmp_path, aggregation):
+    run_dir, _, _, paths = run
+    out = tmp_path / "out.json"
+    assert predict.main([str(run_dir), "--file", str(paths[0]),
+                         "--threshold", "0.5", "--aggregation", aggregation,
+                         "--json-out", str(out), "--device", "cpu"]) == 0
+    got = json.loads(out.read_text())
+    assert list(got) == [str(paths[0])]
+    _assert_tracks_match(got[str(paths[0])],
+                         _jax_tracks(run, paths[0], 0.5, aggregation))
+
+
+def test_dir_with_thresholds_json_matches_jax(run, tmp_path):
+    run_dir, _, _, paths = run
+    table = {"kiwi": 0.3, "noise": 0.45, "tui": 0.9}
+    thresholds = tmp_path / "thr.json"
+    thresholds.write_text(json.dumps(table))
+    out = tmp_path / "out.json"
+    assert predict.main([str(run_dir), "--dir", str(paths[0].parent),
+                         "--thresholds-json", str(thresholds),
+                         "--json-out", str(out), "--device", "cpu"]) == 0
+    got = json.loads(out.read_text())
+    assert list(got) == [str(p) for p in paths]  # the .txt is skipped
+    vector = np.array([table.get(l, 0.7) for l in LABELS], np.float32)
+    for path in paths:
+        _assert_tracks_match(got[str(path)], _jax_tracks(run, path, vector))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--denoise"], ["--grid", "g.json"], ["--lat", "-41.0"],
+    ["--lng", "174.0"], ["--month", "6"], ["--embedding-model", "m"],
+    ["--yamnet-model", "m"], ["--folder-eval", "d"], ["--test-split", "s"],
+])
+def test_unported_flags_exit_non_zero(run, capsys, flags):
+    with pytest.raises(SystemExit) as exc:
+        predict.parse_args([str(run[0]), "--file", "x.wav", *flags])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert flags[0] in err and "ROADMAP.md queue item 3" in err
+
+
+def test_loader_reads_the_port_weights_only(run, tmp_path):
+    run_dir, _, v, _ = run
+    sd = load_state_dict(run_dir / "val-loss.pt")
+    want = badwinner2_state_dict_from_flax(v)
+    assert sd.keys() == want.keys()
+    assert all(torch.equal(sd[k], want[k]) for k in sd)
+    # the frozen-deployment name is found when the named file is absent
+    frozen = tmp_path / "frozen"
+    save_state_dict(frozen / "audioModel.pt", sd)
+    (frozen / "metadata.txt").write_text((run_dir / "metadata.txt").read_text())
+    pred, meta = predict.load_predictor(frozen, "val-loss", device="cpu")
+    assert pred.labels == LABELS and meta["name"] == "badwinner2"
+    assert pred.device == torch.device("cpu")
+    # a JAX run dir holds an orbax checkpoint directory
+    orbax = tmp_path / "orbax"
+    (orbax / "val-loss").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match="orbax"):
+        predict.weights_path(orbax, "val-loss")
+    with pytest.raises(FileNotFoundError, match="no val-loss.pt"):
+        predict.weights_path(tmp_path, "val-loss")
+
+
+def test_needs_file_or_dir(run):
+    assert predict.main([str(run[0]), "--device", "cpu"]) == 1

@@ -2,7 +2,10 @@
 
 On the CPU the port's ``FusedFeaturizer`` runs its plain version; it is
 held against the JAX Pallas kernel in interpret mode on a short clip and
-against the JAX rfft path at the full 3 s geometry.  Tolerances as in
+against the JAX rfft path at the full 3 s geometry, in the tf framing and in
+the centered framing of the Predictor (there also against the JAX
+``stft_centered`` power -> mel and ``MatmulMelPlan(center=True)``).
+Tolerances as in
 tests/test_fused_featurizer.py: mel global relative error < 1e-5, PCEN
 absolute error < 1e-4 (output range [-1, 1]), bf16 output bitwise the cast
 of the f32 output.  The CUDA kernel itself is checked against the plain
@@ -15,6 +18,8 @@ import pytest
 import torch
 
 from audio_training_tpu.config import FeaturizerConfig as JaxConfig
+from audio_training_tpu.ops.fftmel import MatmulMelPlan
+from audio_training_tpu.ops.stft import stft_centered as jax_stft_centered
 from audio_training_tpu.ops.featurizer_select import make_mel_fn as jax_make_mel_fn
 from audio_training_tpu.ops.pallas.fused_featurizer import (
     FusedFeaturizer as JaxFusedFeaturizer,
@@ -132,16 +137,48 @@ def test_constructor_rejects_what_jax_rejects(mel_w):
     assert ffz.geometry_error(mel_w, 4096) is None
 
 
+# 144,000 samples: 513 frames in both framings; 28,100 = 100 hops: 100 tf
+# frames, 101 centered ones
+@pytest.mark.parametrize("samples", [144000, 28100])
+def test_centered_plain_matches_jax_stft_centered(mel_w, samples):
+    raw = _clips(1, samples, 31)
+    spec = jax_stft_centered(jnp.asarray(raw), 4096, 281)  # (B, F, T)
+    power = np.asarray(jnp.real(spec) ** 2 + jnp.imag(spec) ** 2, np.float64)
+    want = np.einsum("mf,bft->bmt", mel_w.astype(np.float64), power)
+    fz_c = ffz.FusedFeaturizer(mel_w, 4096, 281, center=True, device="cpu")
+    got = fz_c(torch.from_numpy(raw), pcen=False)
+    assert got.shape == (1, 160, 1 + samples // 281)
+    assert _rel(got, want) < MEL_REL
+    plan = MatmulMelPlan(mel_w, 4096, 281, center=True, precision="highest")
+    assert _rel(got, plan(jnp.asarray(raw))) < MEL_REL
+    assert torch.equal(got, ffz.fused_featurizer_plain(
+        torch.from_numpy(raw), fz_c.mel_weights, 281, center=True))
+
+
+def test_centered_pcen_matches_jax_kernel_interpret(mel_w):
+    raw = _clips(2, SHORT, 32)
+    jfz = JaxFusedFeaturizer(mel_w, 4096, 281, precision="highest",
+                             center=True)
+    fz_c = ffz.FusedFeaturizer(mel_w, 4096, 281, center=True, device="cpu")
+    want_mel = jfz(jnp.asarray(raw), pcen=False, interpret=True)
+    got_mel = fz_c(torch.from_numpy(raw), pcen=False)
+    assert got_mel.shape == (2, 160, 1 + SHORT // 281)
+    assert _rel(got_mel, want_mel) < MEL_REL
+    want = np.asarray(jfz(jnp.asarray(raw), pcen=True, interpret=True))
+    got = fz_c(torch.from_numpy(raw), pcen=True).numpy()
+    assert np.abs(got - want).max() < PCEN_ABS
+
+
 def test_deferred_modes_raise(mel_w, fz):
     with pytest.raises(ValueError, match="queue item 1"):
         ffz.FusedFeaturizer(mel_w, precision="bf16_3x", device="cpu")
-    with pytest.raises(ValueError, match="queue item 1"):
-        ffz.FusedFeaturizer(mel_w, center=True, device="cpu")
+    fz_c = ffz.FusedFeaturizer(mel_w, center=True, device="cpu")
     raw = torch.zeros(1, SHORT)
-    with pytest.raises(ValueError, match="queue item 1"):
-        fz(raw, pcen=False, normalize_waveform=True)
-    with pytest.raises(ValueError, match="queue item 1"):
-        fz(raw, pcen=False, frontend_params=(0.0, 0.0, 1.0))
+    for featurizer in (fz, fz_c):
+        with pytest.raises(ValueError, match="queue item 1"):
+            featurizer(raw, pcen=False, normalize_waveform=True)
+        with pytest.raises(ValueError, match="queue item 1"):
+            featurizer(raw, pcen=False, frontend_params=(0.0, 0.0, 1.0))
     with pytest.raises(ValueError, match="out_dtype"):
         fz(raw, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="float32"):

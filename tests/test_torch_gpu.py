@@ -7,9 +7,10 @@ port is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 (``--noconftest``: tests/conftest.py sets up JAX.)  Tolerances as on the
-CPU: mel global relative error < 1e-5, PCEN absolute error < 1e-4, bf16
-output bitwise the cast of the f32 output.  TF32 is off for the plain
-version's einsum.
+CPU: mel and power-mel global relative error < 1e-5, PCEN absolute error
+< 1e-4, bf16 output bitwise the cast of the f32 output, Predictor
+probabilities of the kernel path within 1e-4 of max |p| of the plain
+featurizer's.  TF32 is off for the plain versions' einsums and the CNN.
 """
 
 import numpy as np
@@ -17,8 +18,15 @@ import pytest
 import torch
 
 from audio_training_tpu_torch.config import FeaturizerConfig
+from audio_training_tpu_torch.infer import Predictor
+from audio_training_tpu_torch.models import build_model
 from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
-from audio_training_tpu_torch.ops.features import build_mel_weights
+from audio_training_tpu_torch.ops.cuda import melspec
+from audio_training_tpu_torch.ops.features import (
+    build_mel_weights,
+    mel_power,
+    normalize_rows,
+)
 from audio_training_tpu_torch.ops.pcen import pcen
 
 torch.set_num_threads(2)
@@ -31,6 +39,7 @@ def _card() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -65,6 +74,7 @@ def test_fused_featurizer_kernel_matches_plain(batch, samples, hop):
                           out_dtype=torch.bfloat16),
                        raw_pcen.to(torch.bfloat16))
     assert ffz.launch_counts() == {"fused_featurizer_mel": 5,
+                                   "fused_featurizer_mel_centered": 0,
                                    "fused_featurizer_pcen": 3}
 
 
@@ -79,3 +89,104 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fz(raw.cpu(), pcen=False)
     with pytest.raises(ValueError, match="float32"):
         fz(raw.half(), pcen=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,samples", [
+    (3, 144000),  # production window: 513 frames in either framing
+    (1, 28100),   # 100 hops: 101 centered frames, 100 tf frames
+    (2, 20000),
+])
+def test_centered_kernel_matches_plain(batch, samples):
+    dev = _card()
+    fz = ffz.FusedFeaturizer(build_mel_weights(FeaturizerConfig()), center=True,
+                             device=dev)
+    raw = torch.from_numpy(np.random.default_rng(samples).standard_normal(
+        (batch, samples)).astype(np.float32)).to(dev)
+    ffz.reset_launch_counts()
+    mel = fz(raw, pcen=False)
+    want = ffz.fused_featurizer_plain(raw, fz.mel_weights, 281, center=True)
+    assert mel.shape == want.shape == (batch, 160, 1 + samples // 281)
+    assert _rel(mel, want) < MEL_REL
+    assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16),
+                       mel.to(torch.bfloat16))
+    got = fz(raw, pcen=True)
+    assert (got - pcen(want, *fz.pcen_params, time_axis=2)).abs().max() < PCEN_ABS
+    assert ffz.launch_counts() == {"fused_featurizer_mel": 0,
+                                   "fused_featurizer_mel_centered": 3,
+                                   "fused_featurizer_pcen": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,frames,bins,mels", [
+    (2, 513, 1025, 160),  # the Predictor's n_fft=2048 shape, its mel bank
+    (3, 37, 129, 20),     # ragged in every dimension
+    (1, 100, 257, 200),   # more mels than one block's 160 columns
+])
+def test_power_mel_kernel_matches_plain(batch, frames, bins, mels):
+    dev = _card()
+    rng = np.random.default_rng(bins)
+    if bins == 1025:
+        w = build_mel_weights(FeaturizerConfig(n_fft=2048))
+    else:
+        w = rng.random((mels, bins)).astype(np.float32)
+    w_t = torch.from_numpy(np.ascontiguousarray(w.T)).to(dev)
+    re, im = (torch.from_numpy(rng.standard_normal(
+        (batch, frames, bins)).astype(np.float32)).to(dev) for _ in range(2))
+    melspec.reset_launch_counts()
+    got = melspec.fused_power_mel(re, im, w_t)
+    want = melspec.power_mel_plain(re, im, w_t)
+    assert got.shape == (batch, frames, mels)
+    assert _rel(got, want) < MEL_REL
+    spec = torch.complex(re, im)
+    assert torch.equal(melspec.fused_power_mel_complex(spec, w_t), got)
+    assert melspec.launch_counts() == {"power_mel": 2}
+    with pytest.raises(ValueError, match="contiguous"):
+        melspec.fused_power_mel_complex(spec.transpose(1, 2).contiguous()
+                                        .transpose(1, 2), w_t)
+
+
+def _predictor(n_fft, dev):
+    cfg = FeaturizerConfig(n_fft=n_fft)
+    model = build_model("badwinner2", 7, logits_only=True,
+                        generator=torch.Generator().manual_seed(0)).module
+    return Predictor(model.to(dev), list("abcdefg"), cfg, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fft", [4096, 2048])
+def test_predictor_kernel_path_matches_plain_featurizer(n_fft):
+    dev = _card()
+    pred = _predictor(n_fft, dev)
+    windows = np.random.default_rng(n_fft).uniform(
+        -0.5, 0.5, (3, 144000)).astype(np.float32)
+    ffz.reset_launch_counts()
+    melspec.reset_launch_counts()
+    got = pred.predict_windows(windows)
+    k1 = ffz.launch_counts()["fused_featurizer_mel_centered"]
+    k2 = melspec.launch_counts()["power_mel"]
+    assert (k1, k2) == ((1, 0) if n_fft == 4096 else (0, 1))
+    raw = torch.from_numpy(windows).to(dev)
+    mel = mel_power(normalize_rows(raw),
+                    torch.from_numpy(build_mel_weights(pred.cfg)).to(dev),
+                    n_fft, 281, center=True)
+    with torch.no_grad():
+        want = pred.classify(mel).cpu().numpy()
+    assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fft", [4096, 2048])
+def test_predictor_raises_when_a_kernel_is_refused(monkeypatch, n_fft):
+    """A failed launch surfaces as an error: no plain fallback on CUDA."""
+    dev = _card()
+    pred = _predictor(n_fft, dev)
+
+    class Refused:
+        def __getattr__(self, name):
+            return lambda *args: 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(ffz, "_library", Refused)
+    monkeypatch.setattr(melspec, "_library", Refused)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pred.predict_windows(np.ones((2, 144000), np.float32))
