@@ -1,4 +1,4 @@
-"""badwinner2 — the flagship CNN, eval-mode forward (port of
+"""badwinner2 — the flagship CNN (port of
 ``audio_training_tpu/models/badwinner2.py:43-131``; architecture of the
 reference ``badwinner2.build_model``, badwinner2.py:212-324):
 
@@ -7,17 +7,21 @@ reference ``badwinner2.build_model``, badwinner2.py:212-324):
     -> [Conv64 3x3 + LeakyReLU(0.01) + BN] x2 -> MaxPool 3x3
     -> [Conv128 3x3 + LReLU + BN] x2
     -> "big condense" Conv128 (44x3) for 160 mels / (22x3) for 96
-    -> MaxPool (5,3)
-    -> Conv1024 (1x9, orthogonal) -> LReLU -> BN
-    -> Conv1024 (1x1, orthogonal) -> LReLU -> BN
+    -> MaxPool (5,3) -> Dropout
+    -> Conv1024 (1x9, orthogonal) -> LReLU -> BN -> Dropout
+    -> Conv1024 (1x1, orthogonal) -> LReLU -> BN -> Dropout
     -> Conv(num_labels, 1x1, orthogonal) -> LReLU
     -> [optional LME pool over mel then time, sharpness 5]
     -> GlobalAvgPool -> sigmoid (multi-label) | softmax
 
-Dropout is the identity in eval and is left out.  ``dtype=torch.bfloat16``
+``.train()`` is Flax's ``train=True``: BatchNorm on batch moments with
+Flax's running-statistics update, and dropout at rate ``dropout`` (0.5) in
+JAX's three places (``:106``, ``:111``, ``:116``), drawn from the
+``generator`` given to ``forward`` (JAX keys and torch generators give
+different bits: parity is held at ``dropout=0.0``).  ``dtype=torch.bfloat16``
 runs the CNN in bf16 after the frontend while parameters stay f32, as Flax
 does.  The JAX options ``big_condense=False``, ``add_dense=False`` and
-``external_frontend`` and training mode are not ported yet.
+``external_frontend`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,11 +58,13 @@ class BadWinner2(nn.Module):
         logits_only: bool = False,
         dtype: torch.dtype | None = None,
         generator: torch.Generator | None = None,
+        dropout: float = 0.5,
     ):
         super().__init__()
         if n_mels not in CONDENSE_HEIGHT:
             raise ValueError(f"Unhandled mel channels {n_mels}")
         self.n_mels = n_mels
+        self.dropout = dropout
         self.multi_label = multi_label
         self.logits_only = logits_only
         self.dtype = dtype
@@ -89,13 +95,21 @@ class BadWinner2(nn.Module):
     def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
         return self.bns[i](leaky_relu(self.convs[i](x), LEAKY_ALPHA))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, n_mels, frames, C) -> (B, num_labels) f32."""
-        if self.training:
-            raise NotImplementedError(
-                "badwinner2 training comes with ROADMAP.md queue item 4 "
-                "(training); call .eval()"
-            )
+    def _dropout(self, x: torch.Tensor,
+                 generator: torch.Generator | None) -> torch.Tensor:
+        """Flax ``nn.Dropout``: keep with probability 1 - rate, scaled by
+        1 / (1 - rate); the identity in eval or at rate 0."""
+        if not self.training or self.dropout == 0.0:
+            return x
+        keep = 1.0 - self.dropout
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep, generator=generator)
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: (B, n_mels, frames, C) -> (B, num_labels) f32; ``generator``
+        draws the dropout masks in training mode."""
         if x.shape[1] != self.n_mels:
             raise ValueError(
                 f"expected {self.n_mels} mel rows, got input {tuple(x.shape)}"
@@ -108,8 +122,9 @@ class BadWinner2(nn.Module):
         x = self._block(1, self._block(0, x))
         x = max_pool(x, (3, 3))
         x = self._block(4, self._block(3, self._block(2, x)))
-        x = max_pool(x, (5, 3))
-        x = self._block(6, self._block(5, x))
+        x = self._dropout(max_pool(x, (5, 3)), generator)
+        x = self._dropout(self._block(5, x), generator)
+        x = self._dropout(self._block(6, x), generator)
         x = leaky_relu(self.convs[7](x), LEAKY_ALPHA)
         if self.lme is not None:
             x = self.lme(x)

@@ -1,14 +1,17 @@
-"""Shared layers, eval mode (port of ``audio_training_tpu/models/layers.py``).
+"""Shared layers (port of ``audio_training_tpu/models/layers.py``).
 
 Keras conventions, so logits match the Flax models on converted weights:
-BatchNorm epsilon 1e-3, convs VALID with glorot-uniform kernels and zero
-bias, explicit LeakyReLU slope.  Layers work on NCHW tensors (H = mel,
-W = time); the models' public inputs keep the JAX NHWC layout.
+BatchNorm epsilon 1e-3 and momentum 0.99, convs VALID with glorot-uniform
+kernels and zero bias, explicit LeakyReLU slope.  Layers work on NCHW
+tensors (H = mel, W = time); the models' public inputs keep the JAX NHWC
+layout.
 
 A compute ``dtype`` (e.g. ``torch.bfloat16``) casts activations and weights
 at each conv while the parameters stay f32, as Flax's ``dtype`` does.
-``_condense_conv``'s custom backward (JAX ``layers.py:39-89``) serves
-training only; its forward is the plain conv used here.
+``_condense_conv``'s custom backward (JAX ``layers.py:39-89``) exists for
+the TPU's dgrad emitter and is the same function as the plain conv's
+gradient; here autograd (cuDNN on the card) computes it, held against the
+JAX custom VJP by tests/test_torch_train_step.py.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from audio_training_tpu_torch.ops.features import mag_transform
 
 # Keras BatchNormalization defaults
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
@@ -31,13 +35,22 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
 
 
 class KerasBatchNorm(nn.Module):
-    """BatchNorm with Keras defaults, running statistics only (eval).
+    """BatchNorm with Keras defaults (Flax ``nn.BatchNorm`` as
+    ``KerasBatchNorm`` configures it, JAX ``layers.py:121-143``).
 
     ``feature_dim=1`` is the usual channels BN of an NCHW tensor;
     ``feature_dim=2`` with no scale and no bias is badwinner2's per-mel-row
-    BN (``BatchNormalization(axis=1)`` on NHWC, badwinner2.py:66-67).
-    Normalization runs in f32 and the result has the input's dtype, as
-    Flax's BatchNorm gives it in both badwinner2 uses.
+    BN (``BatchNormalization(axis=1)`` on NHWC, badwinner2.py:66-67), whose
+    statistics reduce over every axis but mel.  Normalization runs in f32
+    and the result has the input's dtype, as Flax's BatchNorm gives it in
+    both badwinner2 uses.
+
+    Training mode normalizes by the batch's own moments and updates the
+    running statistics as Flax does, NOT as ``F.batch_norm`` would: the
+    moments are computed in f32 (Flax reduces bf16 inputs in f32), the
+    variance is the biased one, ``E[x^2] - E[x]^2`` clamped at 0 (Flax's
+    fast variance; ``F.batch_norm`` stores the unbiased variance), and
+    ``running = 0.99 running + 0.01 batch``.
     """
 
     def __init__(self, num_features: int, feature_dim: int = 1,
@@ -49,24 +62,42 @@ class KerasBatchNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_features)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(num_features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics (training) come with ROADMAP.md "
-                "queue item 4 (training)"
-            )
-        if self.feature_dim == 1:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, BN_EPS)
-        shape = [1] * x.ndim
-        shape[self.feature_dim] = -1
-        mul = torch.rsqrt(self.running_var + BN_EPS)
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        with torch.no_grad():
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def _affine(self, x, mean, var, shape):
+        mul = torch.rsqrt(var + BN_EPS)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x - self.running_mean.view(shape)) * mul.view(shape)
+        y = (x - mean.view(shape)) * mul.view(shape)
         if self.bias is not None:
             y = y + self.bias.view(shape)
         return y.to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = [1] * x.ndim
+        shape[self.feature_dim] = -1
+        if self.training:
+            dims = [d for d in range(x.ndim) if d != self.feature_dim]
+            xf = x.float()
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1.0 - BN_MOMENTUM) * var)
+            return self._affine(xf, mean, var, shape).to(x.dtype)
+        if self.feature_dim == 1:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        return self._affine(x, self.running_mean, self.running_var, shape)
 
 
 class MagTransform(nn.Module):
@@ -75,7 +106,12 @@ class MagTransform(nn.Module):
 
     def __init__(self, init_value: float = -1.0):
         super().__init__()
+        self.init_value = init_value
         self.a_power = nn.Parameter(torch.full((1,), init_value))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        with torch.no_grad():
+            self.a_power.fill_(self.init_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mag_transform(x, self.a_power.clamp(-2.0, 1.0).to(x.dtype))
@@ -109,16 +145,21 @@ class Conv(nn.Module):
                  dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if init not in ("glorot", "orthogonal"):
+            raise ValueError(f"unknown init {init!r}")
         self.dtype = dtype
+        self.init = init
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, *kernel))
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        if init == "glorot":
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        if self.init == "glorot":
             nn.init.xavier_uniform_(self.weight, generator=generator)
-        elif init == "orthogonal":
-            nn.init.orthogonal_(self.weight, generator=generator)
         else:
-            raise ValueError(f"unknown init {init!r}")
+            nn.init.orthogonal_(self.weight, generator=generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.weight, self.bias

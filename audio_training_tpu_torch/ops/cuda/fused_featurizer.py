@@ -13,8 +13,11 @@ cases, in the output's dtype, as in the JAX class (``:869-872``).
 Ported modes: mel power and PCEN with tf ``pad_end`` framing or the
 centered (librosa) framing of the long-recording Predictor
 (``center=True``), any hop and frame count, f32 or bf16 output, the exact
-f32 ``"highest"`` tier.  The other precision tiers, ``normalize_waveform``
-and ``frontend_params`` raise ``ValueError``; ROADMAP.md queues them.
+f32 ``"highest"`` tier; and the ``"default"`` tier (bf16 DFT products, f32
+sums: the training featurizer) in tf framing, by a second, tensor-core
+kernel whose plain version is :func:`mel_power_bf16`.  ``"bf16_3x"``,
+``"default"`` with ``center=True``, ``normalize_waveform`` and
+``frontend_params`` raise ``ValueError``; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audio_training_tpu_torch.ops.cuda.build import load_library
 from audio_training_tpu_torch.ops.features import mel_power
@@ -36,12 +40,14 @@ from audio_training_tpu_torch.ops.stft import (
 
 N_FFT = 4096
 MAX_BINS = 1024  # bins 0..1023: the kernel computes no bin above these
+R1, R2 = 32, 128  # "default" tier: n = 128 n1 + n2, k = k1 + 32 k2
+PRECISIONS = ("highest", "default")
 _DEFERRED = "ROADMAP.md queue item 1 (K1's remaining modes)"
 
 # Launches of each kernel since the last reset, counted where they launch;
-# the mel kernel is counted by framing mode.
+# the "highest" mel kernel is counted by framing mode.
 _LAUNCHES = {"fused_featurizer_mel": 0, "fused_featurizer_mel_centered": 0,
-             "fused_featurizer_pcen": 0}
+             "fused_featurizer_mel_bf16": 0, "fused_featurizer_pcen": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -72,6 +78,11 @@ def _library() -> ctypes.CDLL:
         i32, i32, ptr, i32, ptr,
     ]
     lib.ff_mel_power.restype = i32
+    lib.ff_mel_bf16.argtypes = [
+        ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, ptr, i32, ptr,
+    ]
+    lib.ff_mel_bf16.restype = i32
     lib.ff_pcen.argtypes = [
         ptr, i32, i32, f32, f32, f32, f32, f32, ptr, i32, ptr,
     ]
@@ -109,6 +120,147 @@ def _band_tables(mel_weights: np.ndarray) -> tuple[np.ndarray, ...]:
             offsets.astype(np.int32), np.concatenate(flat).astype(np.float32))
 
 
+# ---------------------------------------------------------------------------
+# The "default" tier: bf16 operands, f32 sums, rounded at six points only
+# (csrc/fused_featurizer.cu, mel_bf16_kernel, states the contract)
+# ---------------------------------------------------------------------------
+
+
+def round_bf16(x) -> np.ndarray:
+    """Round to the nearest bf16 value, ties to even, in ONE rounding from
+    the given precision (float64 tables are not rounded to f32 first);
+    returned as f32, in which every bf16 value is exact."""
+    mant, exp = np.frexp(np.asarray(x, np.float64))
+    return np.ldexp(np.rint(mant * 256.0) / 256.0, exp).astype(np.float32)
+
+
+def _unit(m: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """cos and -sin of 2 pi m / n in float64, exact zeros where they are 0."""
+    ang = 2.0 * np.pi * np.asarray(m, np.float64) / n
+    c, s = np.cos(ang), -np.sin(ang)
+    c[np.abs(c) < 1e-12] = 0.0
+    s[np.abs(s) < 1e-12] = 0.0
+    return c, s
+
+
+@functools.cache
+def dft_tables_bf16() -> dict[str, np.ndarray]:
+    """The two DFT stages' operators, bf16 values as f32.
+
+    ``d1_re``/``d1_im`` (n1, k1): W32^(n1 k1), built from a table of cos /
+    -sin over j = n1 k1 mod 32 that is conjugate symmetric by construction
+    (entry 32 - j mirrors entry j), so the planes of k1 and 32 - k1 are
+    exact conjugates.  ``c2_re``/``c2_im`` (k1, n2, k2): the twiddle-folded
+    stage-2 operator W4096^(n2 k1) W128^(n2 k2) = W4096^(n2 (k1 + 32 k2)),
+    from float64, rounded once."""
+    c, s = _unit(np.arange(R1 // 2 + 1), R1)
+    c = np.concatenate([c, c[1:R1 // 2][::-1]])
+    s = np.concatenate([s, -s[1:R1 // 2][::-1]])
+    idx = np.outer(np.arange(R1), np.arange(R1)) % R1
+    n2, k1, k2 = np.arange(R2), np.arange(R1), np.arange(MAX_BINS // R1)
+    m = (n2[None, :, None] * (k1[:, None, None] + R1 * k2[None, None, :])
+         ) % N_FFT
+    c2_re, c2_im = _unit(m, N_FFT)
+    return {"d1_re": round_bf16(c[idx]), "d1_im": round_bf16(s[idx]),
+            "c2_re": round_bf16(c2_re), "c2_im": round_bf16(c2_im)}
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to bf16 (nearest even) and hold it as f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def mel_power_bf16(raw: torch.Tensor, mel_weights: torch.Tensor,
+                   hop: int) -> torch.Tensor:
+    """The plain version of the ``"default"`` tier kernel: (B, samples) f32
+    -> (B, n_mels, frames) f32 mel power, tf ``pad_end`` framing, with the
+    kernel's decomposition and its six bf16 rounding points (windowed
+    samples, stage-1 operator, stage-1 planes, stage-2 operator, power, mel
+    weights) and f32 sums (``einsum`` of bf16 values held as f32: each
+    product is exact).  Bins past 1023 carry no mel weight
+    (:func:`geometry_error`)."""
+    dev = raw.device
+    tab = {k: torch.as_tensor(v, device=dev)
+           for k, v in dft_tables_bf16().items()}
+    batch, n = raw.shape
+    frames = num_frames_tf(n, hop)
+    pad = (frames - 1) * hop + N_FFT - n
+    framed = F.pad(raw, (0, max(pad, 0))).unfold(-1, N_FFT, hop)
+    window = torch.as_tensor(hann_window(N_FFT), device=dev)
+    x = _bf16(framed * window).reshape(batch, frames, R1, R2)  # (n1, n2)
+    a_re = _bf16(torch.einsum("btnm,nk->btkm", x, tab["d1_re"]))
+    a_im = _bf16(torch.einsum("btnm,nk->btkm", x, tab["d1_im"]))
+    x_re = (torch.einsum("btkm,kmq->btkq", a_re, tab["c2_re"])
+            - torch.einsum("btkm,kmq->btkq", a_im, tab["c2_im"]))
+    x_im = (torch.einsum("btkm,kmq->btkq", a_re, tab["c2_im"])
+            + torch.einsum("btkm,kmq->btkq", a_im, tab["c2_re"]))
+    power = _bf16(x_re * x_re + x_im * x_im)  # (B, T, k1, k2)
+    power = power.transpose(-1, -2).reshape(batch, frames, MAX_BINS)
+    w = _bf16(mel_weights[:, :MAX_BINS].float())
+    return torch.einsum("mf,btf->bmt", w, power)
+
+
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3  # mma fragment group and thread in group
+
+
+def _pack_bf16(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Two bf16 values (held exactly as f32) in one uint32, ``lo`` in the
+    lower half, as mma fragments hold them."""
+    bits = lambda v: np.asarray(v, np.float32).view(np.uint32) >> 16
+    return bits(lo) | (bits(hi) << 16)
+
+
+def a_fragments(a: np.ndarray) -> np.ndarray:
+    """(M, K) bf16 matrix -> (M/16, K/16, 32 lanes, 4) uint32 A fragments of
+    ``mma.sync.m16n8k16.row``: registers hold A(g, 2t..), A(g+8, 2t..),
+    A(g, 2t+8..), A(g+8, 2t+8..) of each 16 x 16 tile."""
+    mt = np.arange(a.shape[0] // 16)[:, None, None]
+    ks = np.arange(a.shape[1] // 16)[None, :, None]
+    r, c = 16 * mt + _G, 16 * ks + 2 * _T
+    regs = [(r, c), (r + 8, c), (r, c + 8), (r + 8, c + 8)]
+    return np.stack([_pack_bf16(a[i, j], a[i, j + 1]) for i, j in regs], -1)
+
+
+def b_fragments(b: np.ndarray) -> np.ndarray:
+    """(K, N) bf16 matrix -> (K/16, N/8, 32 lanes, 2) uint32 B fragments of
+    ``mma.sync.m16n8k16.col``: B(2t..2t+1, g) and B(2t+8..2t+9, g)."""
+    ks = np.arange(b.shape[0] // 16)[:, None, None]
+    j = np.arange(b.shape[1] // 8)[None, :, None]
+    k, n = 16 * ks + 2 * _T, 8 * j + _G
+    return np.stack([_pack_bf16(b[k, n], b[k + 1, n]),
+                     _pack_bf16(b[k + 8, n], b[k + 9, n])], -1)
+
+
+def stage1_operator() -> np.ndarray:
+    """The kernel's stage-1 A matrix (32 planes x 32 n1): rows 0..16 the
+    cos rows of k1' = 0..16, rows 17..31 the -sin rows of k1' = 1..15 (the
+    planes of a real frame's conjugate fold)."""
+    t = dft_tables_bf16()
+    return np.concatenate([t["d1_re"][:, :R1 // 2 + 1].T,
+                           t["d1_im"][:, 1:R1 // 2].T])
+
+
+def stage2_operator(k1: int) -> np.ndarray:
+    """The kernel's stage-2 B matrix of ``k1`` (256 x 64).  Rows: re then
+    im of the stored plane k1' = min(k1, 32 - k1) over n2; for k1 > 16 the
+    plane is the conjugate, whose sign is folded in here.  Column 8 j + c
+    with j = 2 q + r is re (r = 0) or im (r = 1) of X[k1 + 32 (8 q + c)]."""
+    t = dft_tables_bf16()
+    re, im = t["c2_re"][k1], t["c2_im"][k1]  # (n2, k2)
+    s = 1.0 if k1 <= R1 // 2 else -1.0
+    b = np.concatenate([np.stack([re, im], -1), np.stack([-s * im, s * re], -1)])
+    return b.reshape(2 * R2, 4, 8, 2).transpose(0, 1, 3, 2).reshape(2 * R2, 64)
+
+
+@functools.cache
+def dft_fragments() -> tuple[np.ndarray, np.ndarray]:
+    """(stage-1 A fragments (2, 2, 32, 4), stage-2 B fragments of every k1
+    (32, 16, 8, 32, 2)), uint32, in the order the kernel loads them."""
+    return (a_fragments(stage1_operator()),
+            np.stack([b_fragments(stage2_operator(k)) for k in range(R1)]))
+
+
 def fused_featurizer_plain(
     raw: torch.Tensor,
     mel_weights: torch.Tensor,
@@ -116,12 +268,17 @@ def fused_featurizer_plain(
     pcen_params: tuple[float, float, float, float, float] | None = None,
     out_dtype: torch.dtype = torch.float32,
     center: bool = False,
+    precision: str = "highest",
 ) -> torch.Tensor:
-    """The plain version of the kernel: (B, samples) f32 -> (B, n_mels,
+    """The plain version of the kernels: (B, samples) f32 -> (B, n_mels,
     frames) mel power, or the un-normalized PCEN image when ``pcen_params
     = (gain, bias, root, smooth, eps)``, converted to ``out_dtype``;
-    ``center`` selects the centered framing."""
-    out = mel_power(raw, mel_weights, N_FFT, hop, center=center)
+    ``center`` selects the centered framing, ``precision="default"`` the
+    bf16 tier (:func:`mel_power_bf16`, tf framing only)."""
+    if precision == "default":
+        out = mel_power_bf16(raw, mel_weights, hop)
+    else:
+        out = mel_power(raw, mel_weights, N_FFT, hop, center=center)
     if pcen_params is not None:
         out = pcen(out, *pcen_params, time_axis=2, normalize=False)
     return out.to(out_dtype)
@@ -152,13 +309,18 @@ class FusedFeaturizer:
         reason = geometry_error(mel_weights, n_fft)
         if reason:
             raise ValueError(reason)
-        if precision != "highest":
+        if precision not in PRECISIONS:
             raise ValueError(
-                f"precision {precision!r}: only the exact f32 'highest' tier "
-                f"is ported; the others come with {_DEFERRED}"
+                f"precision {precision!r}: the ported tiers are "
+                f"{PRECISIONS}; the others come with {_DEFERRED}"
+            )
+        if precision == "default" and center:
+            raise ValueError(
+                f"precision 'default' with center=True comes with {_DEFERRED}"
             )
         self.hop = hop
         self.center = center
+        self.precision = precision
         self.n_mels = mel_weights.shape[0]
         self.pcen_params = (gain, bias, root, smooth, eps)
         self.mel_weights = torch.as_tensor(
@@ -181,6 +343,13 @@ class FusedFeaturizer:
         self.post_tw = _complex_table(
             np.exp(-2j * np.pi * np.arange(MAX_BINS) / N_FFT), self.device
         )
+        if precision == "default":
+            # the bf16 tier's operators in fragment order (1 MB for stage
+            # 2) and its bf16 mel weights
+            d1, op2 = dft_fragments()
+            self.d1_frag = to_dev(d1.view(np.int32))
+            self.op2_frag = to_dev(op2.view(np.int32))
+            self.band_w = to_dev(round_bf16(flat))
 
     def __call__(
         self,
@@ -215,7 +384,8 @@ class FusedFeaturizer:
         params = self.pcen_params if pcen else None
         if raw.device.type == "cpu":
             out = fused_featurizer_plain(
-                raw, self.mel_weights, self.hop, params, out_dtype, self.center
+                raw, self.mel_weights, self.hop, params, out_dtype,
+                self.center, self.precision,
             )
         else:
             out = self._launch(raw, params, out_dtype)
@@ -239,6 +409,19 @@ class FusedFeaturizer:
         mel = torch.empty(
             (batch, self.n_mels, frames), dtype=mel_dtype, device=raw.device
         )
+        if self.precision == "default":
+            with torch.cuda.device(raw.device):
+                _check(_library().ff_mel_bf16(
+                    raw.data_ptr(), batch, samples, self.hop, frames,
+                    self.window.data_ptr(), self.d1_frag.data_ptr(),
+                    self.op2_frag.data_ptr(), self.band_start.data_ptr(),
+                    self.band_len.data_ptr(), self.band_off.data_ptr(),
+                    self.band_w.data_ptr(), self.n_mels, mel.data_ptr(),
+                    int(mel_dtype == torch.bfloat16), _stream(),
+                ), "bf16 mel")
+            _LAUNCHES["fused_featurizer_mel_bf16"] += 1
+            return mel if pcen_params is None else pcen_rows(
+                mel, pcen_params, out_dtype)
         with torch.cuda.device(raw.device):
             _check(_library().ff_mel_power(
                 raw.data_ptr(), batch, samples, self.hop, left_pad, frames,

@@ -1,7 +1,8 @@
 """Featurization ops: waveform -> mel image and the normalizers (port of
 ``audio_training_tpu/ops/features.py:26-115``, the reference's per-batch
-``tf.data`` maps, ``tfdataset.py:1883-2059``), and the host-side band-pass
-filter of the long-recording windows (``:305-341``)."""
+``tf.data`` maps, ``tfdataset.py:1883-2059``), the mixup augmentation
+(``:201-264``), and the host-side band-pass filter of the long-recording
+windows (``:305-341``)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ def normalize_rows(x: torch.Tensor) -> torch.Tensor:
     x = x - x.amin(dim=-1, keepdim=True)
     x = x / x.amax(dim=-1, keepdim=True) + 0.000001
     return (x - 0.5) * 2.0
+
+
+def normalize_waveform(x: torch.Tensor) -> torch.Tensor:
+    """Waveform min-max normalization used when building records
+    (audiodataset.normalize_data, audiodataset.py:1334-1341)."""
+    return normalize_rows(x)
 
 
 def build_mel_weights(cfg: FeaturizerConfig) -> np.ndarray:
@@ -85,6 +92,65 @@ def raw_to_mel(
     if channels > 1:
         image = image.repeat_interleave(channels, dim=-1)
     return image
+
+
+# ---------------------------------------------------------------------------
+# Mixup (ops/features.py:201-264 of the JAX package).  The samplers draw from
+# an explicit torch.Generator on its own device: JAX keys and torch
+# generators give different bits, so parity is held with injected weights
+# and the samplers are tested by their distributions.
+# ---------------------------------------------------------------------------
+
+
+def sample_beta(gen: torch.Generator, size: int, alpha: float) -> torch.Tensor:
+    """Beta(alpha, alpha) via a gamma ratio, the reference's construction
+    (tfdataset.sample_beta_distribution, tfdataset.py:920-924).
+    ``torch._standard_gamma`` is the one gamma sampler that takes a
+    generator."""
+    a = torch.full((size,), float(alpha), device=gen.device)
+    g1 = torch._standard_gamma(a, generator=gen)
+    g2 = torch._standard_gamma(a, generator=gen)
+    return g1 / (g1 + g2)
+
+
+def sample_mix_weights(gen: torch.Generator, batch: int, alpha: float = 0.5,
+                       chance: float = 0.25) -> torch.Tensor:
+    """Per-sample mixup weight: Beta(alpha, alpha) gated by ``chance``
+    (zero = take sample two unchanged, tfdataset.py:934-940)."""
+    l = sample_beta(gen, batch, alpha)
+    aug = (torch.rand(batch, generator=gen, device=gen.device)
+           < chance).to(l.dtype)
+    return l * aug
+
+
+def apply_mix(l: torch.Tensor, one: torch.Tensor,
+              two: torch.Tensor) -> torch.Tensor:
+    """``one * l + two * (1-l)`` with ``l`` broadcast over trailing axes."""
+    x_l = l.to(one.device).reshape((one.shape[0],) + (1,) * (one.ndim - 1))
+    return one * x_l + two * (1.0 - x_l)
+
+
+def mix_labels(l: torch.Tensor, labels_one: torch.Tensor,
+               labels_two: torch.Tensor,
+               single_label: bool = True) -> torch.Tensor:
+    """Label mix: hard max when ``single_label`` (tfdataset.py:948-951)."""
+    y_l = l.to(labels_one.device).reshape(
+        (labels_one.shape[0],) + (1,) * (labels_one.ndim - 1))
+    if single_label:
+        y_l = (y_l > 0.5).to(labels_one.dtype)
+    return labels_one * y_l + labels_two * (1.0 - y_l)
+
+
+def mix_up(gen: torch.Generator, images_one: torch.Tensor,
+           labels_one: torch.Tensor, images_two: torch.Tensor,
+           labels_two: torch.Tensor, alpha: float = 0.5, chance: float = 0.25,
+           single_label: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch mixup (tfdataset.mix_up, tfdataset.py:930-955): each sample
+    mixes with probability ``chance`` at a Beta(alpha, alpha) weight; an
+    un-mixed sample is entirely ``images_two``, as in the reference."""
+    l = sample_mix_weights(gen, images_one.shape[0], alpha, chance)
+    return (apply_mix(l, images_one, images_two),
+            mix_labels(l, labels_one, labels_two, single_label))
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    Predictor's host detection and windowing once, then per geometry its
    device ms per 64-window batch and the featurizer's part of it,
    recording-seconds per second end to end, and the host's share of that
-   wall time from a profiled run).
+   wall time from a profiled run);
+6. the training path (badwinner2 bf16, 62 labels, B=128, production
+   geometry): K1's "default" (bf16 tensor-core) tier against its plain
+   version at B=8 and B=128 (see BF16_* below) and against the exact
+   kernel; ``fit`` for 2 epochs x 4 steps on a learnable tone-band batch
+   from a numpy seed with one validation batch, launch counts zeroed just
+   before and read just after (one bf16 launch per train step, one exact
+   launch per eval batch), a falling train loss; one f32 train step at B=8
+   through the kernel path and through the plain-featurizer path from the
+   same weights and generator seeds; timing of the bf16 kernel at B=128
+   and B=256, its plain version and a library yardstick, the train step
+   (ms, samples/s, peak memory), its split into preprocess / forward /
+   backward / Adam, a profile with the idle share, and the 44x3 condense
+   conv's forward, dgrad and wgrad alone.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -60,6 +73,9 @@ REQUESTS = 3
 SEED = 0
 RECORDING_S = 60.0
 SHORT_CLIP = 28100  # 100 hops: 100 tf frames, 101 centered frames
+TRAIN_BATCH = 128  # bench.py's TRAIN_BATCH
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 4
+TRAIN_LR = 1e-3
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
 # f32 logits of the kernel path vs the plain-featurizer path, relative to
@@ -67,8 +83,36 @@ PCEN_ABS_TOL = 1e-4
 # adds f32 rounding only (TF32 off); the same bound for the Predictor's
 # probabilities, relative to max |p|
 LOGIT_REL_TOL = 1e-4
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, HBM3.
+# K1's "default" tier: kernel and plain version share six bf16 rounding
+# points and differ in f32 summation order only, which now and then flips a
+# rounding (one bf16 step of one plane value or power bin).  Where no flip
+# can happen (at most one impulse per frame: every rounded sum has one
+# term) the global relative error must be < 1e-4; on audio the relative RMS
+# error < 1e-4 and no value off by more than one bf16 step of the max; and
+# the tier stays in its class against the exact kernel (< 1e-2).
+BF16_FLIP_FREE_REL = 1e-4
+BF16_RMS_REL = 1e-4
+BF16_STEP = 2.0 ** -7
+BF16_VS_EXACT = 1e-2
+# One f32 train step, kernel path vs plain-featurizer path: the loss to
+# 1e-4 relative.  Adam's first update is +-lr * g / (|g| + eps) per element,
+# and the gradient of badwinner2 in train mode is not smooth in its input:
+# a LeakyReLU pre-activation or a max-pool near-tie that the featurizers'
+# 1e-6-level difference moves across changes some gradient elements'
+# signs (the check prints, for reference, how many updates a 1e-6
+# relative perturbation of the plain path's own features moves).  So the
+# updated parameters are held as a function: both updated models give the
+# same eval loss on the same batch to 1e-3 relative; elementwise, no
+# parameter moves more than 2 lr apart (Adam's first step bounds each move
+# by lr) and fewer than 5% move more than 1e-3 lr apart.
+TRAIN_LOSS_REL = 1e-4
+UPDATED_LOSS_REL = 1e-3
+UPDATE_TOL = 1e-3
+UPDATE_OFF_FRAC = 5e-2
+# Published H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, dense
+# bf16 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 KERNEL_SOURCE = "audio_training_tpu_torch/csrc/fused_featurizer.cu"
 TPU_KERNEL = "audio_training_tpu/ops/pallas/fused_featurizer.py:286"
@@ -125,6 +169,39 @@ def synthetic_recording(seconds: float, sr: int, seed: int):
                               * np.hanning(len(t)))
         start += dur + rng.uniform(1.0, 4.0)
     return x.astype(np.float32)
+
+
+def tone_band_batch(batch: int, num_labels: int, samples: int, sr: int,
+                    seed: int):
+    """A learnable batch from a numpy seed: clip i carries label l_i as a
+    tone at that label's frequency (log-spaced, 200 Hz to 10 kHz) over
+    noise.  Returns (clips (B, samples) f32, one-hot labels (B, L))."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_labels, batch)
+    freqs = 200.0 * 50.0 ** (np.arange(num_labels) / (num_labels - 1))
+    t = np.arange(samples) / sr
+    x = np.empty((batch, samples), np.float32)
+    for i, l in enumerate(labels):
+        x[i] = (rng.uniform(0.3, 1.0)
+                * np.sin(2 * np.pi * freqs[l] * t + rng.uniform(0, 6.3))
+                + 0.3 * rng.standard_normal(samples))
+    return x, np.eye(num_labels, dtype=np.float32)[labels]
+
+
+def impulse_batch(batch: int, samples: int, seed: int):
+    """At most one impulse in any 4096-sample frame (4099 apart): every sum
+    that K1's bf16 tier rounds then has one non-zero term."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = np.zeros((batch, samples), np.float32)
+    for row in x:
+        pos = np.arange(rng.integers(0, 4099), samples, 4099)
+        row[pos] = rng.uniform(0.3, 1.0, len(pos)) * rng.choice([-1, 1],
+                                                                len(pos))
+    return x
 
 
 def main() -> None:
@@ -413,20 +490,184 @@ def main() -> None:
         check(p_rel < LOGIT_REL_TOL, "kernel-path probabilities disagree")
         predictors[n_fft], predictor_counts[n_fft] = pred, counts
 
+    # ---- 4b. the training path: K1's bf16 tier, then fit ----------------
+    from audio_training_tpu_torch.data.preprocess import make_preprocess_fn
+    from audio_training_tpu_torch.ops.features import mix_up
+    from audio_training_tpu_torch.train import (
+        create_train_state, fit, fresh_metrics, make_train_step)
+    from audio_training_tpu_torch.train.losses import bce_from_logits
+
+    fz16 = ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length,
+                               precision="default", device=dev)
+    x_np, y_np = tone_band_batch(TRAIN_BATCH, NUM_LABELS,
+                                 cfg.samples_per_clip, cfg.sr, SEED)
+    raw_t = torch.as_tensor(x_np, device=dev)
+    y_t = torch.as_tensor(y_np, device=dev)
+    partner = torch.roll(torch.arange(TRAIN_BATCH, device=dev), 1)
+    train_batch = (raw_t, y_t, raw_t[partner].contiguous(), y_t[partner])
+    train_pre = make_preprocess_fn(cfg, augment=True, device=dev)
+    eval_pre = make_preprocess_fn(cfg, device=dev)
+    # what the kernel sees on the path: the mixed, normalized clips
+    train_clips = normalize_rows(mix_up(
+        torch.Generator(device=dev).manual_seed(SEED), *train_batch)[0])
+
+    def check_bf16(raw: torch.Tensor, kind: str) -> float:
+        b = raw.shape[0]
+        mel_k = fz16(raw, pcen=False)
+        mel_p = ffz.fused_featurizer_plain(raw, mel_w, cfg.hop_length,
+                                           precision="default")
+        check(mel_k.shape == (b, cfg.n_mels, cfg.mel_frames),
+              f"bf16 mel shape {tuple(mel_k.shape)}")
+        err = (mel_k - mel_p).abs().max().item()
+        rel = err / mel_p.abs().max().item()
+        if kind == "impulses":
+            log(f"check B={b} bf16 mel, {kind} (no rounding can flip): "
+                f"global rel err {rel:.3e} (limit {BF16_FLIP_FREE_REL})")
+            check(rel < BF16_FLIP_FREE_REL, "bf16 kernel disagrees with plain")
+            return err
+        rms = (torch.linalg.norm(mel_k - mel_p)
+               / torch.linalg.norm(mel_p)).item()
+        exact = fz(raw, pcen=False)
+        vs_exact = ((mel_k - exact).abs().max() / exact.abs().max()).item()
+        log(f"check B={b} bf16 mel, {kind}: vs plain relative RMS {rms:.3e} "
+            f"(limit {BF16_RMS_REL}), global rel err {rel:.3e} (limit "
+            f"{BF16_STEP:.3e}, one bf16 step), max abs err {err:.3e}; vs the "
+            f"exact kernel global rel err {vs_exact:.3e} (limit "
+            f"{BF16_VS_EXACT})")
+        check(rms < BF16_RMS_REL and rel < BF16_STEP,
+              "bf16 kernel disagrees with plain")
+        check(vs_exact < BF16_VS_EXACT, "bf16 kernel outside its class")
+        same = torch.equal(fz16(raw, pcen=False, out_dtype=torch.bfloat16),
+                           mel_k.to(torch.bfloat16))
+        check(same, "bf16-tier bf16 output differs from the cast f32 output")
+        return err
+
+    bf16_err = max(
+        max(check_bf16(torch.as_tensor(impulse_batch(
+                b, cfg.samples_per_clip, SEED + b), device=dev), "impulses"),
+            check_bf16(train_clips[:b], "training clips"),
+            check_bf16(normalize_rows(clips(b)), "noise"))
+        for b in (CHECK_BATCH, TRAIN_BATCH))
+
+    model16 = build_model("badwinner2", NUM_LABELS, logits_only=True,
+                          dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(SEED)).module
+    state = create_train_state(model16, learning_rate=TRAIN_LR, device=dev)
+    run_dir = REPO / "build" / "chip_smoke_fit"
+    torch.cuda.synchronize()
+    ffz.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fit(state, lambda epoch: [train_batch] * TRAIN_STEPS, train_pre,
+                 epochs=TRAIN_EPOCHS, steps_per_epoch=TRAIN_STEPS,
+                 val_batches=lambda: [(raw_t, y_t)], val_preprocess=eval_pre,
+                 run_dir=run_dir, seed=SEED)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_counts = ffz.launch_counts()
+    hist = result.history
+    log(f"path fit: badwinner2 bf16, {NUM_LABELS} labels, B={TRAIN_BATCH}, "
+        f"{TRAIN_EPOCHS} epochs x {TRAIN_STEPS} steps + 1 val batch, "
+        f"{fit_s:.1f} s; train loss {hist['loss']}, val loss "
+        f"{hist['val_loss']}; launches {train_counts}")
+    check(train_counts["fused_featurizer_mel_bf16"]
+          == TRAIN_EPOCHS * TRAIN_STEPS,
+          "not one bf16-tier launch per train step")
+    check(train_counts["fused_featurizer_mel"] == TRAIN_EPOCHS,
+          "not one exact mel launch per eval batch")
+    check(all(np.isfinite(hist[k]).all() for k in ("loss", "val_loss")),
+          "non-finite training losses")
+    check(hist["loss"][-1] < hist["loss"][0], "the train loss did not fall")
+    check(all((run_dir / n).exists() for n in (
+        "val-loss.pt", "chkpt.pt", "best.json", "history.json")),
+        "fit wrote no checkpoints")
+
+    def plain_pre(raw, y, raw2, y2, gen):
+        """The training preprocess with the bf16 tier's plain version."""
+        mixed, y = mix_up(gen, raw, y, raw2, y2)
+        return ffz.fused_featurizer_plain(
+            normalize_rows(mixed), mel_w, cfg.hop_length,
+            precision="default")[..., None], y
+
+    def f32_step(preprocess):
+        model = build_model("badwinner2", NUM_LABELS, logits_only=True,
+                            generator=torch.Generator().manual_seed(SEED)
+                            ).module
+        st = create_train_state(model, learning_rate=TRAIN_LR, device=dev)
+        mel, yy = preprocess(*(t[:CHECK_BATCH] for t in train_batch),
+                             torch.Generator(device=dev).manual_seed(SEED))
+        st, m = make_train_step()(
+            st, fresh_metrics(dev), mel, yy,
+            torch.Generator(device=dev).manual_seed(SEED + 1))
+        return float(m["loss_sum"]) / CHECK_BATCH, st.model, mel, yy
+
+    # cuDNN's deterministic algorithms, so that the two paths differ by
+    # their features alone (its default backward algorithms sum in a
+    # run-dependent order)
+    torch.backends.cudnn.deterministic = True
+    ffz.reset_launch_counts()
+    loss_k, model_k, _, _ = f32_step(train_pre)
+    check(ffz.launch_counts()["fused_featurizer_mel_bf16"] == 1,
+          "the f32 kernel-path step did not launch the bf16 kernel")
+    loss_p, model_p, mel_p, yy_p = f32_step(plain_pre)
+    noise = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def perturbed_pre(*args):
+        mel, y = plain_pre(*args)
+        return mel * (1.0 + 1e-6 * torch.randn(
+            mel.shape, generator=noise, device=dev)), y
+
+    _, model_n, _, _ = f32_step(perturbed_pre)
+    torch.backends.cudnn.deterministic = False
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    with torch.no_grad():
+        after_k, after_p = (bce_from_logits(m.eval()(mel_p), yy_p).item()
+                            for m in (model_k, model_p))
+    after_rel = abs(after_k - after_p) / abs(after_p)
+    params_k, params_p = model_k.state_dict(), model_p.state_dict()
+    params_n = model_n.state_dict()
+    off = off_n = total = 0
+    upd_max = 0.0
+    for name, _ in model_p.named_parameters():
+        d = (params_k[name] - params_p[name]).abs() / TRAIN_LR
+        off, total = off + int((d > UPDATE_TOL).sum()), total + d.numel()
+        upd_max = max(upd_max, d.max().item())
+        off_n += int(((params_n[name] - params_p[name]).abs() / TRAIN_LR
+                      > UPDATE_TOL).sum())
+    bn_rel = max(((params_k[k] - params_p[k]).abs().max()
+                  / params_p[k].abs().max()).item()
+                 for k in params_p if "running" in k)
+    log(f"check f32 train step B={CHECK_BATCH}, kernel vs plain-featurizer "
+        f"path: loss {loss_k:.6f} vs {loss_p:.6f}, rel {loss_rel:.3e} (limit "
+        f"{TRAIN_LOSS_REL}); the updated models' eval loss on one batch "
+        f"{after_k:.6f} vs {after_p:.6f}, rel {after_rel:.3e} (limit "
+        f"{UPDATED_LOSS_REL}); {off} of {total} parameter elements "
+        f"({off / total:.2e}, limit {UPDATE_OFF_FRAC}) more than "
+        f"{UPDATE_TOL} lr apart, the most {upd_max:.3f} lr (limit 2); BN "
+        f"running stats max rel err {bn_rel:.3e}; for reference, the plain "
+        f"path against itself with its features perturbed by 1e-6 relative "
+        f"noise: {off_n} elements ({off_n / total:.2e}) more than "
+        f"{UPDATE_TOL} lr apart")
+    check(loss_rel < TRAIN_LOSS_REL, "kernel-path train loss disagrees")
+    check(after_rel < UPDATED_LOSS_REL,
+          "the kernel path's updated model disagrees")
+    check(off / total < UPDATE_OFF_FRAC and upd_max <= 2.0 + UPDATE_TOL,
+          "kernel-path parameter update disagrees")
+    del model_k, model_p, model_n, params_k, params_p, params_n, mel_p
+
     # ---- 5. timing -------------------------------------------------------
     raw = normalize_rows(requests[0])
     frames, n_mels = cfg.mel_frames, cfg.n_mels
     hann = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
 
-    def library_mel() -> torch.Tensor:
-        pad = (frames - 1) * cfg.hop_length + cfg.n_fft - raw.shape[-1]
-        spec = torch.stft(torch.nn.functional.pad(raw, (0, pad)), cfg.n_fft,
+    def library_mel(x: torch.Tensor) -> torch.Tensor:
+        pad = (frames - 1) * cfg.hop_length + cfg.n_fft - x.shape[-1]
+        spec = torch.stft(torch.nn.functional.pad(x, (0, pad)), cfg.n_fft,
                           cfg.hop_length, window=hann, center=False,
                           return_complex=True)
         return torch.matmul(mel_w, spec.real**2 + spec.imag**2)
 
     lib_ref = ffz.fused_featurizer_plain(raw, mel_w, cfg.hop_length)
-    lib_rel = ((library_mel() - lib_ref).abs().max()
+    lib_rel = ((library_mel(raw) - lib_ref).abs().max()
                / lib_ref.abs().max()).item()
     check(lib_rel < MEL_REL_TOL, f"library yardstick disagrees ({lib_rel})")
     del lib_ref
@@ -452,7 +693,7 @@ def main() -> None:
     mel32_ms = time_ms(lambda: fz(raw, pcen=False))
     mel_plain_ms = time_ms(lambda: ffz.fused_featurizer_plain(
         raw, mel_w, cfg.hop_length, out_dtype=torch.bfloat16), iters=5)
-    mel_lib_ms = time_ms(library_mel, iters=5)
+    mel_lib_ms = time_ms(lambda: library_mel(raw), iters=5)
     mel_bound_ms, mel_bound_by = bound(mel_flops, mel_bytes)
     log(f"time mel kernel (bf16 out) B={BATCH}: {mel_ms:.4f} ms "
         f"(f32 out {mel32_ms:.4f} ms), plain {mel_plain_ms:.4f} ms, library "
@@ -606,6 +847,118 @@ def main() -> None:
             f"busy {busy_ms:.1f} ms in a profiled run, host share "
             f"{1 - busy_ms / (wall_s * 1e3):.3f} {card}")
 
+    # ---- the training path: K1's bf16 tier and the train step ------------
+    raw256 = normalize_rows(clips(BATCH))
+    mel_bf16_ms = time_ms(lambda: fz16(train_clips, pcen=False))
+    mel_bf16_256_ms = time_ms(lambda: fz16(raw256, pcen=False))
+    mel_bf16_plain_ms = time_ms(lambda: ffz.fused_featurizer_plain(
+        train_clips, mel_w, cfg.hop_length, precision="default"), iters=3)
+    mel_bf16_lib_ms = time_ms(lambda: library_mel(train_clips), iters=5)
+    # per frame: stage 1 (32 planes x 32 n1 x 128 n2 MAC), stage 2 (32 k1
+    # x 256 x 64 MAC), |X|^2 (3 flops a bin), banded mel (2 a non-zero)
+    bf16_frame_flops = (2 * 32 * 32 * 128 + 2 * 32 * 256 * 64 + 3 * 1024
+                        + 2 * nnz)
+    bf16_tables = sum(t.numel() * t.element_size() for t in (
+        fz16.window, fz16.d1_frag, fz16.op2_frag, fz16.band_start,
+        fz16.band_len, fz16.band_off, fz16.band_w))
+    bf16_bound = {}
+    for b in (TRAIN_BATCH, BATCH):
+        flops = b * frames * bf16_frame_flops
+        nbytes = (b * cfg.samples_per_clip * 4 + b * n_mels * frames * 4
+                  + bf16_tables)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+        bf16_bound[b] = (max(t_ops, t_bytes) * 1e3,
+                         "operations" if t_ops >= t_bytes else "bytes",
+                         flops, nbytes)
+    bf16_bound_ms, bf16_bound_by, bf16_flops, bf16_bytes = bf16_bound[
+        TRAIN_BATCH]
+    log(f"time bf16-tier mel kernel (f32 out) B={TRAIN_BATCH}: "
+        f"{mel_bf16_ms:.4f} ms, B={BATCH}: {mel_bf16_256_ms:.4f} ms (bound "
+        f"{bf16_bound[BATCH][0]:.4f}); plain {mel_bf16_plain_ms:.4f} ms, "
+        f"library stft+matmul {mel_bf16_lib_ms:.4f} ms, bound "
+        f"{bf16_bound_ms:.4f} ms ({bf16_bound_by}; {bf16_flops / 1e9:.2f} "
+        f"GFLOP at the bf16 peak, {bf16_bytes / 1e6:.1f} MB), roofline share "
+        f"{bf16_bound_ms / mel_bf16_ms:.3f} {card}")
+
+    state = result.state
+    step_fn = make_train_step()
+    gen_pre = torch.Generator(device=dev).manual_seed(SEED)
+    gen_drop = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def train_iter():
+        mel, yy = train_pre(*train_batch, gen_pre)
+        return step_fn(state, fresh_metrics(dev), mel, yy, gen_drop)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(train_iter, iters=5)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"time train step (preprocess + fwd/bwd + Adam) B={TRAIN_BATCH}: "
+        f"{step_ms:.3f} ms, {TRAIN_BATCH / (step_ms / 1e3):.1f} samples/s, "
+        f"peak memory {train_peak_gb:.2f} GB {card}")
+
+    # the step's phases, CUDA events around each (synchronized between)
+    phases = {"preprocess (K1 bf16 tier)": 0.0, "forward": 0.0,
+              "backward": 0.0, "Adam": 0.0}
+    model = state.model.train()
+    reps = 3
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        mel, yy = train_pre(*train_batch, gen_pre)
+        ev[1].record()
+        loss = bce_from_logits(model(mel, generator=gen_drop), yy)
+        ev[2].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        state.optimizer.step()
+        ev[4].record()
+        ev[4].synchronize()
+        if rep:  # the first pass warms up
+            for i, name in enumerate(phases):
+                phases[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+    log("time train step split: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in phases.items()) + f" {card}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        train_iter()
+        torch.cuda.synchronize()
+    kernel_events = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
+    log(f"profile train step B={TRAIN_BATCH}: device kernels {busy_ms:.3f} ms "
+        f"of {step_ms:.3f} ms (idle share {1 - busy_ms / step_ms:.3f}) {card}")
+    for e in sorted(kernel_events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
+            f"{e.key[:80]}")
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::cudnn_convolution", "aten::convolution_backward"):
+            log(f"  {e.key[6:]} {e.device_time_total / 1e3:9.3f} ms "
+                f"x{e.count:<3d} in {e.input_shapes[:3]}")
+
+    # the 44x3 condense conv alone (its input at 160 mels x 513 frames)
+    x_c = torch.randn(TRAIN_BATCH, 128, 48, 165, device=dev,
+                      dtype=torch.bfloat16).to(memory_format=torch.channels_last)
+    w_c = (0.01 * torch.randn(128, 128, 44, 3, device=dev)).to(torch.bfloat16)
+    g_c = torch.randn_like(torch.nn.functional.conv2d(x_c, w_c))
+
+    def conv_bwd(mask):
+        return torch.ops.aten.convolution_backward(
+            g_c, x_c, w_c, None, (1, 1), (0, 0), (1, 1), False, (0, 0), 1,
+            mask)
+
+    cc_fwd_ms = time_ms(lambda: torch.nn.functional.conv2d(x_c, w_c))
+    cc_dgrad_ms = time_ms(lambda: conv_bwd((True, False, False)))
+    cc_wgrad_ms = time_ms(lambda: conv_bwd((False, True, False)))
+    cc_tflop = 2 * g_c.numel() * 128 * 44 * 3 / 1e12
+    log(f"time condense conv 44x3 bf16 alone, B={TRAIN_BATCH}, in "
+        f"{tuple(x_c.shape)} channels_last ({cc_tflop:.3f} TFLOP a pass): "
+        f"forward {cc_fwd_ms:.3f} ms, dgrad {cc_dgrad_ms:.3f} ms, wgrad "
+        f"{cc_wgrad_ms:.3f} ms ({cc_tflop / (cc_fwd_ms / 1e3):.1f} / "
+        f"{cc_tflop / (cc_dgrad_ms / 1e3):.1f} / "
+        f"{cc_tflop / (cc_wgrad_ms / 1e3):.1f} TFLOP/s) {card}")
+
     kernels = [
         {"name": "fused_featurizer_mel", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -631,6 +984,12 @@ def main() -> None:
          "max_abs_err": pm_err, "ms": pm_ms, "plain_ms": pm_plain_ms,
          "bound_ms": pm_bound_ms, "bound_by": pm_bound_by,
          "library_ms": pm_lib_ms},
+        {"name": "fused_featurizer_mel_bf16", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+         "launches": train_counts["fused_featurizer_mel_bf16"],
+         "max_abs_err": bf16_err, "ms": mel_bf16_ms,
+         "plain_ms": mel_bf16_plain_ms, "bound_ms": bf16_bound_ms,
+         "bound_by": bf16_bound_by, "library_ms": mel_bf16_lib_ms},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ port is installed:
 CPU: mel and power-mel global relative error < 1e-5, PCEN absolute error
 < 1e-4, bf16 output bitwise the cast of the f32 output, Predictor
 probabilities of the kernel path within 1e-4 of max |p| of the plain
-featurizer's.  TF32 is off for the plain versions' einsums and the CNN.
+featurizer's; the "default" (bf16) tier as stated above its test.  TF32
+is off for the plain versions' einsums and the CNN.
 """
 
 import numpy as np
@@ -75,7 +76,134 @@ def test_fused_featurizer_kernel_matches_plain(batch, samples, hop):
                        raw_pcen.to(torch.bfloat16))
     assert ffz.launch_counts() == {"fused_featurizer_mel": 5,
                                    "fused_featurizer_mel_centered": 0,
+                                   "fused_featurizer_mel_bf16": 0,
                                    "fused_featurizer_pcen": 3}
+
+
+def _tone_clips(batch, samples, seed):
+    """Normalized clips of a few tones over faint noise: audio whose mel
+    maxima are tonal, as on the training path."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples) / 48000
+    clips = [sum(rng.uniform(0.2, 1.0) * np.sin(2 * np.pi * f * t)
+                 for f in rng.uniform(200.0, 9000.0, 3))
+             + 0.05 * rng.standard_normal(samples) for _ in range(batch)]
+    return normalize_rows(torch.from_numpy(np.stack(clips).astype(np.float32)))
+
+
+def _impulses(batch, samples, seed):
+    """At most one impulse in any 4096-sample frame: every sum that the
+    tier rounds to bf16 then has one non-zero term, so no summation order
+    can flip a rounding."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((batch, samples), np.float32)
+    for row in x:
+        pos = np.arange(rng.integers(0, 4099), samples, 4099)
+        row[pos] = rng.uniform(0.3, 1.0, len(pos)) * rng.choice([-1, 1], len(pos))
+    return torch.from_numpy(x)
+
+
+# The "default" tier's kernel and plain version share the six bf16 rounding
+# points and differ in f32 summation order only; that order flips a bf16
+# rounding of a stage-1 plane or a power bin now and then, which moves the
+# value by one bf16 step.  So: where no flip can happen (impulses), global
+# relative error < 1e-4; on audio, relative RMS error < 1e-4 and no value
+# off by more than one bf16 step of the max (2^-7); against the exact
+# "highest" kernel, the tier's own class, < 1e-2.
+BF16_FLIP_FREE_REL = 1e-4
+BF16_RMS_REL = 1e-4
+BF16_STEP = 2.0 ** -7
+BF16_VS_EXACT = 1e-2
+
+
+def _rms_rel(got, want):
+    return (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,samples,hop", [
+    (3, 144000, 281),  # production clip: 513 frames, a 1-frame last tile
+    (1, 30000, 313),
+])
+def test_bf16_tier_kernel_matches_plain(batch, samples, hop):
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig())
+    fz = ffz.FusedFeaturizer(w, 4096, hop, precision="default", device=dev)
+    exact = ffz.FusedFeaturizer(w, 4096, hop, device=dev)
+    noise = normalize_rows(torch.from_numpy(np.random.default_rng(
+        hop).standard_normal((batch, samples)).astype(np.float32)))
+    for kind, raw in (("impulses", _impulses(batch, samples, hop)),
+                      ("tones", _tone_clips(batch, samples, hop)),
+                      ("noise", noise)):
+        raw = raw.to(dev)
+        ffz.reset_launch_counts()
+        mel = fz(raw, pcen=False)
+        assert ffz.launch_counts()["fused_featurizer_mel_bf16"] == 1
+        want = ffz.fused_featurizer_plain(raw, fz.mel_weights, hop,
+                                          precision="default")
+        assert mel.shape == want.shape == (batch, 160, -(-samples // hop))
+        if kind == "impulses":
+            assert _rel(mel, want) < BF16_FLIP_FREE_REL
+            continue
+        assert _rms_rel(mel, want) < BF16_RMS_REL, kind
+        assert _rel(mel, want) < BF16_STEP, kind
+        assert _rel(mel, exact(raw, pcen=False)) < BF16_VS_EXACT, kind
+        assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16),
+                           mel.to(torch.bfloat16))
+
+
+def _train_setup(dev):
+    from audio_training_tpu_torch.data.preprocess import make_preprocess_fn
+    from audio_training_tpu_torch.train import create_train_state
+
+    cfg = FeaturizerConfig()
+    model = build_model("badwinner2", 7, logits_only=True,
+                        dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0)).module
+    state = create_train_state(model, learning_rate=1e-3, device=dev)
+    rng = np.random.default_rng(0)
+    raw, raw2 = (rng.uniform(-0.5, 0.5, (2, 144000)).astype(np.float32)
+                 for _ in range(2))
+    y = np.eye(7, dtype=np.float32)[[1, 3]]
+    pre = make_preprocess_fn(cfg, augment=True, device=dev)
+    return state, pre, (raw, y, raw2, y[::-1].copy())
+
+
+@pytest.mark.gpu
+def test_train_step_launches_the_bf16_tier_kernel():
+    from audio_training_tpu_torch.train import fresh_metrics, make_train_step
+
+    dev = _card()
+    state, pre, batch = _train_setup(dev)
+    before = {k: t.clone() for k, t in state.model.state_dict().items()}
+    ffz.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mel, yy = pre(*batch, gen)
+    assert mel.shape == (2, 160, 513, 1) and mel.dtype == torch.float32
+    state, m = make_train_step()(state, fresh_metrics(dev), mel, yy, gen)
+    torch.cuda.synchronize()
+    assert ffz.launch_counts()["fused_featurizer_mel_bf16"] == 1
+    assert ffz.launch_counts()["fused_featurizer_mel"] == 0
+    assert np.isfinite(float(m["loss_sum"]))
+    after = state.model.state_dict()
+    assert not torch.equal(after["convs.0.weight"], before["convs.0.weight"])
+    assert not torch.equal(after["bns.0.running_mean"],
+                           before["bns.0.running_mean"])
+
+
+@pytest.mark.gpu
+def test_preprocess_raises_when_the_kernel_is_refused(monkeypatch):
+    """A failed launch surfaces as an error: no plain fallback on CUDA."""
+    dev = _card()
+    _, pre, batch = _train_setup(dev)
+
+    class Refused:
+        def __getattr__(self, name):
+            return lambda *args: 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(ffz, "_library", Refused)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pre(*batch, torch.Generator(device=dev).manual_seed(0))
 
 
 @pytest.mark.gpu
@@ -114,6 +242,7 @@ def test_centered_kernel_matches_plain(batch, samples):
     assert (got - pcen(want, *fz.pcen_params, time_axis=2)).abs().max() < PCEN_ABS
     assert ffz.launch_counts() == {"fused_featurizer_mel": 0,
                                    "fused_featurizer_mel_centered": 3,
+                                   "fused_featurizer_mel_bf16": 0,
                                    "fused_featurizer_pcen": 1}
 
 

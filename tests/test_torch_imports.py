@@ -36,7 +36,9 @@ def test_port_modules_import_without_jax():
     result = json.loads(out.strip().splitlines()[-1])
     for name in ("ops.cuda.fused_featurizer", "ops.cuda.melspec",
                  "infer.fused", "infer.predictor", "cli.predict",
-                 "detect.signals", "corpus.audioio", "train.checkpoints"):
+                 "detect.signals", "corpus.audioio", "train.checkpoints",
+                 "data.preprocess", "train.losses", "train.metrics",
+                 "train.state", "train.step", "train.loop"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
     leaked = [m for m in result["modules"] if _forbidden(m)]
     assert not leaked, leaked
