@@ -4,7 +4,11 @@
 The featurizer is the CUDA kernel on a CUDA device at the production
 geometry and the plain rfft path elsewhere (``ops.featurizer_select``); the
 model runs in whatever compute dtype it was built with.  As in the JAX
-function, the waveform is not normalized here.
+function, the waveform is not normalized here.  The official benchmark
+chain (bench.py:262-310) is ``BackboneClassifier(mobilenet,
+external_frontend=True)`` in bf16 behind ``use_pcen=True, channels=3,
+out_dtype=torch.bfloat16``: the kernel's PCEN epilogue writes the bf16
+image the CNN reads.
 """
 
 from __future__ import annotations
@@ -28,21 +32,26 @@ def make_fused_infer_fn(
     probabilities: bool = False,
     precision: str = "highest",
     device: str | torch.device = "cuda",
+    out_dtype: torch.dtype = torch.float32,
 ) -> Callable[[torch.Tensor | np.ndarray], torch.Tensor]:
     """Build fn: raw (B, samples) float32 -> logits/probs (B, L).
 
     ``module`` holds its weights on ``device`` and is put in eval mode.
     ``use_kernel=False`` forces the plain rfft + einsum featurizer;
     otherwise the backend is chosen from the geometry and the device.
+    ``precision`` is the featurizer kernel's tier (``"highest"``,
+    ``"default"``, ``"bf16_3x"``, ``"bf16_3x_manual"``); ``out_dtype`` the
+    dtype of the image the featurizer hands the model.
     """
     mel_fn = make_mel_fn(cfg, backend="auto" if use_kernel else "rfft",
-                         precision=precision, device=device, pcen=use_pcen)
+                         precision=precision, device=device, pcen=use_pcen,
+                         out_dtype=out_dtype)
     module.eval()
 
     @torch.no_grad()
     def infer(raw: torch.Tensor | np.ndarray) -> torch.Tensor:
         raw = torch.as_tensor(raw, dtype=torch.float32, device=device)
-        x = mel_fn(raw)[..., None]  # (B, M, T, 1)
+        x = mel_fn(raw)[..., None]  # (B, M, T, 1), NHWC
         if channels > 1:
             x = x.repeat_interleave(channels, dim=-1)
         out = module(x)

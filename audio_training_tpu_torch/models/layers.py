@@ -2,7 +2,9 @@
 
 Keras conventions, so logits match the Flax models on converted weights:
 BatchNorm epsilon 1e-3 and momentum 0.99, convs VALID with glorot-uniform
-kernels and zero bias, explicit LeakyReLU slope.  Layers work on NCHW
+kernels and zero bias unless told otherwise (``padding="SAME"`` is XLA's
+split, which torch's symmetric ``padding=`` does not give), explicit
+LeakyReLU slope.  Layers work on NCHW
 tensors (H = mel, W = time); the models' public inputs keep the JAX NHWC
 layout.
 
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audio_training_tpu_torch.ops.features import mag_transform
+from audio_training_tpu_torch.ops.pcen import pcen
 
 # Keras BatchNormalization defaults
 BN_EPS = 1e-3
@@ -32,6 +35,20 @@ BN_MOMENTUM = 0.99
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, alpha)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return F.relu6(x)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one spatial dim: ``ceil(size / stride)``
+    outputs, the total pad split ``lo = total // 2``, ``hi = total - lo``
+    (for the stride-2 3x3 stem at 160 x 513: (0, 1) on mel, (1, 1) on
+    time)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
 
 
 class KerasBatchNorm(nn.Module):
@@ -124,6 +141,27 @@ def logmeanexp(x: torch.Tensor, dim: int, sharpness: float = 5.0,
     return (lse - math.log(x.shape[dim])) / sharpness
 
 
+class PCENLayer(nn.Module):
+    """Trainable per-channel energy normalization (JAX ``layers.py:162-194``,
+    tfpcen.PCEN): scalar ``gain``, ``bias``, ``root`` and ``smooth``
+    parameters, the ``ops.pcen`` math (EMA over ``time_axis`` seeded with
+    frame 0, gain clamped to <= 1, root to >= 1) and the global min-max to
+    [-1, 1] over the whole batch."""
+
+    def __init__(self, eps: float = 1e-6, time_axis: int = 1):
+        super().__init__()
+        self.eps = eps
+        self.time_axis = time_axis
+        self.gain = nn.Parameter(torch.full((1,), 0.98))
+        self.bias = nn.Parameter(torch.full((1,), 2.0))
+        self.root = nn.Parameter(torch.full((1,), 2.0))
+        self.smooth = nn.Parameter(torch.full((1,), 0.04))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pcen(x, self.gain, self.bias, self.root, self.smooth,
+                    self.eps, time_axis=self.time_axis)
+
+
 class LMELayer(nn.Module):
     """Log-mean-exp pooling over NCHW dim ``dim`` (2 = mel, 3 = time)."""
 
@@ -136,36 +174,73 @@ class LMELayer(nn.Module):
         return logmeanexp(x, self.dim, self.sharpness)
 
 
+def lecun_normal_(w: torch.Tensor,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """Flax's default kernel init: truncated normal (at 2 std), variance
+    1 / fan_in."""
+    fan_in = w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
+                                 generator=generator)
+
+
 class Conv(nn.Module):
     """Keras-style Conv2D on NCHW: VALID padding, stride 1, glorot-uniform
-    (or orthogonal) kernel, zero bias.  ``weight`` is OIHW."""
+    kernel, zero bias by default; ``stride``, ``padding="SAME"`` (XLA's
+    split, :func:`same_pads`, padded explicitly) and ``groups`` (a depthwise
+    conv: ``groups = in_channels``) as Flax's ``nn.Conv`` takes them.
+    ``init`` is ``"glorot"``, ``"orthogonal"`` or ``"lecun_normal"`` (Flax's
+    ``nn.Conv`` default).  ``weight`` is OIHW."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel: Sequence[int], init: str = "glorot",
                  dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, *,
+                 stride: Sequence[int] = (1, 1), padding: str = "VALID",
+                 groups: int = 1):
         super().__init__()
-        if init not in ("glorot", "orthogonal"):
+        if init not in ("glorot", "orthogonal", "lecun_normal"):
             raise ValueError(f"unknown init {init!r}")
+        if padding not in ("VALID", "SAME"):
+            raise ValueError(f"unknown padding {padding!r}")
         self.dtype = dtype
         self.init = init
+        self.kernel = tuple(kernel)
+        self.stride = tuple(stride)
+        self.padding = padding
+        self.groups = groups
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, *kernel))
+            torch.empty(out_channels, in_channels // groups, *kernel))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         if self.init == "glorot":
             nn.init.xavier_uniform_(self.weight, generator=generator)
-        else:
+        elif self.init == "orthogonal":
             nn.init.orthogonal_(self.weight, generator=generator)
+        else:
+            lecun_normal_(self.weight, generator=generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.weight, self.bias
         if self.dtype is not None:
             x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
-        return F.conv2d(x, w, b)
+        pad = (0, 0)
+        if self.padding == "SAME":
+            # the symmetric part of XLA's split is conv2d's own zero pad;
+            # only the extra row / column of an asymmetric split (a
+            # stride-2 conv on an even size) is padded explicitly
+            (h0, h1), (w0, w1) = (
+                same_pads(size, k, s) for size, k, s in
+                zip(x.shape[2:], self.kernel, self.stride))
+            pad = (min(h0, h1), min(w0, w1))
+            if h0 != h1 or w0 != w1:
+                x = F.pad(x, (w0 - pad[1], w1 - pad[1], h0 - pad[0],
+                              h1 - pad[0]))
+        return F.conv2d(x, w, b, stride=self.stride, padding=pad,
+                        groups=self.groups)
 
 
 def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:

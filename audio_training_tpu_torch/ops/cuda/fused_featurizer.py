@@ -13,17 +13,23 @@ cases, in the output's dtype, as in the JAX class (``:869-872``).
 Ported modes: mel power and PCEN with tf ``pad_end`` framing or the
 centered (librosa) framing of the long-recording Predictor
 (``center=True``), any hop and frame count, f32 or bf16 output, the exact
-f32 ``"highest"`` tier; and the ``"default"`` tier (bf16 DFT products, f32
+f32 ``"highest"`` tier; the ``"default"`` tier (bf16 DFT products, f32
 sums: the training featurizer) in tf framing, by a second, tensor-core
-kernel whose plain version is :func:`mel_power_bf16`.  ``"bf16_3x"``,
-``"default"`` with ``center=True``, ``normalize_waveform`` and
-``frontend_params`` raise ``ValueError``; ROADMAP.md queues them.
+kernel whose plain version is :func:`mel_power_bf16`; and the
+``"bf16_3x"`` / ``"bf16_3x_manual"`` tiers (each DFT product as three bf16
+passes over hi/lo splits) in tf framing, by a third tensor-core kernel
+whose plain version is :func:`mel_power_bf16_3x`.  The two 3x names differ
+on the TPU only in where the constant operator is split; here both launch
+the same kernel.  ``"default"`` or ``"bf16_3x*"`` with ``center=True``,
+``normalize_waveform`` and ``frontend_params`` raise ``ValueError``;
+ROADMAP.md queues them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -41,13 +47,14 @@ from audio_training_tpu_torch.ops.stft import (
 N_FFT = 4096
 MAX_BINS = 1024  # bins 0..1023: the kernel computes no bin above these
 R1, R2 = 32, 128  # "default" tier: n = 128 n1 + n2, k = k1 + 32 k2
-PRECISIONS = ("highest", "default")
+PRECISIONS = ("highest", "default", "bf16_3x", "bf16_3x_manual")
 _DEFERRED = "ROADMAP.md queue item 1 (K1's remaining modes)"
 
 # Launches of each kernel since the last reset, counted where they launch;
 # the "highest" mel kernel is counted by framing mode.
 _LAUNCHES = {"fused_featurizer_mel": 0, "fused_featurizer_mel_centered": 0,
-             "fused_featurizer_mel_bf16": 0, "fused_featurizer_pcen": 0}
+             "fused_featurizer_mel_bf16": 0, "fused_featurizer_mel_bf16x3": 0,
+             "fused_featurizer_pcen": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -83,6 +90,8 @@ def _library() -> ctypes.CDLL:
         i32, ptr, i32, ptr,
     ]
     lib.ff_mel_bf16.restype = i32
+    lib.ff_mel_bf16x3.argtypes = lib.ff_mel_bf16.argtypes
+    lib.ff_mel_bf16x3.restype = i32
     lib.ff_pcen.argtypes = [
         ptr, i32, i32, f32, f32, f32, f32, f32, ptr, i32, ptr,
     ]
@@ -143,16 +152,14 @@ def _unit(m: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
     return c, s
 
 
-@functools.cache
-def dft_tables_bf16() -> dict[str, np.ndarray]:
-    """The two DFT stages' operators, bf16 values as f32.
+def _dft_tables_f64() -> dict[str, np.ndarray]:
+    """The two DFT stages' operators in float64.
 
     ``d1_re``/``d1_im`` (n1, k1): W32^(n1 k1), built from a table of cos /
     -sin over j = n1 k1 mod 32 that is conjugate symmetric by construction
     (entry 32 - j mirrors entry j), so the planes of k1 and 32 - k1 are
     exact conjugates.  ``c2_re``/``c2_im`` (k1, n2, k2): the twiddle-folded
-    stage-2 operator W4096^(n2 k1) W128^(n2 k2) = W4096^(n2 (k1 + 32 k2)),
-    from float64, rounded once."""
+    stage-2 operator W4096^(n2 k1) W128^(n2 k2) = W4096^(n2 (k1 + 32 k2))."""
     c, s = _unit(np.arange(R1 // 2 + 1), R1)
     c = np.concatenate([c, c[1:R1 // 2][::-1]])
     s = np.concatenate([s, -s[1:R1 // 2][::-1]])
@@ -161,13 +168,80 @@ def dft_tables_bf16() -> dict[str, np.ndarray]:
     m = (n2[None, :, None] * (k1[:, None, None] + R1 * k2[None, None, :])
          ) % N_FFT
     c2_re, c2_im = _unit(m, N_FFT)
-    return {"d1_re": round_bf16(c[idx]), "d1_im": round_bf16(s[idx]),
-            "c2_re": round_bf16(c2_re), "c2_im": round_bf16(c2_im)}
+    return {"d1_re": c[idx], "d1_im": s[idx], "c2_re": c2_re, "c2_im": c2_im}
+
+
+@functools.cache
+def dft_tables_split() -> dict[str, dict[str, np.ndarray]]:
+    """The operators of :func:`_dft_tables_f64` split into two bf16 parts,
+    as f32: ``["hi"][name] = bf16(v)`` and ``["lo"][name] = bf16(v - hi)``.
+    The ``"default"`` tier uses ``hi``, the ``"bf16_3x"`` tier both (the
+    stage-1 table stays conjugate symmetric, so the split planes of k1 and
+    32 - k1 are exact conjugates too)."""
+    hi, lo = {}, {}
+    for name, v in _dft_tables_f64().items():
+        hi[name] = round_bf16(v)
+        lo[name] = round_bf16(v - hi[name].astype(np.float64))
+    return {"hi": hi, "lo": lo}
+
+
+def dft_tables_bf16() -> dict[str, np.ndarray]:
+    """The ``"default"`` tier's operators (:func:`_dft_tables_f64`), each
+    rounded once to bf16, as f32."""
+    return dft_tables_split()["hi"]
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """Round f32 to bf16 (nearest even) and hold it as f32."""
     return x.to(torch.bfloat16).float()
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, lo) bf16 values held as f32: hi = bf16(x), lo =
+    bf16(x - hi) (x - hi is exact in f32)."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def mel_power_bf16_3x(raw: torch.Tensor, mel_weights: torch.Tensor,
+                      hop: int) -> torch.Tensor:
+    """The plain version of the ``"bf16_3x"`` tier kernel: (B, samples)
+    f32 -> (B, n_mels, frames) f32 mel power, tf ``pad_end`` framing.  Each
+    DFT product x . w is hi(w) hi(x) + lo(w) hi(x) + hi(w) lo(x) at the
+    kernel's split points (the windowed samples x * hann, the f32 stage-1
+    planes; the operators of :func:`dft_tables_split`), every sum f32
+    (``einsum`` of bf16 values held as f32: each product is exact), power
+    ``re^2 + im^2`` in f32 and the mel product with f32 weights."""
+    dev = raw.device
+    tab = {part: {k: torch.as_tensor(v, device=dev) for k, v in t.items()}
+           for part, t in dft_tables_split().items()}
+    batch, n = raw.shape
+    frames = num_frames_tf(n, hop)
+    pad = (frames - 1) * hop + N_FFT - n
+    framed = F.pad(raw, (0, max(pad, 0))).unfold(-1, N_FFT, hop)
+    window = torch.as_tensor(hann_window(N_FFT), device=dev)
+    xh, xl = _split((framed * window).reshape(batch, frames, R1, R2))
+
+    def x3(eq, data_hi, data_lo, name):
+        w_hi, w_lo = tab["hi"][name], tab["lo"][name]
+        return (torch.einsum(eq, data_hi, w_hi)
+                + torch.einsum(eq, data_hi, w_lo)
+                + torch.einsum(eq, data_lo, w_hi))
+
+    s1 = "btnm,nk->btkm"  # (n1, n2) -> (k1, n2)
+    a_re = x3(s1, xh, xl, "d1_re")
+    a_im = x3(s1, xh, xl, "d1_im")
+    del xh, xl
+    re_h, re_l = _split(a_re)
+    im_h, im_l = _split(a_im)
+    del a_re, a_im
+    s2 = "btkm,kmq->btkq"  # (k1, n2) -> (k1, k2)
+    x_re = x3(s2, re_h, re_l, "c2_re") - x3(s2, im_h, im_l, "c2_im")
+    x_im = x3(s2, re_h, re_l, "c2_im") + x3(s2, im_h, im_l, "c2_re")
+    power = x_re * x_re + x_im * x_im  # (B, T, k1, k2)
+    power = power.transpose(-1, -2).reshape(batch, frames, MAX_BINS)
+    return torch.einsum("mf,btf->bmt", mel_weights[:, :MAX_BINS].float(),
+                        power)
 
 
 def mel_power_bf16(raw: torch.Tensor, mel_weights: torch.Tensor,
@@ -232,22 +306,22 @@ def b_fragments(b: np.ndarray) -> np.ndarray:
                      _pack_bf16(b[k + 8, n], b[k + 9, n])], -1)
 
 
-def stage1_operator() -> np.ndarray:
-    """The kernel's stage-1 A matrix (32 planes x 32 n1): rows 0..16 the
-    cos rows of k1' = 0..16, rows 17..31 the -sin rows of k1' = 1..15 (the
-    planes of a real frame's conjugate fold)."""
-    t = dft_tables_bf16()
-    return np.concatenate([t["d1_re"][:, :R1 // 2 + 1].T,
-                           t["d1_im"][:, 1:R1 // 2].T])
+def stage1_operator(tables: dict[str, np.ndarray]) -> np.ndarray:
+    """The kernel's stage-1 A matrix (32 planes x 32 n1) from ``tables``
+    (one part of :func:`dft_tables_split`): rows 0..16 the cos rows of k1'
+    = 0..16, rows 17..31 the -sin rows of k1' = 1..15 (the planes of a real
+    frame's conjugate fold)."""
+    re, im = tables["d1_re"], tables["d1_im"]
+    return np.concatenate([re[:, :R1 // 2 + 1].T, im[:, 1:R1 // 2].T])
 
 
-def stage2_operator(k1: int) -> np.ndarray:
-    """The kernel's stage-2 B matrix of ``k1`` (256 x 64).  Rows: re then
-    im of the stored plane k1' = min(k1, 32 - k1) over n2; for k1 > 16 the
-    plane is the conjugate, whose sign is folded in here.  Column 8 j + c
-    with j = 2 q + r is re (r = 0) or im (r = 1) of X[k1 + 32 (8 q + c)]."""
-    t = dft_tables_bf16()
-    re, im = t["c2_re"][k1], t["c2_im"][k1]  # (n2, k2)
+def stage2_operator(tables: dict[str, np.ndarray], k1: int) -> np.ndarray:
+    """The kernel's stage-2 B matrix of ``k1`` (256 x 64) from ``tables``
+    as in :func:`stage1_operator`.  Rows: re then im of the stored plane
+    k1' = min(k1, 32 - k1) over n2; for k1 > 16 the plane is the conjugate,
+    whose sign is folded in here.  Column 8 j + c with j = 2 q + r is re
+    (r = 0) or im (r = 1) of X[k1 + 32 (8 q + c)]."""
+    re, im = tables["c2_re"][k1], tables["c2_im"][k1]  # (n2, k2)
     s = 1.0 if k1 <= R1 // 2 else -1.0
     b = np.concatenate([np.stack([re, im], -1), np.stack([-s * im, s * re], -1)])
     return b.reshape(2 * R2, 4, 8, 2).transpose(0, 1, 3, 2).reshape(2 * R2, 64)
@@ -257,8 +331,62 @@ def stage2_operator(k1: int) -> np.ndarray:
 def dft_fragments() -> tuple[np.ndarray, np.ndarray]:
     """(stage-1 A fragments (2, 2, 32, 4), stage-2 B fragments of every k1
     (32, 16, 8, 32, 2)), uint32, in the order the kernel loads them."""
-    return (a_fragments(stage1_operator()),
-            np.stack([b_fragments(stage2_operator(k)) for k in range(R1)]))
+    t = dft_tables_bf16()
+    return (a_fragments(stage1_operator(t)),
+            np.stack([b_fragments(stage2_operator(t, k)) for k in range(R1)]))
+
+
+# The "bf16_3x" kernel runs the conjugate-folded planes in two halves of 16
+# stage-1 rows each (csrc/fused_featurizer.cu, mel_bf16x3_kernel): half 0
+# re of k1' = 0..7 and 16, im of 1..7; half 1 re and im of k1' = 8..15.
+# Rows of stage1_operator(tables) in that order:
+X3_ROWS = np.array([*range(8), 16, *range(17, 24),
+                    *range(8, 16), *range(24, 32)])
+
+
+@functools.cache
+def dft_fragments_x3() -> tuple[np.ndarray, np.ndarray]:
+    """The ``"bf16_3x"`` kernel's operator fragments, uint32, in load
+    order: stage 1 (2 halves, 2 k-steps, [hi, lo], 32 lanes, 4), A
+    fragments of the row-permuted operator; stage 2 (32 k1, 16 k-steps, 8
+    n-tiles, 32 lanes, 4): per lane the hi B fragment's two registers, then
+    the lo one's."""
+    parts = [dft_tables_split()[p] for p in ("hi", "lo")]
+    d1 = np.stack([a_fragments(stage1_operator(t)[X3_ROWS]) for t in parts],
+                  axis=2)
+    op2 = np.stack([
+        np.concatenate([b_fragments(stage2_operator(t, k)) for t in parts],
+                       axis=-1)
+        for k in range(R1)])
+    return d1, op2
+
+
+class _Tier(NamedTuple):
+    """A tensor-core tier's kernel: its C entry point, its launch counter,
+    its operator fragments and whether its mel weights are rounded to
+    bf16."""
+    entry: str
+    counter: str
+    fragments: Callable[[], tuple[np.ndarray, np.ndarray]]
+    bf16_mel: bool
+
+
+# the tiers other than the exact "highest"; both 3x names launch one kernel
+_TENSOR_CORE = {
+    "default": _Tier("ff_mel_bf16", "fused_featurizer_mel_bf16",
+                     dft_fragments, True),
+    "bf16_3x": _Tier("ff_mel_bf16x3", "fused_featurizer_mel_bf16x3",
+                     dft_fragments_x3, False),
+}
+_TENSOR_CORE["bf16_3x_manual"] = _TENSOR_CORE["bf16_3x"]
+
+
+def mel_counter(precision: str, center: bool = False) -> str:
+    """The launch counter of the mel kernel that ``precision`` launches."""
+    if precision in _TENSOR_CORE:
+        return _TENSOR_CORE[precision].counter
+    return ("fused_featurizer_mel_centered" if center
+            else "fused_featurizer_mel")
 
 
 def fused_featurizer_plain(
@@ -274,9 +402,13 @@ def fused_featurizer_plain(
     frames) mel power, or the un-normalized PCEN image when ``pcen_params
     = (gain, bias, root, smooth, eps)``, converted to ``out_dtype``;
     ``center`` selects the centered framing, ``precision="default"`` the
-    bf16 tier (:func:`mel_power_bf16`, tf framing only)."""
+    bf16 tier (:func:`mel_power_bf16`), ``"bf16_3x"`` or
+    ``"bf16_3x_manual"`` the three-pass tier (:func:`mel_power_bf16_3x`),
+    both tf framing only."""
     if precision == "default":
         out = mel_power_bf16(raw, mel_weights, hop)
+    elif precision in ("bf16_3x", "bf16_3x_manual"):
+        out = mel_power_bf16_3x(raw, mel_weights, hop)
     else:
         out = mel_power(raw, mel_weights, N_FFT, hop, center=center)
     if pcen_params is not None:
@@ -314,9 +446,10 @@ class FusedFeaturizer:
                 f"precision {precision!r}: the ported tiers are "
                 f"{PRECISIONS}; the others come with {_DEFERRED}"
             )
-        if precision == "default" and center:
+        if precision != "highest" and center:
             raise ValueError(
-                f"precision 'default' with center=True comes with {_DEFERRED}"
+                f"precision {precision!r} with center=True comes with "
+                f"{_DEFERRED}"
             )
         self.hop = hop
         self.center = center
@@ -343,13 +476,15 @@ class FusedFeaturizer:
         self.post_tw = _complex_table(
             np.exp(-2j * np.pi * np.arange(MAX_BINS) / N_FFT), self.device
         )
-        if precision == "default":
-            # the bf16 tier's operators in fragment order (1 MB for stage
-            # 2) and its bf16 mel weights
-            d1, op2 = dft_fragments()
+        tier = _TENSOR_CORE.get(precision)
+        if tier is not None:
+            # the tier's operators in fragment order (stage 2: 1 MB for
+            # "default", 2 MB of hi/lo for "bf16_3x")
+            d1, op2 = tier.fragments()
             self.d1_frag = to_dev(d1.view(np.int32))
             self.op2_frag = to_dev(op2.view(np.int32))
-            self.band_w = to_dev(round_bf16(flat))
+            if tier.bf16_mel:
+                self.band_w = to_dev(round_bf16(flat))
 
     def __call__(
         self,
@@ -409,17 +544,18 @@ class FusedFeaturizer:
         mel = torch.empty(
             (batch, self.n_mels, frames), dtype=mel_dtype, device=raw.device
         )
-        if self.precision == "default":
+        tier = _TENSOR_CORE.get(self.precision)
+        if tier is not None:
             with torch.cuda.device(raw.device):
-                _check(_library().ff_mel_bf16(
+                _check(getattr(_library(), tier.entry)(
                     raw.data_ptr(), batch, samples, self.hop, frames,
                     self.window.data_ptr(), self.d1_frag.data_ptr(),
                     self.op2_frag.data_ptr(), self.band_start.data_ptr(),
                     self.band_len.data_ptr(), self.band_off.data_ptr(),
                     self.band_w.data_ptr(), self.n_mels, mel.data_ptr(),
                     int(mel_dtype == torch.bfloat16), _stream(),
-                ), "bf16 mel")
-            _LAUNCHES["fused_featurizer_mel_bf16"] += 1
+                ), f"{self.precision} mel")
+            _LAUNCHES[tier.counter] += 1
             return mel if pcen_params is None else pcen_rows(
                 mel, pcen_params, out_dtype)
         with torch.cuda.device(raw.device):
@@ -432,8 +568,7 @@ class FusedFeaturizer:
                 mel.data_ptr(), int(mel_dtype == torch.bfloat16),
                 _stream(),
             ), "mel power")
-        _LAUNCHES["fused_featurizer_mel_centered" if self.center
-                  else "fused_featurizer_mel"] += 1
+        _LAUNCHES[mel_counter(self.precision, self.center)] += 1
         if pcen_params is None:
             return mel
         return pcen_rows(mel, pcen_params, out_dtype)

@@ -36,10 +36,13 @@ def make_mel_fn(
     precision: str = "highest",
     device: str | torch.device = "cuda",
     pcen: bool = False,
+    out_dtype: torch.dtype = torch.float32,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Returns fn(raw (B, n)) -> (B, n_mels, frames) float32 mel power, or
-    with ``pcen`` the min-max-normalized PCEN image (default PCEN
-    parameters; the fused kernel runs it as its epilogue)."""
+    """Returns fn(raw (B, n)) -> (B, n_mels, frames) mel power, or with
+    ``pcen`` the min-max-normalized PCEN image (default PCEN parameters;
+    the fused kernel runs it as its epilogue), in ``out_dtype`` (f32 or
+    bf16: the fused kernel stores bf16 and normalizes in bf16, as the JAX
+    kernel does; the rfft path casts its f32 result)."""
     w = mel_weights if mel_weights is not None else build_mel_weights(cfg)
     if backend == "auto":
         fused_ok = (torch.device(device).type == "cuda"
@@ -49,13 +52,13 @@ def make_mel_fn(
     if backend == "fused":
         fz = FusedFeaturizer(w, cfg.n_fft, cfg.hop_length,
                              precision=precision, device=device)
-        return lambda raw: fz(raw, pcen=pcen)
+        return lambda raw: fz(raw, pcen=pcen, out_dtype=out_dtype)
     if backend == "rfft":
         w_dev = torch.as_tensor(w, device=device)
 
         def rfft_mel(raw: torch.Tensor) -> torch.Tensor:
             mel = mel_power(raw, w_dev, cfg.n_fft, cfg.hop_length)
-            return pcen_op(mel, time_axis=2) if pcen else mel
+            return (pcen_op(mel, time_axis=2) if pcen else mel).to(out_dtype)
 
         return rfft_mel
     raise ValueError(f"unknown featurizer backend {backend}")

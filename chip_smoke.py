@@ -48,7 +48,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and B=256, its plain version and a library yardstick, the train step
    (ms, samples/s, peak memory), its split into preprocess / forward /
    backward / Adam, a profile with the idle share, and the 44x3 condense
-   conv's forward, dgrad and wgrad alone.
+   conv's forward, dgrad and wgrad alone;
+7. the PCEN -> MobileNetV2 chain, bench.py's official line (waveform ->
+   K1 with the PCEN epilogue, bf16 image -> 3-channel repeat ->
+   ``BackboneClassifier(mobilenet, external_frontend=True)`` bf16, 62
+   labels, B=512, random weights from a torch seed): K1's three-pass
+   "bf16_3x" tier against its plain version (< 2e-5) and the exact kernel
+   (< 5e-5) at B=8 and B=512, "bf16_3x_manual" bitwise equal to it, the
+   PCEN epilogue on the "default" tier's own mel (< 1e-4); at B=512 the
+   "default" tier against its plain version (phase 6's limits) and the
+   exact kernel and PCEN against theirs (phase 3's limits); the chain
+   through ``make_fused_infer_fn`` answering 3 requests at the "default"
+   tier, then once each at "bf16_3x" and "highest", launch counts zeroed
+   just before and read just after each; f32 logits at B=8 of the kernel
+   path against the plain featurizer (1e-4), of "bf16_3x" against
+   "highest" (1e-4) and of the folded 1-channel stem against the
+   3-channel repeat (1e-5); timing of the bf16_3x kernel (plain, library,
+   bound), of the chain per tier (ms, audio-s/s, peak memory), its split
+   into featurizer and CNN, a profile with the idle share, and the CNN in
+   channels-last and NCHW layouts.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -58,6 +76,7 @@ card it fails.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -76,6 +95,7 @@ SHORT_CLIP = 28100  # 100 hops: 100 tf frames, 101 centered frames
 TRAIN_BATCH = 128  # bench.py's TRAIN_BATCH
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 4
 TRAIN_LR = 1e-3
+BATCH_PCEN = 512  # bench.py's BATCH_PCEN
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
 # f32 logits of the kernel path vs the plain-featurizer path, relative to
@@ -94,6 +114,17 @@ BF16_FLIP_FREE_REL = 1e-4
 BF16_RMS_REL = 1e-4
 BF16_STEP = 2.0 ** -7
 BF16_VS_EXACT = 1e-2
+# K1's "bf16_3x" tier: kernel and plain version share the split points and
+# round nowhere between stages, so they differ by f32 summation order only
+# (global relative error < 2e-5); against the exact kernel the tier's own
+# class (the TPU read 8.7e-6, bench.py:337) is < 5e-5.  Through the f32
+# MobileNetV2 its logits stay within 1e-4 of max |logit| of the exact
+# tier's; the folded gray stem within 1e-5 (the same math, summed in
+# another order).
+X3_REL = 2e-5
+X3_VS_EXACT = 5e-5
+X3_LOGIT_REL = 1e-4
+FOLD_REL = 1e-5
 # One f32 train step, kernel path vs plain-featurizer path: the loss to
 # 1e-4 relative.  Adam's first update is +-lr * g / (|g| + eps) per element,
 # and the gradient of badwinner2 in train mode is not smooth in its input:
@@ -959,6 +990,248 @@ def main() -> None:
         f"{cc_tflop / (cc_dgrad_ms / 1e3):.1f} / "
         f"{cc_tflop / (cc_wgrad_ms / 1e3):.1f} TFLOP/s) {card}")
 
+    # ---- 7. the PCEN -> MobileNetV2 chain (bench.py's official line) -----
+    from audio_training_tpu_torch.models import fold_gray_stem
+
+    torch.cuda.empty_cache()
+    fz3 = ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length,
+                              precision="bf16_3x", device=dev)
+    fz3m = ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length,
+                               precision="bf16_3x_manual", device=dev)
+
+    def check_x3(raw: torch.Tensor) -> float:
+        b = raw.shape[0]
+        mel_k = fz3(raw, pcen=False)
+        mel_p = ffz.fused_featurizer_plain(raw, mel_w, cfg.hop_length,
+                                           precision="bf16_3x")
+        check(mel_k.shape == (b, cfg.n_mels, cfg.mel_frames),
+              f"bf16_3x mel shape {tuple(mel_k.shape)}")
+        err = (mel_k - mel_p).abs().max().item()
+        rel = err / mel_p.abs().max().item()
+        del mel_p
+        exact = fz(raw, pcen=False)
+        vs_exact = ((mel_k - exact).abs().max() / exact.abs().max()).item()
+        manual = torch.equal(fz3m(raw, pcen=False), mel_k)
+        cast = torch.equal(fz3(raw, pcen=False, out_dtype=torch.bfloat16),
+                           mel_k.to(torch.bfloat16))
+        log(f"check B={b} bf16_3x mel: vs plain global rel err {rel:.3e} "
+            f"(limit {X3_REL}), max abs err {err:.3e}; vs the exact kernel "
+            f"{vs_exact:.3e} (limit {X3_VS_EXACT}); bf16_3x_manual bitwise "
+            f"equal: {manual}; bf16 output the cast of f32: {cast}")
+        check(rel < X3_REL, "bf16_3x kernel disagrees with plain")
+        check(vs_exact < X3_VS_EXACT, "bf16_3x kernel outside its class")
+        check(manual, "bf16_3x_manual differs from bf16_3x")
+        check(cast, "bf16_3x bf16 output differs from the cast f32 output")
+        # the PCEN epilogue on the "default" tier's own mel
+        mel_d = fz16(raw, pcen=False)
+        want = normalize_minmax_global(pcen(
+            mel_d, *fz16.pcen_params, time_axis=2, normalize=False))
+        p_err = (fz16(raw, pcen=True) - want).abs().max().item()
+        log(f"check B={b} pcen on the default tier's mel: max abs err "
+            f"{p_err:.3e} (limit {PCEN_ABS_TOL})")
+        check(p_err < PCEN_ABS_TOL, "pcen kernel disagrees on the bf16 mel")
+        return err
+
+    x3_err = max(check_x3(normalize_rows(clips(CHECK_BATCH))),
+                 check_x3(normalize_rows(clips(BATCH_PCEN))))
+    # the path's other mel kernels against their plain versions at its own
+    # batch: the "default" tier (the official line) and the exact kernel
+    # with the PCEN epilogue (the "highest" rung)
+    bf16_err = max(bf16_err, check_bf16(torch.as_tensor(impulse_batch(
+        BATCH_PCEN, cfg.samples_per_clip, SEED + BATCH_PCEN), device=dev),
+        "impulses"), check_bf16(normalize_rows(clips(BATCH_PCEN)), "noise"))
+    torch.cuda.empty_cache()
+    errs.append(check_kernels(normalize_rows(clips(BATCH_PCEN))))
+    mel_err = max(e[0] for e in errs)
+    pcen_err = max(e[1] for e in errs)
+    torch.cuda.empty_cache()
+
+    mn = build_model("mobilenet", NUM_LABELS, logits_only=True,
+                     external_frontend=True, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(SEED)).module
+    mn = mn.to(dev).eval()
+    tiers = ("default", "bf16_3x", "highest")
+    mn_infer = {t: make_fused_infer_fn(mn, cfg, use_pcen=True, channels=3,
+                                       precision=t, device=dev,
+                                       out_dtype=torch.bfloat16)
+                for t in tiers}
+    mn_requests = [clips(BATCH_PCEN) for _ in range(REQUESTS)]
+    mn_counts = {}
+    for tier, reqs in (("default", mn_requests), ("bf16_3x", mn_requests[:1]),
+                       ("highest", mn_requests[:1])):
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        answers = [mn_infer[tier](r) for r in reqs]
+        torch.cuda.synchronize()
+        counts = mn_counts[tier] = ffz.launch_counts()
+        log(f"path PCEN -> MobileNetV2 chain, {tier} tier: {len(reqs)} "
+            f"request(s) of B={BATCH_PCEN}, launches {counts}")
+        want = {k: 0 for k in counts}
+        want[ffz.mel_counter(tier)] = want["fused_featurizer_pcen"] = len(reqs)
+        check(counts == want,
+              f"the {tier} chain did not launch its mel kernel and the PCEN "
+              "kernel once per request, and nothing else")
+        for logits in answers:
+            check(tuple(logits.shape) == (BATCH_PCEN, NUM_LABELS)
+                  and logits.dtype == torch.float32,
+                  f"logits {tuple(logits.shape)} {logits.dtype}")
+            check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    del answers
+
+    # f32 at B=8: kernel path vs plain featurizer, bf16_3x vs highest, and
+    # the folded gray stem vs the 3-channel repeat
+    mn32 = build_model("mobilenet", NUM_LABELS, logits_only=True,
+                       external_frontend=True).module
+    mn32.load_state_dict(mn.state_dict())
+    mn32 = mn32.to(dev)
+
+    def mn32_logits(precision="highest", use_kernel=True, model=mn32,
+                    channels=3):
+        return make_fused_infer_fn(model, cfg, use_pcen=True,
+                                   channels=channels, precision=precision,
+                                   use_kernel=use_kernel, device=dev)(raw8)
+
+    lg_hi = mn32_logits()
+    lg_plain = mn32_logits(use_kernel=False)
+    lg_x3 = mn32_logits("bf16_3x")
+    lg_fold = mn32_logits(model=fold_gray_stem(mn32), channels=1)
+
+    def logit_rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    rel_plain, rel_x3 = logit_rel(lg_hi, lg_plain), logit_rel(lg_x3, lg_hi)
+    rel_fold = logit_rel(lg_fold, lg_hi)
+    rows = logit_rel(lg_hi[0], lg_hi[1])
+    log(f"check MobileNetV2 f32 logits B={CHECK_BATCH} (max |logit| "
+        f"{lg_hi.abs().max().item():.4e}, two clips' logits {rows:.3e} "
+        f"apart): kernel path vs plain featurizer rel err {rel_plain:.3e} "
+        f"(limit {LOGIT_REL_TOL}); bf16_3x vs highest {rel_x3:.3e} (limit "
+        f"{X3_LOGIT_REL}); folded 1-channel stem vs 3-channel repeat "
+        f"{rel_fold:.3e} (limit {FOLD_REL})")
+    check(rel_plain < LOGIT_REL_TOL, "MobileNetV2 kernel-path logits disagree")
+    check(rel_x3 < X3_LOGIT_REL, "bf16_3x logits disagree with highest")
+    check(rel_fold < FOLD_REL, "folded-stem logits disagree")
+    del mn32
+
+    # timing: the bf16_3x kernel at B=512
+    raw512 = normalize_rows(mn_requests[1])
+    x3_ms = time_ms(lambda: fz3(raw512, pcen=False))
+    x3_plain_ms = time_ms(lambda: ffz.fused_featurizer_plain(
+        raw512, mel_w, cfg.hop_length, precision="bf16_3x"), iters=2,
+        warmup=1)
+    torch.cuda.empty_cache()
+    x3_lib_ms = time_ms(lambda: library_mel(raw512), iters=3)
+    x3_exact_ms = time_ms(lambda: fz(raw512, pcen=False))
+    x3_frames = BATCH_PCEN * frames
+    # per frame: three passes of stage 1 (131k MAC, conjugate-folded) and
+    # stage 2 (524k MAC) on the tensor cores; window, power and banded mel
+    # in f32 on the CUDA cores
+    x3_tc_flops = x3_frames * 3 * 2 * (32 * 32 * 128 + 32 * 256 * 64)
+    x3_f32_flops = x3_frames * (cfg.n_fft + 3 * 1024 + 2 * nnz)
+    x3_tables = sum(t.numel() * t.element_size() for t in (
+        fz3.window, fz3.d1_frag, fz3.op2_frag, fz3.band_start, fz3.band_len,
+        fz3.band_off, fz3.band_w))
+    x3_bytes = (raw512.numel() * 4 + BATCH_PCEN * n_mels * frames * 4
+                + x3_tables)
+    x3_t_ops = x3_tc_flops / PEAK_BF16_FLOPS + x3_f32_flops / PEAK_FP32_FLOPS
+    x3_t_bytes = x3_bytes / PEAK_BYTES_S
+    x3_bound_ms = max(x3_t_ops, x3_t_bytes) * 1e3
+    x3_bound_by = "operations" if x3_t_ops >= x3_t_bytes else "bytes"
+    log(f"time bf16_3x mel kernel (f32 out) B={BATCH_PCEN}: {x3_ms:.4f} ms, "
+        f"plain {x3_plain_ms:.4f} ms, library stft+matmul {x3_lib_ms:.4f} "
+        f"ms, exact kernel {x3_exact_ms:.4f} ms, bound {x3_bound_ms:.4f} ms "
+        f"({x3_bound_by}; {x3_tc_flops / 1e9:.2f} GFLOP at the bf16 peak + "
+        f"{x3_f32_flops / 1e9:.2f} GFLOP f32, {x3_bytes / 1e6:.1f} MB), "
+        f"roofline share {x3_bound_ms / x3_ms:.3f} {card}")
+
+    # the chain per tier, and its split into featurizer and CNN
+    mn_mel = {t: make_mel_fn(cfg, device=dev, pcen=True, precision=t,
+                             out_dtype=torch.bfloat16) for t in tiers}
+    img3 = mn_mel["default"](mn_requests[2])[..., None].repeat_interleave(
+        3, dim=-1)
+    with torch.no_grad():
+        cnn_ms = time_ms(lambda: mn(img3), iters=5)
+    mn_chain = {}
+    for tier in tiers:
+        torch.cuda.reset_peak_memory_stats()
+        t_ms = time_ms(lambda: mn_infer[tier](mn_requests[1]), iters=5)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        feat_ms = time_ms(lambda: mn_mel[tier](mn_requests[1]), iters=5)
+        mn_chain[tier] = t_ms
+        log(f"time PCEN -> MobileNetV2 chain, {tier} tier, B={BATCH_PCEN}: "
+            f"{t_ms:.3f} ms/batch, "
+            f"{BATCH_PCEN * cfg.segment_length / (t_ms / 1e3):.1f} audio-s/s, "
+            f"peak memory {peak:.2f} GB; featurizer (mel + PCEN + min-max, "
+            f"bf16 image) {feat_ms:.3f} ms, MobileNetV2 bf16 on the 3-channel "
+            f"image {cnn_ms:.3f} ms {card}")
+
+    # layouts: the path hands the backbone an NCHW view of NHWC data
+    # (channels-last); against it, NCHW-contiguous input and channels-last
+    # weights
+    nchw = img3.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    with torch.no_grad():
+        feat_out = mn.backbone(img3.permute(0, 3, 1, 2))
+        cl_out = feat_out.is_contiguous(memory_format=torch.channels_last)
+        nchw_ms = time_ms(lambda: mn(nchw), iters=5)
+        mn_cl = copy.deepcopy(mn).to(memory_format=torch.channels_last)
+        cl_w_ms = time_ms(lambda: mn_cl(img3), iters=5)
+    del feat_out, mn_cl
+    log(f"time MobileNetV2 bf16 B={BATCH_PCEN} by layout: NHWC input as the "
+        f"path runs it {cnn_ms:.3f} ms (backbone output channels-last: "
+        f"{cl_out}), NCHW-contiguous input {nchw_ms:.3f} ms, channels-last "
+        f"weights too {cl_w_ms:.3f} ms {card}")
+
+    # a warm-up step first, and a one-element fill ahead of the chain in
+    # each step: the profiler can lose the first kernel of its window, and
+    # this chain's first kernel is K1's.  A profile that still lost a
+    # featurizer kernel is taken again, at most twice.
+    def profile_chain():
+        averages = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True,
+                     schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                      active=1),
+                     on_trace_ready=lambda p: averages.extend([
+                         p.key_averages(),
+                         p.key_averages(group_by_input_shape=True)])) as prof:
+            for _ in range(2):
+                torch.zeros(1, device=dev)
+                mn_infer["default"](mn_requests[2])
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in averages[0]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        feat = [e for e in events
+                if "mel_bf16_kernel" in e.key or "pcen_kernel" in e.key]
+        return averages, events, feat
+
+    for attempt in range(3):
+        averages, kernel_events, feat_events = profile_chain()
+        if len(feat_events) == 2:
+            break
+        log(f"profile attempt {attempt + 1} lost a featurizer kernel: it "
+            f"holds {[e.key[:40] for e in feat_events]}")
+    check(len(feat_events) == 2, "the profile misses a featurizer kernel")
+    busy_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
+    feat_busy = sum(e.self_device_time_total for e in feat_events) / 1e3
+    conv_busy = sum(e.self_device_time_total for e in kernel_events
+                    if "conv" in e.key.lower() or "xmma" in e.key
+                    or "sm90" in e.key or "sm80" in e.key) / 1e3
+    log(f"profile PCEN -> MobileNetV2 chain, default tier, B={BATCH_PCEN}: "
+        f"device kernels {busy_ms:.3f} ms of {mn_chain['default']:.3f} ms "
+        f"(idle share {1 - busy_ms / mn_chain['default']:.3f}); K1 bf16 + "
+        f"PCEN kernels {feat_busy:.3f} ms, kernels named as convolutions "
+        f"{conv_busy:.3f} ms, the rest {busy_ms - feat_busy - conv_busy:.3f} "
+        f"ms {card}")
+    for e in sorted(kernel_events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
+            f"{e.key[:80]}")
+    for e in sorted(averages[1], key=lambda e: -e.device_time_total):
+        if e.key == "aten::cudnn_convolution" and e.device_time_total > 500:
+            log(f"  conv {e.device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
+                f"in {e.input_shapes[:2]}")
+
     kernels = [
         {"name": "fused_featurizer_mel", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -990,6 +1263,12 @@ def main() -> None:
          "max_abs_err": bf16_err, "ms": mel_bf16_ms,
          "plain_ms": mel_bf16_plain_ms, "bound_ms": bf16_bound_ms,
          "bound_by": bf16_bound_by, "library_ms": mel_bf16_lib_ms},
+        {"name": "fused_featurizer_mel_bf16x3", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+         "launches": mn_counts["bf16_3x"]["fused_featurizer_mel_bf16x3"],
+         "max_abs_err": x3_err, "ms": x3_ms, "plain_ms": x3_plain_ms,
+         "bound_ms": x3_bound_ms, "bound_by": x3_bound_by,
+         "library_ms": x3_lib_ms},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -170,8 +170,13 @@ def test_centered_pcen_matches_jax_kernel_interpret(mel_w):
 
 
 def test_deferred_modes_raise(mel_w, fz):
-    with pytest.raises(ValueError, match="queue item 1"):
-        ffz.FusedFeaturizer(mel_w, precision="bf16_3x", device="cpu")
+    # the tensor-core tiers take tf framing only
+    for tier in ("default", "bf16_3x"):
+        with pytest.raises(ValueError, match="queue item 1"):
+            ffz.FusedFeaturizer(mel_w, precision=tier, center=True,
+                                device="cpu")
+    with pytest.raises(ValueError, match="ported tiers"):
+        ffz.FusedFeaturizer(mel_w, precision="high", device="cpu")
     fz_c = ffz.FusedFeaturizer(mel_w, center=True, device="cpu")
     raw = torch.zeros(1, SHORT)
     for featurizer in (fz, fz_c):

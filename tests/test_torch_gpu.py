@@ -10,8 +10,12 @@ port is installed:
 CPU: mel and power-mel global relative error < 1e-5, PCEN absolute error
 < 1e-4, bf16 output bitwise the cast of the f32 output, Predictor
 probabilities of the kernel path within 1e-4 of max |p| of the plain
-featurizer's; the "default" (bf16) tier as stated above its test.  TF32
-is off for the plain versions' einsums and the CNN.
+featurizer's; the "default" (bf16) tier as stated above its test; the
+"bf16_3x" tier within 2e-5 of its plain version and 5e-5 of the exact
+kernel, "bf16_3x_manual" bitwise equal to it; the PCEN -> MobileNetV2
+chain's f32 logits within 1e-4 of max |logit| of the plain featurizer's
+(and of the exact tier's, for "bf16_3x"), the folded gray stem's within
+1e-5.  TF32 is off for the plain versions' einsums and the CNN.
 """
 
 import numpy as np
@@ -20,7 +24,8 @@ import torch
 
 from audio_training_tpu_torch.config import FeaturizerConfig
 from audio_training_tpu_torch.infer import Predictor
-from audio_training_tpu_torch.models import build_model
+from audio_training_tpu_torch.infer.fused import make_fused_infer_fn
+from audio_training_tpu_torch.models import build_model, fold_gray_stem
 from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
 from audio_training_tpu_torch.ops.cuda import melspec
 from audio_training_tpu_torch.ops.features import (
@@ -77,6 +82,7 @@ def test_fused_featurizer_kernel_matches_plain(batch, samples, hop):
     assert ffz.launch_counts() == {"fused_featurizer_mel": 5,
                                    "fused_featurizer_mel_centered": 0,
                                    "fused_featurizer_mel_bf16": 0,
+                                   "fused_featurizer_mel_bf16x3": 0,
                                    "fused_featurizer_pcen": 3}
 
 
@@ -243,6 +249,7 @@ def test_centered_kernel_matches_plain(batch, samples):
     assert ffz.launch_counts() == {"fused_featurizer_mel": 0,
                                    "fused_featurizer_mel_centered": 3,
                                    "fused_featurizer_mel_bf16": 0,
+                                   "fused_featurizer_mel_bf16x3": 0,
                                    "fused_featurizer_pcen": 1}
 
 
@@ -319,3 +326,90 @@ def test_predictor_raises_when_a_kernel_is_refused(monkeypatch, n_fft):
     monkeypatch.setattr(melspec, "_library", Refused)
     with pytest.raises(RuntimeError, match="launch failed"):
         pred.predict_windows(np.ones((2, 144000), np.float32))
+
+
+X3_REL = 2e-5
+X3_VS_EXACT = 5e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,samples,hop", [
+    (3, 144000, 281),  # production clip: 513 frames, a 1-frame last tile
+    (1, 30000, 313),
+])
+def test_bf16_3x_tier_kernel_matches_plain(batch, samples, hop):
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig())
+    fz = ffz.FusedFeaturizer(w, 4096, hop, precision="bf16_3x", device=dev)
+    manual = ffz.FusedFeaturizer(w, 4096, hop, precision="bf16_3x_manual",
+                                 device=dev)
+    exact = ffz.FusedFeaturizer(w, 4096, hop, device=dev)
+    for raw in (_tone_clips(batch, samples, hop),
+                normalize_rows(torch.from_numpy(np.random.default_rng(
+                    hop).standard_normal((batch, samples)).astype(
+                        np.float32)))):
+        raw = raw.to(dev)
+        ffz.reset_launch_counts()
+        mel = fz(raw, pcen=False)
+        assert ffz.launch_counts()["fused_featurizer_mel_bf16x3"] == 1
+        want = ffz.fused_featurizer_plain(raw, fz.mel_weights, hop,
+                                          precision="bf16_3x")
+        assert mel.shape == want.shape == (batch, 160, -(-samples // hop))
+        assert _rel(mel, want) < X3_REL
+        assert _rel(mel, exact(raw, pcen=False)) < X3_VS_EXACT
+        assert torch.equal(manual(raw, pcen=False), mel)
+        assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16),
+                           mel.to(torch.bfloat16))
+        got = fz(raw, pcen=True)
+        assert (got - pcen(want, *fz.pcen_params, time_axis=2)).abs().max() < PCEN_ABS
+
+
+def _mobilenet(dev, dtype=None):
+    return build_model("mobilenet", 7, logits_only=True,
+                       external_frontend=True, dtype=dtype,
+                       generator=torch.Generator().manual_seed(0)
+                       ).module.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier,counter", [
+    ("default", "fused_featurizer_mel_bf16"),
+    ("bf16_3x", "fused_featurizer_mel_bf16x3"),
+    ("bf16_3x_manual", "fused_featurizer_mel_bf16x3"),
+    ("highest", "fused_featurizer_mel"),
+])
+def test_mobilenet_chain_launches_its_tier_kernel(tier, counter):
+    dev = _card()
+    infer = make_fused_infer_fn(_mobilenet(dev, torch.bfloat16),
+                                FeaturizerConfig(), use_pcen=True, channels=3,
+                                precision=tier, device=dev,
+                                out_dtype=torch.bfloat16)
+    raw = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 144000)).astype(np.float32)).to(dev)
+    ffz.reset_launch_counts()
+    logits = infer(raw)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in ffz.launch_counts()}
+    want[counter] = want["fused_featurizer_pcen"] = 1
+    assert ffz.launch_counts() == want
+    assert logits.shape == (2, 7) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_mobilenet_kernel_path_matches_plain_featurizer():
+    dev = _card()
+    cfg = FeaturizerConfig()
+    model = _mobilenet(dev)
+    raw = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 144000)).astype(np.float32)).to(dev)
+
+    def logits(precision="highest", use_kernel=True, m=model, channels=3):
+        return make_fused_infer_fn(m, cfg, use_pcen=True, channels=channels,
+                                   precision=precision, use_kernel=use_kernel,
+                                   device=dev)(raw)
+
+    hi = logits()
+    assert _rel(hi, logits(use_kernel=False)) < 1e-4
+    assert _rel(logits("bf16_3x"), hi) < 1e-4
+    assert _rel(logits(m=fold_gray_stem(model), channels=1), hi) < 1e-5

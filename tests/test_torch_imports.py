@@ -38,7 +38,8 @@ def test_port_modules_import_without_jax():
                  "infer.fused", "infer.predictor", "cli.predict",
                  "detect.signals", "corpus.audioio", "train.checkpoints",
                  "data.preprocess", "train.losses", "train.metrics",
-                 "train.state", "train.step", "train.loop"):
+                 "train.state", "train.step", "train.loop",
+                 "models.backbones", "models.registry", "models.convert"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
     leaked = [m for m in result["modules"] if _forbidden(m)]
     assert not leaked, leaked
