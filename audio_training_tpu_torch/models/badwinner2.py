@@ -20,8 +20,10 @@ JAX's three places (``:106``, ``:111``, ``:116``), drawn from the
 ``generator`` given to ``forward`` (JAX keys and torch generators give
 different bits: parity is held at ``dropout=0.0``).  ``dtype=torch.bfloat16``
 runs the CNN in bf16 after the frontend while parameters stay f32, as Flax
-does.  The JAX options ``big_condense=False``, ``add_dense=False`` and
-``external_frontend`` are not ported yet.
+does.  ``external_frontend=True`` takes an image that already ran the
+frontend (MagTransform and the per-mel-row BN: the fused featurizer's
+``frontend_params`` fold) and builds neither.  The JAX options
+``big_condense=False`` and ``add_dense=False`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ LEAKY_ALPHA = 0.01
 class BadWinner2(nn.Module):
     """Module names map one to one onto the Flax tree (models/convert.py):
     ``convs[i]`` is ``Conv_i``, ``bns[i]`` is ``KerasBatchNorm_{i+1}``,
-    ``mel_bn`` is ``KerasBatchNorm_0`` and ``mag`` is ``MagTransform_0``."""
+    ``mel_bn`` is ``KerasBatchNorm_0`` and ``mag`` is ``MagTransform_0``;
+    with ``external_frontend`` Flax builds no frontend and ``bns[i]`` is
+    ``KerasBatchNorm_i``."""
 
     def __init__(
         self,
@@ -59,6 +63,7 @@ class BadWinner2(nn.Module):
         dtype: torch.dtype | None = None,
         generator: torch.Generator | None = None,
         dropout: float = 0.5,
+        external_frontend: bool = False,
     ):
         super().__init__()
         if n_mels not in CONDENSE_HEIGHT:
@@ -68,9 +73,11 @@ class BadWinner2(nn.Module):
         self.multi_label = multi_label
         self.logits_only = logits_only
         self.dtype = dtype
-        self.mag = MagTransform()
-        self.mel_bn = KerasBatchNorm(n_mels, feature_dim=2, use_scale=False,
-                                     use_bias=False)
+        self.mag = self.mel_bn = None
+        if not external_frontend:
+            self.mag = MagTransform()
+            self.mel_bn = KerasBatchNorm(n_mels, feature_dim=2,
+                                         use_scale=False, use_bias=False)
         convs = [
             (in_channels, 64, (3, 3), "glorot"),
             (64, 64, (3, 3), "glorot"),
@@ -116,7 +123,8 @@ class BadWinner2(nn.Module):
             )
         # NHWC -> NCHW view; a contiguous NHWC input is channels_last
         x = x.permute(0, 3, 1, 2)
-        x = self.mel_bn(self.mag(x))
+        if self.mag is not None:
+            x = self.mel_bn(self.mag(x))
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self._block(1, self._block(0, x))

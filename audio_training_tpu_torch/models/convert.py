@@ -32,7 +32,8 @@ def _bn(sd: dict, name: str, params, stats) -> None:
     sd[f"{name}.running_var"] = _t(s["var"])
 
 
-def badwinner2_state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
+def badwinner2_state_dict_from_flax(
+        variables, external_frontend: bool = False) -> dict[str, torch.Tensor]:
     """State dict for ``models.badwinner2.BadWinner2`` from the Flax
     ``{"params": ..., "batch_stats": ...}`` of ``BadWinner2`` (big condense,
     dense head).  The tree is:
@@ -42,33 +43,54 @@ def badwinner2_state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
     * ``batch_stats/KerasBatchNorm_{0..7}/BatchNorm_0/{mean,var}``, ``_0``
       being the per-mel BN;
     * ``params/MagTransform_0/a_power``.
+
+    With ``external_frontend=True`` (the model built with
+    ``external_frontend=True``, behind the fused featurizer's frontend fold)
+    Flax creates neither the MagTransform nor the per-mel BN, so its
+    counter starts at the first conv block's BN: the blocks' BatchNorms are
+    ``KerasBatchNorm_{0..6}``.  A tree of the other kind is refused.
     """
     params, stats = variables["params"], variables["batch_stats"]
+    first = 0 if external_frontend else 1  # the first conv block's BN
     expected = ({f"Conv_{i}" for i in range(8)}
-                | {f"KerasBatchNorm_{i}" for i in range(1, 8)}
-                | {"MagTransform_0"})
+                | {f"KerasBatchNorm_{i}" for i in range(first, first + 7)}
+                | (set() if external_frontend else {"MagTransform_0"}))
     if set(params) != expected or set(stats) != {
-            f"KerasBatchNorm_{i}" for i in range(8)}:
+            f"KerasBatchNorm_{i}" for i in range(first + 7)}:
+        kind = "external frontend" if external_frontend else "own frontend"
         raise ValueError(
-            "not a badwinner2 (big condense, dense head) variable tree: "
-            f"params {sorted(params)}, batch_stats {sorted(stats)}"
+            f"not a badwinner2 (big condense, dense head, {kind}) variable "
+            f"tree: params {sorted(params)}, batch_stats {sorted(stats)}"
         )
-    sd = {"mag.a_power": _t(params["MagTransform_0"]["a_power"])}
-    mel_bn = stats["KerasBatchNorm_0"]["BatchNorm_0"]
-    sd["mel_bn.running_mean"] = _t(mel_bn["mean"])
-    sd["mel_bn.running_var"] = _t(mel_bn["var"])
+    sd = {}
+    if not external_frontend:
+        a_power, mean, var = badwinner2_frontend_params_from_flax(variables)
+        sd["mag.a_power"] = _t(a_power)
+        sd["mel_bn.running_mean"] = _t(mean)
+        sd["mel_bn.running_var"] = _t(var)
     for i in range(8):
-        conv = params[f"Conv_{i}"]["Conv_0"]
-        sd[f"convs.{i}.weight"] = _t(conv["kernel"]).permute(3, 2, 0, 1).contiguous()
-        sd[f"convs.{i}.bias"] = _t(conv["bias"])
+        _conv(sd, f"convs.{i}", params[f"Conv_{i}"]["Conv_0"])
     for i in range(7):
-        bn_p = params[f"KerasBatchNorm_{i + 1}"]["BatchNorm_0"]
-        bn_s = stats[f"KerasBatchNorm_{i + 1}"]["BatchNorm_0"]
-        sd[f"bns.{i}.weight"] = _t(bn_p["scale"])
-        sd[f"bns.{i}.bias"] = _t(bn_p["bias"])
-        sd[f"bns.{i}.running_mean"] = _t(bn_s["mean"])
-        sd[f"bns.{i}.running_var"] = _t(bn_s["var"])
+        _bn(sd, f"bns.{i}", params[f"KerasBatchNorm_{i + first}"],
+            stats[f"KerasBatchNorm_{i + first}"])
     return sd
+
+
+def badwinner2_frontend_params_from_flax(
+        variables) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``frontend_params = (a_power, bn_mean, bn_var)`` for the fused
+    featurizer's frontend fold, from the variables of a badwinner2 with its
+    own frontend: ``params/MagTransform_0/a_power`` and
+    ``batch_stats/KerasBatchNorm_0/BatchNorm_0/{mean,var}``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    if "MagTransform_0" not in params or "KerasBatchNorm_0" in params:
+        raise ValueError(
+            "not the variables of a badwinner2 with its own frontend "
+            f"(MagTransform_0 and a scale-free KerasBatchNorm_0): params "
+            f"{sorted(params)}")
+    bn = stats["KerasBatchNorm_0"]["BatchNorm_0"]
+    return tuple(np.array(v, dtype=np.float32) for v in (
+        params["MagTransform_0"]["a_power"], bn["mean"], bn["var"]))
 
 
 MOBILENET_BLOCKS = 17

@@ -113,7 +113,8 @@ def build_model(
 ) -> ModelSpec:
     """Build a model by reference CLI name (audiomodel.py:660-876).
     ``kwargs`` go to the model (for badwinner2: ``n_mels``,
-    ``in_channels``, ``generator``; for a backbone: ``in_channels``,
+    ``in_channels``, ``dropout``, ``external_frontend``, ``generator``; for
+    a backbone: ``in_channels``,
     ``use_pcen``, ``dropout``, ``external_frontend``, ``generator``)."""
     name = model_name.lower()
     common = dict(multi_label=multi_label, lme=lme, logits_only=logits_only,

@@ -3,26 +3,31 @@
 
 Port of ``audio_training_tpu/ops/pallas/fused_featurizer.py``
 (``_featurizer_kernel`` and ``FusedFeaturizer``).  For a CUDA tensor
-``FusedFeaturizer.__call__`` launches the kernel (one launch for mel power,
-a second for the PCEN epilogue) or raises; for a CPU tensor it computes
-:func:`fused_featurizer_plain` — tf-stft framing, ``torch.fft.rfft``,
+``FusedFeaturizer.__call__`` launches the kernels (one launch for mel power,
+a second for the PCEN epilogue, and with ``normalize_waveform`` a per-clip
+min-max reduction ahead of the mel launch) or raises; for a CPU tensor it
+computes :func:`fused_featurizer_plain` — tf-stft framing, ``torch.fft.rfft``,
 power, an ``einsum`` with the mel weights and the ``ops.pcen`` pointwise
 math.  The batch-global PCEN min-max runs in torch on the output in both
 cases, in the output's dtype, as in the JAX class (``:869-872``).
 
-Ported modes: mel power and PCEN with tf ``pad_end`` framing or the
+Every mode of the JAX class is ported: tf ``pad_end`` framing or the
 centered (librosa) framing of the long-recording Predictor
-(``center=True``), any hop and frame count, f32 or bf16 output, the exact
-f32 ``"highest"`` tier; the ``"default"`` tier (bf16 DFT products, f32
-sums: the training featurizer) in tf framing, by a second, tensor-core
-kernel whose plain version is :func:`mel_power_bf16`; and the
+(``center=True``), any hop and frame count, f32 or bf16 output, at each
+precision tier: the exact f32 ``"highest"`` (a radix-2 FFT kernel); the
+``"default"`` tier (bf16 DFT products, f32 sums: the training featurizer),
+a tensor-core kernel whose plain version is :func:`mel_power_bf16`; and the
 ``"bf16_3x"`` / ``"bf16_3x_manual"`` tiers (each DFT product as three bf16
-passes over hi/lo splits) in tf framing, by a third tensor-core kernel
-whose plain version is :func:`mel_power_bf16_3x`.  The two 3x names differ
-on the TPU only in where the constant operator is split; here both launch
-the same kernel.  ``"default"`` or ``"bf16_3x*"`` with ``center=True``,
-``normalize_waveform`` and ``frontend_params`` raise ``ValueError``;
-ROADMAP.md queues them.
+passes over hi/lo splits), a third tensor-core kernel whose plain version is
+:func:`mel_power_bf16_3x`.  The two 3x names differ on the TPU only in where
+the constant operator is split; here both launch the same kernel.  The two
+folds of the JAX class run in every tier's kernel: ``normalize_waveform``
+(the per-clip min-max of ``ops.features.normalize_rows``, from
+:func:`clip_minmax`, applied in normalize_rows' own arithmetic) and
+``frontend_params``
+(badwinner2's MagTransform and per-mel-row BatchNorm on the mel output).  The ``ValueError``s left are the
+JAX class's own contracts: the folds take tf framing only, and the frontend
+fold excludes PCEN.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from audio_training_tpu_torch.ops.cuda.build import load_library
-from audio_training_tpu_torch.ops.features import mel_power
+from audio_training_tpu_torch.ops.features import mel_power, normalize_rows
 from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
 from audio_training_tpu_torch.ops.stft import (
     hann_window,
@@ -48,13 +53,16 @@ N_FFT = 4096
 MAX_BINS = 1024  # bins 0..1023: the kernel computes no bin above these
 R1, R2 = 32, 128  # "default" tier: n = 128 n1 + n2, k = k1 + 32 k2
 PRECISIONS = ("highest", "default", "bf16_3x", "bf16_3x_manual")
-_DEFERRED = "ROADMAP.md queue item 1 (K1's remaining modes)"
+FRONTEND_EPS = 1e-3  # the Keras BatchNorm epsilon of badwinner2's mel BN
 
-# Launches of each kernel since the last reset, counted where they launch;
-# the "highest" mel kernel is counted by framing mode.
-_LAUNCHES = {"fused_featurizer_mel": 0, "fused_featurizer_mel_centered": 0,
-             "fused_featurizer_mel_bf16": 0, "fused_featurizer_mel_bf16x3": 0,
-             "fused_featurizer_pcen": 0}
+# Launches of each kernel since the last reset, counted where they launch.
+# A mel kernel is counted by tier and mode: tf framing (no suffix), centered
+# framing ("_centered"), or tf framing with a fold ("_folded").
+_MEL_COUNTERS = [f"fused_featurizer_mel{tier}{mode}"
+                 for tier in ("", "_bf16", "_bf16x3")
+                 for mode in ("", "_centered", "_folded")]
+_LAUNCHES = {**dict.fromkeys(_MEL_COUNTERS, 0), "fused_featurizer_pcen": 0,
+             "clip_minmax": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -82,16 +90,18 @@ def _library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ff_mel_power.argtypes = [
         ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, ptr, i32, ptr,
+        i32, i32, ptr, ptr, f32, ptr, i32, ptr,
     ]
     lib.ff_mel_power.restype = i32
     lib.ff_mel_bf16.argtypes = [
-        ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, ptr, i32, ptr,
+        ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, ptr, ptr, f32, ptr, i32, ptr,
     ]
     lib.ff_mel_bf16.restype = i32
     lib.ff_mel_bf16x3.argtypes = lib.ff_mel_bf16.argtypes
     lib.ff_mel_bf16x3.restype = i32
+    lib.ff_clip_minmax.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.ff_clip_minmax.restype = i32
     lib.ff_pcen.argtypes = [
         ptr, i32, i32, f32, f32, f32, f32, f32, ptr, i32, ptr,
     ]
@@ -203,10 +213,25 @@ def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, _bf16(x - hi)
 
 
+def _framed(raw: torch.Tensor, hop: int, center: bool) -> torch.Tensor:
+    """(B, samples) -> (B, frames, 4096), the frames the tensor-core kernels
+    read: tf ``pad_end`` (zeros past the clip), or centered (2048 zeros on
+    both sides, ``1 + n // hop`` frames; the kernels' ``left_pad``)."""
+    n = raw.shape[-1]
+    if center:
+        frames = num_frames_centered(n, hop)
+        raw = F.pad(raw, (N_FFT // 2, N_FFT // 2))
+    else:
+        frames = num_frames_tf(n, hop)
+    pad = (frames - 1) * hop + N_FFT - raw.shape[-1]
+    return F.pad(raw, (0, max(pad, 0))).unfold(-1, N_FFT, hop)[:, :frames]
+
+
 def mel_power_bf16_3x(raw: torch.Tensor, mel_weights: torch.Tensor,
-                      hop: int) -> torch.Tensor:
+                      hop: int, center: bool = False) -> torch.Tensor:
     """The plain version of the ``"bf16_3x"`` tier kernel: (B, samples)
-    f32 -> (B, n_mels, frames) f32 mel power, tf ``pad_end`` framing.  Each
+    f32 -> (B, n_mels, frames) f32 mel power, tf ``pad_end`` framing or
+    with ``center`` the centered one (:func:`_framed`).  Each
     DFT product x . w is hi(w) hi(x) + lo(w) hi(x) + hi(w) lo(x) at the
     kernel's split points (the windowed samples x * hann, the f32 stage-1
     planes; the operators of :func:`dft_tables_split`), every sum f32
@@ -215,10 +240,8 @@ def mel_power_bf16_3x(raw: torch.Tensor, mel_weights: torch.Tensor,
     dev = raw.device
     tab = {part: {k: torch.as_tensor(v, device=dev) for k, v in t.items()}
            for part, t in dft_tables_split().items()}
-    batch, n = raw.shape
-    frames = num_frames_tf(n, hop)
-    pad = (frames - 1) * hop + N_FFT - n
-    framed = F.pad(raw, (0, max(pad, 0))).unfold(-1, N_FFT, hop)
+    framed = _framed(raw, hop, center)
+    batch, frames = framed.shape[:2]
     window = torch.as_tensor(hann_window(N_FFT), device=dev)
     xh, xl = _split((framed * window).reshape(batch, frames, R1, R2))
 
@@ -245,9 +268,10 @@ def mel_power_bf16_3x(raw: torch.Tensor, mel_weights: torch.Tensor,
 
 
 def mel_power_bf16(raw: torch.Tensor, mel_weights: torch.Tensor,
-                   hop: int) -> torch.Tensor:
+                   hop: int, center: bool = False) -> torch.Tensor:
     """The plain version of the ``"default"`` tier kernel: (B, samples) f32
-    -> (B, n_mels, frames) f32 mel power, tf ``pad_end`` framing, with the
+    -> (B, n_mels, frames) f32 mel power, tf ``pad_end`` framing or with
+    ``center`` the centered one (:func:`_framed`), with the
     kernel's decomposition and its six bf16 rounding points (windowed
     samples, stage-1 operator, stage-1 planes, stage-2 operator, power, mel
     weights) and f32 sums (``einsum`` of bf16 values held as f32: each
@@ -256,10 +280,8 @@ def mel_power_bf16(raw: torch.Tensor, mel_weights: torch.Tensor,
     dev = raw.device
     tab = {k: torch.as_tensor(v, device=dev)
            for k, v in dft_tables_bf16().items()}
-    batch, n = raw.shape
-    frames = num_frames_tf(n, hop)
-    pad = (frames - 1) * hop + N_FFT - n
-    framed = F.pad(raw, (0, max(pad, 0))).unfold(-1, N_FFT, hop)
+    framed = _framed(raw, hop, center)
+    batch, frames = framed.shape[:2]
     window = torch.as_tensor(hann_window(N_FFT), device=dev)
     x = _bf16(framed * window).reshape(batch, frames, R1, R2)  # (n1, n2)
     a_re = _bf16(torch.einsum("btnm,nk->btkm", x, tab["d1_re"]))
@@ -381,12 +403,79 @@ _TENSOR_CORE = {
 _TENSOR_CORE["bf16_3x_manual"] = _TENSOR_CORE["bf16_3x"]
 
 
-def mel_counter(precision: str, center: bool = False) -> str:
-    """The launch counter of the mel kernel that ``precision`` launches."""
-    if precision in _TENSOR_CORE:
-        return _TENSOR_CORE[precision].counter
-    return ("fused_featurizer_mel_centered" if center
+def mel_counter(precision: str, center: bool = False,
+                folded: bool = False) -> str:
+    """The launch counter of the mel kernel that ``precision`` launches, in
+    the centered framing or with a fold."""
+    tier = (_TENSOR_CORE[precision].counter if precision in _TENSOR_CORE
             else "fused_featurizer_mel")
+    return tier + ("_centered" if center else "_folded" if folded else "")
+
+
+# ---------------------------------------------------------------------------
+# The folds
+# ---------------------------------------------------------------------------
+
+
+def clip_minmax_plain(raw: torch.Tensor) -> torch.Tensor:
+    """The plain version of the normalize fold's reduction: (B, samples)
+    f32 -> (B, 2) f32 ``(min, max - min)`` of each clip, the two values
+    ``normalize_rows`` subtracts and divides by."""
+    mn, mx = raw.amin(dim=-1), raw.amax(dim=-1)
+    return torch.stack([mn, mx - mn], dim=-1)
+
+
+def clip_minmax(raw: torch.Tensor) -> torch.Tensor:
+    """Per-clip ``(min, max - min)``, what the normalize fold reads: on CUDA
+    the kernel ``clip_minmax_kernel`` (one block per clip), on the CPU
+    :func:`clip_minmax_plain`."""
+    if raw.ndim != 2 or raw.dtype != torch.float32:
+        raise ValueError(
+            f"raw must be (B, samples) float32, got {tuple(raw.shape)} "
+            f"{raw.dtype}")
+    if raw.device.type == "cpu":
+        return clip_minmax_plain(raw)
+    if raw.device.type != "cuda" or not raw.is_contiguous():
+        raise ValueError(f"no kernel for a {raw.device} / non-contiguous raw")
+    batch, samples = raw.shape
+    if batch < 1 or samples < 1:
+        raise ValueError(f"raw {tuple(raw.shape)} is empty")
+    out = torch.empty((batch, 2), dtype=torch.float32, device=raw.device)
+    with torch.cuda.device(raw.device):
+        _check(_library().ff_clip_minmax(
+            raw.data_ptr(), batch, samples, out.data_ptr(), _stream(),
+        ), "clip min-max")
+    _LAUNCHES["clip_minmax"] += 1
+    return out
+
+
+def frontend_tables(frontend_params: tuple, n_mels: int,
+                    device) -> tuple[float, torch.Tensor]:
+    """``(a_power, bn_mean, bn_var)`` -> the frontend fold's power ``g =
+    sigmoid(clip(a_power, -2, 1))`` and its (n_mels, 2) f32 per-row affine
+    ``(s, b)``, ``s = 1 / sqrt(var + 1e-3)``, ``b = -mean * s``, each in f32
+    as the JAX class computes them (``:525-528``, ``:855-862``)."""
+    a_power, bn_mean, bn_var = (
+        torch.as_tensor(v).detach().to("cpu", torch.float32).reshape(-1)
+        for v in frontend_params)
+    if a_power.numel() != 1 or bn_mean.numel() != n_mels \
+            or bn_var.numel() != n_mels:
+        raise ValueError(
+            f"frontend_params must be (a_power (1,), bn_mean ({n_mels},), "
+            f"bn_var ({n_mels},)), got {tuple(a_power.shape)}, "
+            f"{tuple(bn_mean.shape)}, {tuple(bn_var.shape)}")
+    a = a_power.clamp(-2.0, 1.0)
+    g = (1.0 / (1.0 + torch.exp(-a))).item()
+    s = 1.0 / torch.sqrt(bn_var + FRONTEND_EPS)
+    return g, torch.stack([s, -bn_mean * s], dim=-1).to(device)
+
+
+def frontend_plain(mel: torch.Tensor, g: float,
+                   stats: torch.Tensor) -> torch.Tensor:
+    """The plain version of the frontend fold on a (B, M, T) f32 mel:
+    ``exp(g log(max(mel, 1e-30))) s[m] + b[m]``."""
+    p = torch.exp(g * torch.log(mel.clamp_min(1e-30)))
+    return p * stats[:, 0, None] + stats[:, 1, None]
 
 
 def fused_featurizer_plain(
@@ -397,20 +486,28 @@ def fused_featurizer_plain(
     out_dtype: torch.dtype = torch.float32,
     center: bool = False,
     precision: str = "highest",
+    normalize_waveform: bool = False,
+    frontend: tuple[float, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The plain version of the kernels: (B, samples) f32 -> (B, n_mels,
     frames) mel power, or the un-normalized PCEN image when ``pcen_params
     = (gain, bias, root, smooth, eps)``, converted to ``out_dtype``;
     ``center`` selects the centered framing, ``precision="default"`` the
     bf16 tier (:func:`mel_power_bf16`), ``"bf16_3x"`` or
-    ``"bf16_3x_manual"`` the three-pass tier (:func:`mel_power_bf16_3x`),
-    both tf framing only."""
+    ``"bf16_3x_manual"`` the three-pass tier (:func:`mel_power_bf16_3x`).
+    ``normalize_waveform`` runs ``normalize_rows`` on the clips first;
+    ``frontend = (g, stats)`` of :func:`frontend_tables` applies
+    :func:`frontend_plain` to the mel."""
+    if normalize_waveform:
+        raw = normalize_rows(raw)
     if precision == "default":
-        out = mel_power_bf16(raw, mel_weights, hop)
+        out = mel_power_bf16(raw, mel_weights, hop, center)
     elif precision in ("bf16_3x", "bf16_3x_manual"):
-        out = mel_power_bf16_3x(raw, mel_weights, hop)
+        out = mel_power_bf16_3x(raw, mel_weights, hop, center)
     else:
         out = mel_power(raw, mel_weights, N_FFT, hop, center=center)
+    if frontend is not None:
+        out = frontend_plain(out, *frontend)
     if pcen_params is not None:
         out = pcen(out, *pcen_params, time_axis=2, normalize=False)
     return out.to(out_dtype)
@@ -418,11 +515,12 @@ def fused_featurizer_plain(
 
 class FusedFeaturizer:
     """Waveform -> PCEN'd (or raw) mel, one kernel per batch (two with
-    PCEN).  Parity contracts as in the JAX class: mel power matches the
-    tf-stft rfft path, PCEN matches ``ops.pcen.pcen`` including the frame-0
-    EMA seed and the batch-global min-max.  ``center=True`` frames as
-    ``ops.stft.stft_centered`` does (pad 2048 zeros both sides, ``1 +
-    n//hop`` frames), in the kernel without a padded copy."""
+    PCEN, one more with the normalize fold).  Parity contracts as in the
+    JAX class: mel power matches the tf-stft rfft path, PCEN matches
+    ``ops.pcen.pcen`` including the frame-0 EMA seed and the batch-global
+    min-max.  ``center=True`` frames as ``ops.stft.stft_centered`` does (pad
+    2048 zeros both sides, ``1 + n//hop`` frames), in the kernel without a
+    padded copy, at every tier."""
 
     def __init__(
         self,
@@ -443,14 +541,8 @@ class FusedFeaturizer:
             raise ValueError(reason)
         if precision not in PRECISIONS:
             raise ValueError(
-                f"precision {precision!r}: the ported tiers are "
-                f"{PRECISIONS}; the others come with {_DEFERRED}"
-            )
-        if precision != "highest" and center:
-            raise ValueError(
-                f"precision {precision!r} with center=True comes with "
-                f"{_DEFERRED}"
-            )
+                f"unknown precision tier {precision!r}; the tiers are "
+                f"{PRECISIONS}")
         self.hop = hop
         self.center = center
         self.precision = precision
@@ -497,13 +589,24 @@ class FusedFeaturizer:
     ) -> torch.Tensor:
         """(B, samples) f32 -> (B, n_mels, frames) mel power or PCEN image.
 
+        ``normalize_waveform`` folds the per-clip min-max normalize
+        (``ops.features.normalize_rows``) into the kernel's sample loads.
+        ``frontend_params = (a_power, bn_mean, bn_var)`` applies badwinner2's
+        MagTransform and per-mel-row BatchNorm to the mel output, so the
+        whole pre-CNN chain runs in the featurizer (not with ``pcen``).
+
         ``out_dtype=torch.bfloat16`` is the f32 result converted at the
         store: bitwise the cast of the f32 output (for ``normalize=False``
         paths; the PCEN min-max then runs in bf16 on the bf16 output)."""
-        if normalize_waveform or frontend_params is not None:
+        if frontend_params is not None and pcen:
             raise ValueError(
-                "normalize_waveform / frontend_params (the in-kernel "
-                f"folds) come with {_DEFERRED}"
+                "frontend_params is the badwinner2 frontend; PCEN fronts "
+                "the pretrained-backbone models only"
+            )
+        if self.center and (normalize_waveform or frontend_params is not None):
+            raise ValueError(
+                "normalize_waveform/frontend_params implement the training "
+                "pipeline's tf-stft convention, not the centered one"
             )
         if out_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
@@ -517,18 +620,22 @@ class FusedFeaturizer:
                 f"raw is on {raw.device}, the featurizer on {self.device}"
             )
         params = self.pcen_params if pcen else None
+        frontend = (None if frontend_params is None else frontend_tables(
+            frontend_params, self.n_mels, self.device))
         if raw.device.type == "cpu":
             out = fused_featurizer_plain(
                 raw, self.mel_weights, self.hop, params, out_dtype,
-                self.center, self.precision,
+                self.center, self.precision, normalize_waveform, frontend,
             )
         else:
-            out = self._launch(raw, params, out_dtype)
+            out = self._launch(raw, params, out_dtype, normalize_waveform,
+                               frontend)
         if pcen and normalize:
             out = normalize_minmax_global(out)
         return out
 
-    def _launch(self, raw, pcen_params, out_dtype) -> torch.Tensor:
+    def _launch(self, raw, pcen_params, out_dtype, normalize_waveform,
+                frontend) -> torch.Tensor:
         if raw.device.type != "cuda":
             raise ValueError(f"no kernel for device {raw.device}")
         if not raw.is_contiguous():
@@ -544,31 +651,33 @@ class FusedFeaturizer:
         mel = torch.empty(
             (batch, self.n_mels, frames), dtype=mel_dtype, device=raw.device
         )
+        norm = clip_minmax(raw) if normalize_waveform else None
+        fe_g, fe = (0.0, None) if frontend is None else frontend
+        fold_args = (None if norm is None else norm.data_ptr(),
+                     None if fe is None else fe.data_ptr(), fe_g)
         tier = _TENSOR_CORE.get(self.precision)
-        if tier is not None:
-            with torch.cuda.device(raw.device):
-                _check(getattr(_library(), tier.entry)(
-                    raw.data_ptr(), batch, samples, self.hop, frames,
-                    self.window.data_ptr(), self.d1_frag.data_ptr(),
+        with torch.cuda.device(raw.device):
+            if tier is not None:
+                err = getattr(_library(), tier.entry)(
+                    raw.data_ptr(), batch, samples, self.hop, left_pad,
+                    frames, self.window.data_ptr(), self.d1_frag.data_ptr(),
                     self.op2_frag.data_ptr(), self.band_start.data_ptr(),
                     self.band_len.data_ptr(), self.band_off.data_ptr(),
-                    self.band_w.data_ptr(), self.n_mels, mel.data_ptr(),
-                    int(mel_dtype == torch.bfloat16), _stream(),
-                ), f"{self.precision} mel")
-            _LAUNCHES[tier.counter] += 1
-            return mel if pcen_params is None else pcen_rows(
-                mel, pcen_params, out_dtype)
-        with torch.cuda.device(raw.device):
-            _check(_library().ff_mel_power(
-                raw.data_ptr(), batch, samples, self.hop, left_pad, frames,
-                self.window.data_ptr(), self.stage_tw.data_ptr(),
-                self.post_tw.data_ptr(), self.band_start.data_ptr(),
-                self.band_len.data_ptr(), self.band_off.data_ptr(),
-                self.band_w.data_ptr(), self.n_mels, self.n_bins,
-                mel.data_ptr(), int(mel_dtype == torch.bfloat16),
-                _stream(),
-            ), "mel power")
-        _LAUNCHES[mel_counter(self.precision, self.center)] += 1
+                    self.band_w.data_ptr(), self.n_mels, *fold_args,
+                    mel.data_ptr(), int(mel_dtype == torch.bfloat16),
+                    _stream())
+            else:
+                err = _library().ff_mel_power(
+                    raw.data_ptr(), batch, samples, self.hop, left_pad,
+                    frames, self.window.data_ptr(), self.stage_tw.data_ptr(),
+                    self.post_tw.data_ptr(), self.band_start.data_ptr(),
+                    self.band_len.data_ptr(), self.band_off.data_ptr(),
+                    self.band_w.data_ptr(), self.n_mels, self.n_bins,
+                    *fold_args, mel.data_ptr(),
+                    int(mel_dtype == torch.bfloat16), _stream())
+        _check(err, f"{self.precision} mel")
+        _LAUNCHES[mel_counter(self.precision, self.center,
+                              normalize_waveform or frontend is not None)] += 1
         if pcen_params is None:
             return mel
         return pcen_rows(mel, pcen_params, out_dtype)

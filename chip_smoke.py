@@ -66,7 +66,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    3-channel repeat (1e-5); timing of the bf16_3x kernel (plain, library,
    bound), of the chain per tier (ms, audio-s/s, peak memory), its split
    into featurizer and CNN, a profile with the idle share, and the CNN in
-   channels-last and NCHW layouts.
+   channels-last and NCHW layouts;
+8. the folded badwinner2 chain (waveform -> K1 with the normalize and
+   frontend folds, bf16 image -> ``BadWinner2(external_frontend=True)``
+   bf16, 62 labels, B=256, seeded weights whose frontend statistics are
+   calibrated on the image) answering 3 requests at the "highest" tier, one
+   min-max and one folded mel launch each and nothing else; once more at
+   "default" and "bf16_3x", and the centered "default" / "bf16_3x"
+   featurizer once at B=64, each with its counts; the per-clip min-max
+   kernel bitwise its plain version, the folds at every tier against their
+   plain versions at B=8 and B=256 (phase 3's, 6's and 7's limits; the
+   "default" tier's flip-free impulse check with the frontend fold alone),
+   the centered tensor-core tiers at B=64 and on the 28,100-sample clip;
+   f32 logits at B=8 of the folded chain against the unfused chain
+   (normalize_rows -> K1 -> BadWinner2 with its frontend, same weights,
+   1e-4); timing of both chains and of each new kernel and mode;
+9. the megakernel probe: K3 (``dot_probe_kernel``) in its three modes and
+   K4 (``shift_probe_kernel``) in its four against their plain versions at
+   small ndots / nops (K3 within ``DOT_REL`` of max |out|, K4 bitwise); the
+   SASS of K3 (its HMMA instructions, by ``cuobjdump -sass``); the probe's
+   ``main`` (the TPU probe's list) with launch counts, then ``pool3``; per
+   shape the rate, the bound and ``torch.matmul`` of the same bf16
+   products.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -149,6 +170,14 @@ KERNEL_SOURCE = "audio_training_tpu_torch/csrc/fused_featurizer.cu"
 TPU_KERNEL = "audio_training_tpu/ops/pallas/fused_featurizer.py:286"
 MELSPEC_SOURCE = "audio_training_tpu_torch/csrc/melspec.cu"
 MELSPEC_TPU_KERNEL = "audio_training_tpu/ops/pallas/melspec.py:36"
+PROBE_SOURCE = "audio_training_tpu_torch/csrc/probe_megakernel.cu"
+PROBE_DOT_TPU = "docs/probes/probe_megakernel.py:81"
+PROBE_SHIFT_TPU = "docs/probes/probe_megakernel.py:161"
+# K3 against its plain version, relative to max |out|: bf16 products are
+# exact in f32 and only the sums are reordered (16-deep mma steps against
+# cuBLAS's f32 order); "accum" adds ndots products, whose chunks meet
+# through atomics in a run-dependent order
+DOT_REL = {"store": 1e-5, "brot": 1e-5, "accum": 5e-5}
 
 
 def fail(msg: str) -> None:
@@ -233,6 +262,507 @@ def impulse_batch(batch: int, samples: int, seed: int):
         row[pos] = rng.uniform(0.3, 1.0, len(pos)) * rng.choice([-1, 1],
                                                                 len(pos))
     return x
+
+
+def bound_ms(fp32_flops: float, nbytes: float,
+             bf16_flops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take for the work: its operations (the
+    bf16 tensor-core part at the bf16 peak, the rest at the f32 peak) or its
+    bytes at the memory rate, whichever is larger; in ms, with which."""
+    t_ops = bf16_flops / PEAK_BF16_FLOPS + fp32_flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_record(name: str, source: str, replaces: str, launches: int,
+                  err: float, ms: float, plain_ms: float,
+                  bound: tuple[float, str], library_ms: float | None) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
+    """Phase 8: the folded badwinner2 chain (K1 with the normalize and
+    frontend folds -> BadWinner2(external_frontend=True)) and K1's new
+    modes: the folds at each tier, the per-clip min-max kernel, the
+    centered tensor-core tiers.  Returns their kernel records."""
+    import numpy as np
+    import torch
+
+    from audio_training_tpu_torch.models import build_model
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.ops.features import normalize_rows
+
+    torch.cuda.empty_cache()
+    mel_w, hop, n_mels = fz.mel_weights, cfg.hop_length, cfg.n_mels
+    tiers = ("highest", "default", "bf16_3x")
+    fzs = {"highest": fz, **{t: ffz.FusedFeaturizer(
+        mel_np, cfg.n_fft, hop, precision=t, device=dev) for t in tiers[1:]}}
+    fzc = {t: ffz.FusedFeaturizer(mel_np, cfg.n_fft, hop, precision=t,
+                                  center=True, device=dev)
+           for t in tiers[1:]}
+
+    # seeded weights; the frontend's statistics calibrated on the mel of
+    # normalized clips, so that its BatchNorm neither vanishes nor centres
+    a_power = np.float32(-0.7)
+    g = 1.0 / (1.0 + np.exp(0.7))
+    rows = (fz(normalize_rows(clips(CHECK_BATCH)), pcen=False) ** g
+            ).transpose(0, 1).reshape(n_mels, -1)
+    rng = np.random.default_rng(SEED)
+    bn_mean = (rows.mean(1).cpu().numpy()
+               * rng.uniform(0.8, 1.2, n_mels)).astype(np.float32)
+    bn_var = (rows.var(1).cpu().numpy()
+              * rng.uniform(0.5, 2.0, n_mels)).astype(np.float32)
+    frontend_params = (a_power, bn_mean, bn_var)
+    frontend = ffz.frontend_tables(frontend_params, n_mels, dev)
+
+    def models(dtype):
+        """(unfused, folded) badwinner2 with the same weights."""
+        unfused = build_model(
+            "badwinner2", NUM_LABELS, logits_only=True, dtype=dtype,
+            generator=torch.Generator().manual_seed(SEED)).module
+        with torch.no_grad():
+            unfused.mag.a_power.fill_(float(a_power))
+            unfused.mel_bn.running_mean.copy_(torch.from_numpy(bn_mean))
+            unfused.mel_bn.running_var.copy_(torch.from_numpy(bn_var))
+        folded = build_model("badwinner2", NUM_LABELS, logits_only=True,
+                             dtype=dtype, external_frontend=True).module
+        folded.load_state_dict({
+            k: v for k, v in unfused.state_dict().items()
+            if not k.startswith(("mag.", "mel_bn."))})
+        return unfused.to(dev).eval(), folded.to(dev).eval()
+
+    unfused16, folded16 = models(torch.bfloat16)
+
+    @torch.no_grad()
+    def folded_chain(raw, tier="highest", model=folded16,
+                     out_dtype=torch.bfloat16):
+        img = fzs[tier](raw, pcen=False, normalize_waveform=True,
+                        frontend_params=frontend_params, out_dtype=out_dtype)
+        return model(img[..., None])
+
+    @torch.no_grad()
+    def unfused_chain(raw, model=unfused16, out_dtype=torch.bfloat16):
+        img = fz(normalize_rows(raw), pcen=False, out_dtype=out_dtype)
+        return model(img[..., None])
+
+    def expect(counts: dict, **want) -> bool:
+        full = dict.fromkeys(counts, 0)
+        full.update(want)
+        return counts == full
+
+    # the path: 3 requests through the folded chain at "highest"
+    requests = [clips(BATCH) for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    ffz.reset_launch_counts()
+    answers = [folded_chain(r) for r in requests]
+    torch.cuda.synchronize()
+    main_counts = ffz.launch_counts()
+    log(f"path folded badwinner2 chain: {REQUESTS} requests of B={BATCH}, "
+        f"launches {main_counts}")
+    check(expect(main_counts, clip_minmax=REQUESTS,
+                 fused_featurizer_mel_folded=REQUESTS),
+          "the folded chain did not launch one min-max and one folded mel "
+          "kernel per request, and nothing else")
+    for logits in answers:
+        check(tuple(logits.shape) == (BATCH, NUM_LABELS)
+              and bool(torch.isfinite(logits).all()),
+              f"folded-chain logits {tuple(logits.shape)} not finite")
+    del answers
+    # the same entry points at the other tiers: the folded chain once at
+    # "default" and at "bf16_3x", the centered featurizer once at each
+    raw64 = normalize_rows(clips(WINDOW_BATCH))
+    path_counts = {}
+    for tier in tiers[1:]:
+        for mode, run in (("folded", lambda: folded_chain(requests[0], tier)),
+                          ("centered", lambda: fzc[tier](raw64, pcen=False))):
+            torch.cuda.synchronize()
+            ffz.reset_launch_counts()
+            out = run()
+            torch.cuda.synchronize()
+            counts = ffz.launch_counts()
+            name = ffz.mel_counter(tier, center=mode == "centered",
+                                   folded=mode == "folded")
+            log(f"path {mode} {tier} tier: {tuple(out.shape)}, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            want = {name: 1}
+            if mode == "folded":
+                want["clip_minmax"] = 1
+            check(expect(counts, **want) and bool(torch.isfinite(out).all()),
+                  f"the {mode} {tier} path did not launch {want} alone")
+            path_counts[name] = counts[name]
+
+    # ---- kernels against their plain versions --------------------------
+    def rel_rms(got, want):
+        err = (got - want).abs().max().item()
+        rms = torch.linalg.norm(got - want) / torch.linalg.norm(want)
+        return err, err / want.abs().max().item(), rms.item()
+
+    def check_tier(got, want, tier, what) -> float:
+        err, rel, rms = rel_rms(got, want)
+        if tier == "default":
+            log(f"check {what}: relative RMS {rms:.3e} (limit "
+                f"{BF16_RMS_REL}), global rel err {rel:.3e} (limit "
+                f"{BF16_STEP:.3e}), max abs "
+                f"err {err:.3e}")
+            check(rms < BF16_RMS_REL and rel < BF16_STEP, f"{what} disagrees")
+        else:
+            limit = MEL_REL_TOL if tier == "highest" else X3_REL
+            log(f"check {what}: global rel err {rel:.3e} (limit {limit}), "
+                f"max abs err {err:.3e}")
+            check(rel < limit, f"{what} disagrees")
+        return err
+
+    fold_err = dict.fromkeys(tiers, 0.0)
+    minmax_err = 0.0
+    for b in (CHECK_BATCH, BATCH):
+        raw = clips(b)
+        mm = ffz.clip_minmax(raw)
+        mm_plain = ffz.clip_minmax_plain(raw)
+        same = torch.equal(mm, mm_plain)
+        minmax_err = max(minmax_err, (mm - mm_plain).abs().max().item())
+        log(f"check B={b} clip min-max: bitwise the plain version: {same}")
+        check(same, "the min-max kernel disagrees with plain")
+        for tier in tiers:
+            got = fzs[tier](raw, pcen=False, normalize_waveform=True,
+                            frontend_params=frontend_params)
+            want = ffz.fused_featurizer_plain(
+                raw, mel_w, hop, precision=tier, normalize_waveform=True,
+                frontend=frontend)
+            check(got.shape == (b, n_mels, cfg.mel_frames),
+                  f"folded shape {tuple(got.shape)}")
+            err = check_tier(got, want, tier, f"B={b} {tier} both folds")
+            cast = torch.equal(
+                fzs[tier](raw, pcen=False, normalize_waveform=True,
+                          frontend_params=frontend_params,
+                          out_dtype=torch.bfloat16), got.to(torch.bfloat16))
+            check(cast, f"{tier} folded bf16 output is not the cast")
+            del got, want
+            got = fzs[tier](raw, pcen=False, normalize_waveform=True)
+            want = ffz.fused_featurizer_plain(raw, mel_w, hop, precision=tier,
+                                              normalize_waveform=True)
+            err = max(err, check_tier(got, want, tier,
+                                      f"B={b} {tier} normalize fold"))
+            del got, want
+            torch.cuda.empty_cache()
+            fold_err[tier] = max(fold_err[tier], err)
+        # the "default" tier's flip-free check, with the frontend fold alone
+        # (the normalize fold makes every in-clip sample non-zero)
+        imp = torch.as_tensor(impulse_batch(b, cfg.samples_per_clip,
+                                            SEED + b), device=dev)
+        got = fzs["default"](imp, pcen=False, frontend_params=frontend_params)
+        want = ffz.fused_featurizer_plain(imp, mel_w, hop,
+                                          precision="default",
+                                          frontend=frontend)
+        err, rel, _ = rel_rms(got, want)
+        log(f"check B={b} default frontend fold on impulses (no rounding can "
+            f"flip): global rel err {rel:.3e} (limit {BF16_FLIP_FREE_REL})")
+        check(rel < BF16_FLIP_FREE_REL, "default frontend fold disagrees")
+        fold_err["default"] = max(fold_err["default"], err)
+
+    cen_err = dict.fromkeys(tiers[1:], 0.0)
+    for raw in (raw64, normalize_rows(torch.randn(
+            4, SHORT_CLIP, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED)))):
+        for tier in tiers[1:]:
+            got = fzc[tier](raw, pcen=False)
+            want = ffz.fused_featurizer_plain(raw, mel_w, hop, center=True,
+                                              precision=tier)
+            check(got.shape == (raw.shape[0], n_mels,
+                                1 + raw.shape[1] // hop),
+                  f"centered {tier} shape {tuple(got.shape)}")
+            cen_err[tier] = max(cen_err[tier], check_tier(
+                got, want, tier,
+                f"B={raw.shape[0]} x {raw.shape[1]} centered {tier}"))
+
+    # ---- f32 logits: the folded chain against the unfused chain ---------
+    unfused32, folded32 = models(None)
+    raw8 = clips(CHECK_BATCH)
+    lg_f = folded_chain(raw8, model=folded32, out_dtype=torch.float32)
+    lg_u = unfused_chain(raw8, model=unfused32, out_dtype=torch.float32)
+    rel = ((lg_f - lg_u).abs().max() / lg_u.abs().max()).item()
+    apart = ((lg_u[0] - lg_u[1]).abs().max() / lg_u.abs().max()).item()
+    log(f"check folded chain f32 logits B={CHECK_BATCH} against the unfused "
+        f"chain (normalize_rows -> K1 -> BadWinner2 with its frontend, same "
+        f"weights): rel err {rel:.3e} (limit {LOGIT_REL_TOL}; max |logit| "
+        f"{lg_u.abs().max().item():.4e}, two clips {apart:.3e} apart)")
+    check(rel < LOGIT_REL_TOL, "folded-chain logits disagree")
+    del unfused32, folded32
+
+    # ---- timing ---------------------------------------------------------
+    raw256 = requests[1]
+    torch.cuda.reset_peak_memory_stats()
+    fold_ms = time_ms(lambda: folded_chain(raw256), iters=5)
+    fold_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    unf_ms = time_ms(lambda: unfused_chain(raw256), iters=5)
+    unf_peak = torch.cuda.max_memory_allocated() / 1e9
+    audio = BATCH * cfg.segment_length
+    log(f"time folded badwinner2 chain B={BATCH}: {fold_ms:.3f} ms/batch, "
+        f"{audio / (fold_ms / 1e3):.1f} audio-s/s, peak memory "
+        f"{fold_peak:.2f} GB; the unfused chain (same weights) "
+        f"{unf_ms:.3f} ms/batch, {audio / (unf_ms / 1e3):.1f} audio-s/s, "
+        f"peak {unf_peak:.2f} GB {card}")
+
+    frames, samples = cfg.mel_frames, cfg.samples_per_clip
+    nnz = int((mel_np > 0).sum())
+    hann = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
+
+    def library_mel(x, center=False):
+        """pad + torch.stft + power + torch.matmul."""
+        if not center:
+            x = torch.nn.functional.pad(
+                x, (0, (frames - 1) * hop + cfg.n_fft - x.shape[-1]))
+        spec = torch.stft(x, cfg.n_fft, hop, window=hann, center=center,
+                          pad_mode="constant", return_complex=True)
+        return torch.matmul(mel_w, spec.real**2 + spec.imag**2)
+
+    def tables(f):
+        return sum(t.numel() * t.element_size() for t in (
+            f.window, f.band_start, f.band_len, f.band_off, f.band_w,
+            *((f.d1_frag, f.op2_frag) if hasattr(f, "d1_frag")
+              else (f.stage_tw, f.post_tw))))
+
+    # per frame: the exact tier's radix-2 FFT, untangle, power and banded
+    # mel; the tensor-core tiers' stage 1 and 2 MAC (three passes at
+    # bf16_3x) and power and banded mel in f32
+    tc_macs = 32 * 32 * 128 + 32 * 256 * 64
+
+    def frame_flops(tier):
+        if tier == "highest":
+            return cfg.n_fft + 11 * 1024 * 10 + 19 * fz.n_bins + 2 * nnz, 0
+        passes = 3 if tier == "bf16_3x" else 1
+        return cfg.n_fft + 3 * 1024 + 2 * nnz, passes * 2 * tc_macs
+
+    records = []
+    mm_ms = time_ms(lambda: ffz.clip_minmax(raw256))
+    mm_plain_ms = time_ms(lambda: ffz.clip_minmax_plain(raw256))
+    mm_lib_ms = time_ms(lambda: torch.aminmax(raw256, dim=-1))
+    mm_bound = bound_ms(2 * raw256.numel(), raw256.numel() * 4 + BATCH * 8)
+    log(f"time clip min-max kernel B={BATCH}: {mm_ms:.4f} ms, plain "
+        f"{mm_plain_ms:.4f} ms, library torch.aminmax {mm_lib_ms:.4f} ms, "
+        f"bound {mm_bound[0]:.4f} ms ({mm_bound[1]}), roofline share "
+        f"{mm_bound[0] / mm_ms:.3f} {card}")
+    records.append(kernel_record(
+        "clip_minmax", KERNEL_SOURCE, TPU_KERNEL, main_counts["clip_minmax"],
+        minmax_err, mm_ms, mm_plain_ms, mm_bound, mm_lib_ms))
+
+    for tier in tiers:
+        f = fzs[tier]
+        name = ffz.mel_counter(tier, folded=True)
+
+        def folded(f=f):
+            return f(raw256, pcen=False, normalize_waveform=True,
+                     frontend_params=frontend_params,
+                     out_dtype=torch.bfloat16)
+
+        k_ms = time_ms(folded)
+        p_ms = time_ms(lambda: ffz.fused_featurizer_plain(
+            raw256, mel_w, hop, precision=tier, normalize_waveform=True,
+            frontend=frontend, out_dtype=torch.bfloat16),
+            iters=2 if tier == "bf16_3x" else 3, warmup=1)
+        torch.cuda.empty_cache()
+        l_ms = time_ms(lambda: ffz.frontend_plain(
+            library_mel(normalize_rows(raw256)), *frontend), iters=3)
+        f32_ops, tc_ops = frame_flops(tier)
+        # the folds: the min-max (2 compares a sample), the normalize (5
+        # operations a sample), the frontend (5 an output value)
+        extra = 7 * raw256.numel() + 5 * BATCH * n_mels * frames
+        bnd = bound_ms(BATCH * frames * f32_ops + extra,
+                       raw256.numel() * 4 + BATCH * n_mels * frames * 2
+                       + tables(f) + n_mels * 8 + BATCH * 8,
+                       BATCH * frames * tc_ops)
+        log(f"time folded {tier} featurizer (min-max + mel with both folds, "
+            f"bf16 out) B={BATCH}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"library normalize_rows + stft + matmul + frontend {l_ms:.4f} "
+            f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), roofline share "
+            f"{bnd[0] / k_ms:.3f} {card}")
+        launches = (main_counts[name] if tier == "highest"
+                    else path_counts[name])
+        records.append(kernel_record(name, KERNEL_SOURCE, TPU_KERNEL,
+                                     launches, fold_err[tier], k_ms, p_ms,
+                                     bnd, l_ms))
+
+    for tier in tiers[1:]:
+        f = fzc[tier]
+        name = ffz.mel_counter(tier, center=True)
+        k_ms = time_ms(lambda: f(raw64, pcen=False))
+        p_ms = time_ms(lambda: ffz.fused_featurizer_plain(
+            raw64, mel_w, hop, center=True, precision=tier), iters=3,
+            warmup=1)
+        l_ms = time_ms(lambda: library_mel(raw64, center=True), iters=3)
+        frames_c = 1 + samples // hop
+        f32_ops, tc_ops = frame_flops(tier)
+        bnd = bound_ms(WINDOW_BATCH * frames_c * f32_ops,
+                       raw64.numel() * 4 + WINDOW_BATCH * n_mels * frames_c * 4
+                       + tables(f), WINDOW_BATCH * frames_c * tc_ops)
+        log(f"time centered {tier} mel kernel (f32 out) B={WINDOW_BATCH}: "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library stft(center) + "
+            f"matmul {l_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"roofline share {bnd[0] / k_ms:.3f} {card}")
+        records.append(kernel_record(name, KERNEL_SOURCE, TPU_KERNEL,
+                                     path_counts[name], cen_err[tier], k_ms,
+                                     p_ms, bnd, l_ms))
+    return records
+
+
+def cuobjdump_path() -> str:
+    """cuobjdump of the CUDA toolkit, or the copy Triton carries."""
+    import shutil
+
+    from audio_training_tpu_torch.ops.cuda import build
+
+    found = shutil.which("cuobjdump")
+    candidates = [found] if found else []
+    candidates.append(str(Path(build.nvcc_path()).parent / "cuobjdump"))
+    try:
+        import triton
+
+        candidates.append(str(Path(triton.__file__).parent / "backends"
+                              / "nvidia" / "bin" / "cuobjdump"))
+    except ImportError:
+        pass
+    for c in candidates:
+        if c and Path(c).exists():
+            return c
+    fail(f"no cuobjdump among {candidates}: K3's SASS cannot be checked")
+
+
+def probe_phase(dev, card) -> list[dict]:
+    """Phase 9: the megakernel probe (K3 dot_probe_kernel, K4
+    shift_probe_kernel) against its plain versions, the SASS of K3, the
+    probe's main list with rates, bounds and torch.matmul yardsticks, and
+    pool3.  Returns the kernel records."""
+    import torch
+
+    from audio_training_tpu_torch.ops.cuda import build
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    torch.cuda.empty_cache()
+    dot_err = dict.fromkeys(pm.DOT_MODES, 0.0)
+    for mode in pm.DOT_MODES:
+        for m, k, n, ndots, grid in ((64, 640, 512, 9, 8),
+                                     (512, 512, 512, 9, 2),
+                                     (64, 640, 128, 17, 8)):
+            a, b = pm.dot_inputs(m, k, n, mode, dev)
+            got = pm.dot_probe(0.5, a, b, ndots, grid, mode)
+            want = pm.dot_probe_plain(0.5, a, b, ndots, grid, mode)
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            log(f"check probe dot[{mode}] M={m} K={k} N={n} ndots={ndots} "
+                f"grid={grid}: rel err {rel:.3e} of max |out| (limit "
+                f"{DOT_REL[mode]}), max abs err {err:.3e}")
+            check(rel < DOT_REL[mode], f"dot probe ({mode}) disagrees")
+            dot_err[mode] = max(dot_err[mode], err)
+    shift_err = {}
+    for mode in pm.SHIFT_MODES:
+        m, lanes = (256, 128) if mode == "copyblk" else (64, 640)
+        x = pm.shift_input(m, lanes, dev)
+        got = pm.shift_probe(0.25, x, 7, 8, mode)
+        want = pm.shift_probe_plain(0.25, x, 7, 8, mode)
+        same = torch.equal(got, want)
+        log(f"check probe shift[{mode}] ({m}x{lanes}, 7 ops, grid 8): "
+            f"bitwise the plain version: {same}")
+        check(same, f"shift probe ({mode}) disagrees")
+        shift_err[mode] = (got - want).abs().max().item()
+
+    # the SASS: every product the rate counts is an HMMA the kernel issues
+    library = build.library_path("probe_megakernel")
+    sass = subprocess.run([cuobjdump_path(), "-sass", str(library)],
+                          check=True, capture_output=True, text=True).stdout
+    sections = sass.split("Function : ")
+    dot_sass = [sec for sec in sections[1:]
+                if sec.split()[0].find("dot_probe_kernel") >= 0]
+    check(len(dot_sass) == 1, "no dot_probe_kernel in the SASS")
+    hmma = [ln for ln in dot_sass[0].splitlines() if "HMMA" in ln]
+    kinds = sorted({ln.split("HMMA")[1].split()[0] for ln in hmma})
+    log(f"sass dot_probe_kernel: {len(hmma)} HMMA{kinds}; the k-chunk loop "
+        f"holds 32 a warp (2 m16 x 4 n8 tiles x 4 k16 steps), a 64x64x64 "
+        f"product (128 HMMA a block, 4096 flops each)")
+    check(len(hmma) >= 32 and len(hmma) % 32 == 0
+          and kinds == [".16816.F32.BF16"],
+          "the SASS does not hold the k-chunk loop's 32 HMMA a warp")
+
+    # the probe's own main, launch counts zeroed before and read after;
+    # then pool3, which main leaves out as the TPU probe does
+    torch.cuda.synchronize()
+    pm.reset_launch_counts()
+    results = pm.main()
+    torch.cuda.synchronize()
+    main_counts = pm.launch_counts()
+    log(f"path probe main: launches {main_counts}")
+    check(all(main_counts[f"probe_dot_{m}"] > 0 for m in pm.DOT_MODES)
+          and all(main_counts[f"probe_shift_{m}"] > 0
+                  for m in ("shift1", "roll", "copyblk"))
+          and main_counts["probe_shift_pool3"] == 0,
+          "the probe's main did not launch the kernels of its list")
+    pm.reset_launch_counts()
+    pool3 = pm.bench_shift("pool3")
+    main_counts["probe_shift_pool3"] = pm.launch_counts()["probe_shift_pool3"]
+    check(main_counts["probe_shift_pool3"] > 0, "pool3 did not launch")
+
+    records, first = [], {}
+    for r in results["dots"]:
+        m, k, n, ndots, grid, mode = (r[key] for key in (
+            "m", "k", "n", "ndots", "grid", "mode"))
+        a, b = pm.dot_inputs(m, k, n, mode, dev)
+        flops = 2.0 * m * k * n * ndots * grid
+        bnd = bound_ms(0.0, (a.numel() + b.numel()) * 2 + 8 * grid * 128 * 4,
+                       flops)
+        idx = torch.arange(ndots * grid, device=dev) % 4
+        if mode == "brot":
+            a0, bx = a[0], b[idx]
+            lib = lambda: torch.matmul(a0, bx)
+        else:
+            ax = a[idx]
+            lib = lambda: torch.matmul(ax, b)
+        lib_ms = time_ms(lib, iters=3, warmup=1)
+        del lib
+        torch.cuda.empty_cache()
+        hmma_n = ndots * grid * (m // 16) * (n // 8) * (k // 16)
+        log(f"time probe dot[{mode}] M={m} K={k} N={n} ndots={ndots} grid="
+            f"{grid}: {r['ms']:.4f} ms a launch, {r['tflops']:.1f} TFLOP/s, "
+            f"{r['ns_per_dot']:.1f} ns/dot ({hmma_n} HMMA a launch); bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}, {flops / 1e9:.1f} GFLOP at the bf16 "
+            f"peak), roofline share {bnd[0] / r['ms']:.3f}; torch.matmul of "
+            f"the same bf16 products {lib_ms:.4f} ms "
+            f"({flops / lib_ms / 1e9:.1f} TFLOP/s) {card}")
+        if mode not in first:
+            plain_ms = time_ms(lambda: pm.dot_probe_plain(
+                0.0, a, b, ndots, grid, mode), iters=1, warmup=1)
+            first[mode] = (r["ms"], plain_ms, bnd, lib_ms)
+    for mode in pm.DOT_MODES:
+        ms, plain_ms, bnd, lib_ms = first[mode]
+        records.append(kernel_record(
+            f"probe_dot_{mode}", PROBE_SOURCE, PROBE_DOT_TPU,
+            main_counts[f"probe_dot_{mode}"], dot_err[mode], ms, plain_ms,
+            bnd, lib_ms))
+
+    # per op of a grid step: shift1 m x 512 adds, roll m x lanes adds,
+    # pool3 m x 169 x (3 adds + 2 maxima), copyblk min(m, 192) x 128 x 2
+    per_op = {"shift1": lambda m, l: m * 512, "roll": lambda m, l: m * l,
+              "pool3": lambda m, l: m * 169 * 5,
+              "copyblk": lambda m, l: min(m, 192) * 128 * 2}
+    for r in results["shifts"] + [pool3]:
+        mode, m, lanes, nops, grid = (r[key] for key in (
+            "mode", "m", "lanes", "nops", "grid"))
+        bnd = bound_ms(per_op[mode](m, lanes) * nops * grid,
+                       m * lanes * 4 + 8 * grid * 128 * 4)
+        x = pm.shift_input(m, lanes, dev)
+        plain_ms = time_ms(lambda: pm.shift_probe_plain(
+            0.0, x, nops, grid, mode), iters=1, warmup=1)
+        log(f"time probe shift[{mode}] ({m}x{lanes}, {nops} ops, grid "
+            f"{grid}): {r['ms']:.4f} ms a launch, {r['ns_per_op']:.2f} ns/op; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}), roofline share "
+            f"{bnd[0] / r['ms']:.3f}; plain {plain_ms:.4f} ms {card}")
+        records.append(kernel_record(
+            f"probe_shift_{mode}", PROBE_SOURCE, PROBE_SHIFT_TPU,
+            main_counts[f"probe_shift_{mode}"], shift_err[mode], r["ms"],
+            plain_ms, bnd, None))
+    return records
 
 
 def main() -> None:
@@ -715,17 +1245,12 @@ def main() -> None:
         fz.band_off, fz.band_w))
     mel_bytes = raw.numel() * 4 + BATCH * n_mels * frames * 2 + table_bytes
 
-    def bound(flops: float, nbytes: float) -> tuple[float, str]:
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes")
-
     mel_ms = time_ms(lambda: fz(raw, pcen=False, out_dtype=torch.bfloat16))
     mel32_ms = time_ms(lambda: fz(raw, pcen=False))
     mel_plain_ms = time_ms(lambda: ffz.fused_featurizer_plain(
         raw, mel_w, cfg.hop_length, out_dtype=torch.bfloat16), iters=5)
     mel_lib_ms = time_ms(lambda: library_mel(raw), iters=5)
-    mel_bound_ms, mel_bound_by = bound(mel_flops, mel_bytes)
+    mel_bound_ms, mel_bound_by = bound_ms(mel_flops, mel_bytes)
     log(f"time mel kernel (bf16 out) B={BATCH}: {mel_ms:.4f} ms "
         f"(f32 out {mel32_ms:.4f} ms), plain {mel_plain_ms:.4f} ms, library "
         f"stft+matmul {mel_lib_ms:.4f} ms, bound {mel_bound_ms:.4f} ms "
@@ -740,7 +1265,7 @@ def main() -> None:
         normalize=False).to(torch.bfloat16), iters=3)
     elems = mel_f32.numel()
     # per element: EMA 3 flops, PCEN pointwise ~9 (log/exp counted as 1)
-    pcen_bound_ms, pcen_bound_by = bound(12 * elems, elems * (4 + 2))
+    pcen_bound_ms, pcen_bound_by = bound_ms(12 * elems, elems * (4 + 2))
     log(f"time pcen kernel (bf16 out) B={BATCH}: {pcen_ms:.4f} ms, plain "
         f"{pcen_plain_ms:.4f} ms, bound {pcen_bound_ms:.4f} ms "
         f"({pcen_bound_by}), roofline share {pcen_bound_ms / pcen_ms:.3f} "
@@ -797,7 +1322,7 @@ def main() -> None:
                                            + 19 * n_bins + 2 * nnz)
     cen_bytes = (raw64.numel() * 4 + WINDOW_BATCH * n_mels * frames_c * 4
                  + table_bytes)
-    cen_bound_ms, cen_bound_by = bound(cen_flops, cen_bytes)
+    cen_bound_ms, cen_bound_by = bound_ms(cen_flops, cen_bytes)
     log(f"time centered mel kernel (f32 out) B={WINDOW_BATCH}: {cen_ms:.4f} "
         f"ms, plain {cen_plain_ms:.4f} ms, library stft(center)+matmul "
         f"{cen_lib_ms:.4f} ms, bound {cen_bound_ms:.4f} ms ({cen_bound_by}; "
@@ -820,7 +1345,7 @@ def main() -> None:
     pm_flops = rows * (3 * n_freq + 2 * int((mel2_np > 0).sum()))
     pm_dense_flops = rows * (3 * n_freq + 2 * n_freq * cfg2.n_mels)
     pm_bytes = spec64.numel() * 8 + rows * cfg2.n_mels * 4 + w2_t.numel() * 4
-    pm_bound_ms, pm_bound_by = bound(pm_flops, pm_bytes)
+    pm_bound_ms, pm_bound_by = bound_ms(pm_flops, pm_bytes)
     log(f"time power mel kernel B={WINDOW_BATCH} ({rows} rows x {n_freq} bins "
         f"x {cfg2.n_mels} mels): {pm_ms:.4f} ms, plain {pm_plain_ms:.4f} ms, "
         f"library matmul {pm_lib_ms:.4f} ms, bound {pm_bound_ms:.4f} ms "
@@ -897,9 +1422,7 @@ def main() -> None:
         flops = b * frames * bf16_frame_flops
         nbytes = (b * cfg.samples_per_clip * 4 + b * n_mels * frames * 4
                   + bf16_tables)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-        bf16_bound[b] = (max(t_ops, t_bytes) * 1e3,
-                         "operations" if t_ops >= t_bytes else "bytes",
+        bf16_bound[b] = (*bound_ms(0.0, nbytes, flops),
                          flops, nbytes)
     bf16_bound_ms, bf16_bound_by, bf16_flops, bf16_bytes = bf16_bound[
         TRAIN_BATCH]
@@ -1133,10 +1656,7 @@ def main() -> None:
         fz3.band_off, fz3.band_w))
     x3_bytes = (raw512.numel() * 4 + BATCH_PCEN * n_mels * frames * 4
                 + x3_tables)
-    x3_t_ops = x3_tc_flops / PEAK_BF16_FLOPS + x3_f32_flops / PEAK_FP32_FLOPS
-    x3_t_bytes = x3_bytes / PEAK_BYTES_S
-    x3_bound_ms = max(x3_t_ops, x3_t_bytes) * 1e3
-    x3_bound_by = "operations" if x3_t_ops >= x3_t_bytes else "bytes"
+    x3_bound_ms, x3_bound_by = bound_ms(x3_f32_flops, x3_bytes, x3_tc_flops)
     log(f"time bf16_3x mel kernel (f32 out) B={BATCH_PCEN}: {x3_ms:.4f} ms, "
         f"plain {x3_plain_ms:.4f} ms, library stft+matmul {x3_lib_ms:.4f} "
         f"ms, exact kernel {x3_exact_ms:.4f} ms, bound {x3_bound_ms:.4f} ms "
@@ -1233,43 +1753,33 @@ def main() -> None:
                 f"in {e.input_shapes[:2]}")
 
     kernels = [
-        {"name": "fused_featurizer_mel", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-         "launches": main_counts["fused_featurizer_mel"],
-         "max_abs_err": mel_err, "ms": mel_ms, "plain_ms": mel_plain_ms,
-         "bound_ms": mel_bound_ms, "bound_by": mel_bound_by,
-         "library_ms": mel_lib_ms},
-        {"name": "fused_featurizer_pcen", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-         "launches": pcen_counts["fused_featurizer_pcen"],
-         "max_abs_err": pcen_err, "ms": pcen_ms, "plain_ms": pcen_plain_ms,
-         "bound_ms": pcen_bound_ms, "bound_by": pcen_bound_by,
-         "library_ms": None},
-        {"name": "fused_featurizer_mel_centered", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-         "launches": predictor_counts[4096]["fused_featurizer_mel_centered"],
-         "max_abs_err": centered_err, "ms": cen_ms, "plain_ms": cen_plain_ms,
-         "bound_ms": cen_bound_ms, "bound_by": cen_bound_by,
-         "library_ms": cen_lib_ms},
-        {"name": "power_mel", "route": "cuda",
-         "source": MELSPEC_SOURCE, "replaces": MELSPEC_TPU_KERNEL,
-         "launches": predictor_counts[2048]["power_mel"],
-         "max_abs_err": pm_err, "ms": pm_ms, "plain_ms": pm_plain_ms,
-         "bound_ms": pm_bound_ms, "bound_by": pm_bound_by,
-         "library_ms": pm_lib_ms},
-        {"name": "fused_featurizer_mel_bf16", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-         "launches": train_counts["fused_featurizer_mel_bf16"],
-         "max_abs_err": bf16_err, "ms": mel_bf16_ms,
-         "plain_ms": mel_bf16_plain_ms, "bound_ms": bf16_bound_ms,
-         "bound_by": bf16_bound_by, "library_ms": mel_bf16_lib_ms},
-        {"name": "fused_featurizer_mel_bf16x3", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-         "launches": mn_counts["bf16_3x"]["fused_featurizer_mel_bf16x3"],
-         "max_abs_err": x3_err, "ms": x3_ms, "plain_ms": x3_plain_ms,
-         "bound_ms": x3_bound_ms, "bound_by": x3_bound_by,
-         "library_ms": x3_lib_ms},
+        kernel_record("fused_featurizer_mel", KERNEL_SOURCE, TPU_KERNEL,
+                      main_counts["fused_featurizer_mel"], mel_err, mel_ms,
+                      mel_plain_ms, (mel_bound_ms, mel_bound_by), mel_lib_ms),
+        kernel_record("fused_featurizer_pcen", KERNEL_SOURCE, TPU_KERNEL,
+                      pcen_counts["fused_featurizer_pcen"], pcen_err, pcen_ms,
+                      pcen_plain_ms, (pcen_bound_ms, pcen_bound_by), None),
+        kernel_record("fused_featurizer_mel_centered", KERNEL_SOURCE,
+                      TPU_KERNEL,
+                      predictor_counts[4096]["fused_featurizer_mel_centered"],
+                      centered_err, cen_ms, cen_plain_ms,
+                      (cen_bound_ms, cen_bound_by), cen_lib_ms),
+        kernel_record("power_mel", MELSPEC_SOURCE, MELSPEC_TPU_KERNEL,
+                      predictor_counts[2048]["power_mel"], pm_err, pm_ms,
+                      pm_plain_ms, (pm_bound_ms, pm_bound_by), pm_lib_ms),
+        kernel_record("fused_featurizer_mel_bf16", KERNEL_SOURCE, TPU_KERNEL,
+                      train_counts["fused_featurizer_mel_bf16"], bf16_err,
+                      mel_bf16_ms, mel_bf16_plain_ms,
+                      (bf16_bound_ms, bf16_bound_by), mel_bf16_lib_ms),
+        kernel_record("fused_featurizer_mel_bf16x3", KERNEL_SOURCE,
+                      TPU_KERNEL,
+                      mn_counts["bf16_3x"]["fused_featurizer_mel_bf16x3"],
+                      x3_err, x3_ms, x3_plain_ms, (x3_bound_ms, x3_bound_by),
+                      x3_lib_ms),
     ]
+    # ---- 8. the folded badwinner2 chain; 9. the megakernel probe --------
+    kernels += folded_chain_phase(dev, cfg, mel_np, fz, clips, card)
+    kernels += probe_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -170,24 +170,45 @@ def test_centered_pcen_matches_jax_kernel_interpret(mel_w):
 
 
 def test_deferred_modes_raise(mel_w, fz):
-    # the tensor-core tiers take tf framing only
-    for tier in ("default", "bf16_3x"):
-        with pytest.raises(ValueError, match="queue item 1"):
-            ffz.FusedFeaturizer(mel_w, precision=tier, center=True,
-                                device="cpu")
-    with pytest.raises(ValueError, match="ported tiers"):
-        ffz.FusedFeaturizer(mel_w, precision="high", device="cpu")
-    fz_c = ffz.FusedFeaturizer(mel_w, center=True, device="cpu")
+    """Every mode of the JAX class is ported; what still raises are the JAX
+    class's own contracts (a fold with center=True, the frontend fold with
+    PCEN), a tier the JAX class does not have, and inputs the kernels do
+    not take."""
     raw = torch.zeros(1, SHORT)
-    for featurizer in (fz, fz_c):
-        with pytest.raises(ValueError, match="queue item 1"):
-            featurizer(raw, pcen=False, normalize_waveform=True)
-        with pytest.raises(ValueError, match="queue item 1"):
-            featurizer(raw, pcen=False, frontend_params=(0.0, 0.0, 1.0))
+    fp = (np.float32(-1.0), np.zeros(160, np.float32),
+          np.ones(160, np.float32))
+    for tier in ffz.PRECISIONS:
+        # the tensor-core tiers take the centered framing too
+        fz_c = ffz.FusedFeaturizer(mel_w, precision=tier, center=True,
+                                   device="cpu")
+        assert fz_c(raw, pcen=False).shape == (1, 160, 1 + SHORT // 281)
+        for kw in (dict(normalize_waveform=True), dict(frontend_params=fp)):
+            with pytest.raises(ValueError, match="not the centered one"):
+                fz_c(raw, pcen=False, **kw)
+        with pytest.raises(ValueError, match="PCEN fronts"):
+            ffz.FusedFeaturizer(mel_w, precision=tier, device="cpu")(
+                raw, pcen=True, frontend_params=fp)
+    with pytest.raises(ValueError, match="unknown precision tier"):
+        ffz.FusedFeaturizer(mel_w, precision="high", device="cpu")
     with pytest.raises(ValueError, match="out_dtype"):
         fz(raw, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="float32"):
         fz(raw.double())
+
+
+@pytest.mark.parametrize("fold", ["normalize_waveform", "frontend_params"])
+def test_folds_run_at_every_tier(mel_w, fold):
+    """Each fold runs at each tier in tf framing (parity with the JAX folds:
+    tests/test_torch_folds.py)."""
+    raw = torch.from_numpy(_clips(1, SHORT, 40))
+    kw = ({"normalize_waveform": True} if fold == "normalize_waveform" else
+          {"frontend_params": (np.float32(-1.0), np.zeros(160, np.float32),
+                               np.ones(160, np.float32))})
+    for tier in ffz.PRECISIONS:
+        out = ffz.FusedFeaturizer(mel_w, precision=tier, device="cpu")(
+            raw, pcen=False, **kw)
+        assert out.shape == (1, 160, -(-SHORT // 281))
+        assert torch.isfinite(out).all()
 
 
 def test_make_mel_fn_backends(cfg, mel_w):

@@ -15,7 +15,13 @@ featurizer's; the "default" (bf16) tier as stated above its test; the
 kernel, "bf16_3x_manual" bitwise equal to it; the PCEN -> MobileNetV2
 chain's f32 logits within 1e-4 of max |logit| of the plain featurizer's
 (and of the exact tier's, for "bf16_3x"), the folded gray stem's within
-1e-5.  TF32 is off for the plain versions' einsums and the CNN.
+1e-5; K1's folds at each tier as the tier's unfolded kernel (the "default"
+tier's flip-free impulse check with the frontend fold alone: the normalize
+fold makes every sample in the clip non-zero), the folded badwinner2 chain's
+f32 logits within 1e-4 of max |logit| of the unfused chain's; the probe's
+K3 within 1e-5 of max |out| (5e-5 in "accum", whose chunks meet through
+atomics) and K4 bitwise.  TF32 is off for the plain versions' einsums and
+the CNN.
 """
 
 import numpy as np
@@ -79,11 +85,9 @@ def test_fused_featurizer_kernel_matches_plain(batch, samples, hop):
     assert torch.equal(fz(raw, pcen=True, normalize=False,
                           out_dtype=torch.bfloat16),
                        raw_pcen.to(torch.bfloat16))
-    assert ffz.launch_counts() == {"fused_featurizer_mel": 5,
-                                   "fused_featurizer_mel_centered": 0,
-                                   "fused_featurizer_mel_bf16": 0,
-                                   "fused_featurizer_mel_bf16x3": 0,
-                                   "fused_featurizer_pcen": 3}
+    want_counts = dict.fromkeys(ffz.launch_counts(), 0)
+    want_counts.update(fused_featurizer_mel=5, fused_featurizer_pcen=3)
+    assert ffz.launch_counts() == want_counts
 
 
 def _tone_clips(batch, samples, seed):
@@ -246,11 +250,10 @@ def test_centered_kernel_matches_plain(batch, samples):
                        mel.to(torch.bfloat16))
     got = fz(raw, pcen=True)
     assert (got - pcen(want, *fz.pcen_params, time_axis=2)).abs().max() < PCEN_ABS
-    assert ffz.launch_counts() == {"fused_featurizer_mel": 0,
-                                   "fused_featurizer_mel_centered": 3,
-                                   "fused_featurizer_mel_bf16": 0,
-                                   "fused_featurizer_mel_bf16x3": 0,
-                                   "fused_featurizer_pcen": 1}
+    want_counts = dict.fromkeys(ffz.launch_counts(), 0)
+    want_counts.update(fused_featurizer_mel_centered=3,
+                       fused_featurizer_pcen=1)
+    assert ffz.launch_counts() == want_counts
 
 
 @pytest.mark.gpu
@@ -413,3 +416,181 @@ def test_mobilenet_kernel_path_matches_plain_featurizer():
     assert _rel(hi, logits(use_kernel=False)) < 1e-4
     assert _rel(logits("bf16_3x"), hi) < 1e-4
     assert _rel(logits(m=fold_gray_stem(model), channels=1), hi) < 1e-5
+
+
+# ---- K1's folds and centered tensor-core tiers, the folded chain --------
+
+X3_REL_TIERS = {"highest": MEL_REL, "bf16_3x": X3_REL}
+
+
+def _frontend_params(seed=0):
+    rng = np.random.default_rng(seed)
+    return (np.float32(-0.7), rng.normal(1.0, 0.3, 160).astype(np.float32),
+            rng.uniform(0.5, 2.0, 160).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples", [144000, 30001, 3])
+def test_clip_minmax_kernel_matches_plain(samples):
+    """The normalize fold's per-clip (min, max - min), bitwise its plain
+    version."""
+    dev = _card()
+    raw = torch.from_numpy(np.random.default_rng(samples).standard_normal(
+        (5, samples)).astype(np.float32)).to(dev)
+    ffz.reset_launch_counts()
+    got = ffz.clip_minmax(raw)
+    assert ffz.launch_counts()["clip_minmax"] == 1
+    assert torch.equal(got, ffz.clip_minmax_plain(raw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["highest", "default", "bf16_3x"])
+@pytest.mark.parametrize("fold", ["normalize", "frontend", "both"])
+def test_folded_kernels_match_plain(tier, fold):
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig())
+    fz = ffz.FusedFeaturizer(w, precision=tier, device=dev)
+    kw = {}
+    if fold != "frontend":
+        kw["normalize_waveform"] = True
+    if fold != "normalize":
+        kw["frontend_params"] = _frontend_params()
+    frontend = (None if fold == "normalize" else
+                ffz.frontend_tables(kw["frontend_params"], 160, dev))
+    rng = np.random.default_rng(3)
+    raw = torch.from_numpy((0.3 * rng.standard_normal((3, 144000)) + 0.2)
+                           .astype(np.float32)).to(dev)
+    if fold == "frontend":
+        raw = normalize_rows(raw)
+    ffz.reset_launch_counts()
+    got = fz(raw, pcen=False, **kw)
+    want_counts = dict.fromkeys(ffz.launch_counts(), 0)
+    want_counts[ffz.mel_counter(tier, folded=True)] = 1
+    want_counts["clip_minmax"] = int(fold != "frontend")
+    assert ffz.launch_counts() == want_counts
+    want = ffz.fused_featurizer_plain(
+        raw, fz.mel_weights, 281, precision=tier,
+        normalize_waveform=fold != "frontend", frontend=frontend)
+    assert got.shape == want.shape == (3, 160, 513)
+    if tier == "default":
+        assert _rms_rel(got, want) < BF16_RMS_REL
+        assert _rel(got, want) < BF16_STEP
+    else:
+        assert _rel(got, want) < X3_REL_TIERS[tier]
+    assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16, **kw),
+                       got.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_frontend_fold_on_impulses_is_flip_free():
+    """With the frontend fold alone the "default" tier's mel is the
+    impulse input's: no rounding can flip, so kernel and plain version agree
+    as the unfolded tier does."""
+    dev = _card()
+    fz = ffz.FusedFeaturizer(build_mel_weights(FeaturizerConfig()),
+                             precision="default", device=dev)
+    fp = _frontend_params(1)
+    raw = _impulses(3, 144000, 5).to(dev)
+    got = fz(raw, pcen=False, frontend_params=fp)
+    want = ffz.fused_featurizer_plain(
+        raw, fz.mel_weights, 281, precision="default",
+        frontend=ffz.frontend_tables(fp, 160, dev))
+    assert _rel(got, want) < BF16_FLIP_FREE_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["default", "bf16_3x", "bf16_3x_manual"])
+@pytest.mark.parametrize("batch,samples", [(3, 144000), (1, 28100),
+                                           (2, 20000)])
+def test_centered_tensor_core_tiers_match_plain(tier, batch, samples):
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig())
+    fz = ffz.FusedFeaturizer(w, precision=tier, center=True, device=dev)
+    raw = normalize_rows(torch.from_numpy(np.random.default_rng(
+        samples).standard_normal((batch, samples)).astype(np.float32))).to(dev)
+    ffz.reset_launch_counts()
+    got = fz(raw, pcen=False)
+    want_counts = dict.fromkeys(ffz.launch_counts(), 0)
+    want_counts[ffz.mel_counter(tier, center=True)] = 1
+    assert ffz.launch_counts() == want_counts
+    want = ffz.fused_featurizer_plain(raw, fz.mel_weights, 281, center=True,
+                                      precision=tier)
+    assert got.shape == want.shape == (batch, 160, 1 + samples // 281)
+    if tier == "default":
+        assert _rms_rel(got, want) < BF16_RMS_REL
+        assert _rel(got, want) < BF16_STEP
+    else:
+        assert _rel(got, want) < X3_REL
+    exact = ffz.FusedFeaturizer(w, center=True, device=dev)(raw, pcen=False)
+    assert _rel(got, exact) < (BF16_VS_EXACT if tier == "default"
+                               else X3_VS_EXACT)
+
+
+@pytest.mark.gpu
+def test_folded_chain_matches_the_unfused_chain():
+    """K1 with both folds -> BadWinner2(external_frontend=True) against
+    normalize_rows -> K1 -> BadWinner2 with its own frontend, the same
+    weights, f32 logits."""
+    dev = _card()
+    cfg = FeaturizerConfig()
+    unfused = build_model("badwinner2", 7, logits_only=True,
+                          generator=torch.Generator().manual_seed(0)).module
+    a, mean, var = _frontend_params(2)
+    with torch.no_grad():
+        unfused.mag.a_power.fill_(float(a))
+        unfused.mel_bn.running_mean.copy_(torch.from_numpy(mean))
+        unfused.mel_bn.running_var.copy_(torch.from_numpy(var))
+    folded = build_model("badwinner2", 7, logits_only=True,
+                         external_frontend=True).module
+    folded.load_state_dict({k: v for k, v in unfused.state_dict().items()
+                            if not k.startswith(("mag.", "mel_bn."))})
+    unfused, folded = unfused.to(dev).eval(), folded.to(dev).eval()
+    fz = ffz.FusedFeaturizer(build_mel_weights(cfg), device=dev)
+    raw = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 144000)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        got = folded(fz(raw, pcen=False, normalize_waveform=True,
+                        frontend_params=(a, mean, var))[..., None])
+        want = unfused(fz(normalize_rows(raw), pcen=False)[..., None])
+    assert _rel(got, want) < 1e-4
+
+
+# ---- the megakernel probe (K3, K4) -----------------------------------------
+
+DOT_REL = {"store": 1e-5, "brot": 1e-5, "accum": 5e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["store", "accum", "brot"])
+@pytest.mark.parametrize("m,k,n,ndots,grid", [
+    (64, 640, 512, 9, 2),    # chunked: 2 chunks of dots per tile
+    (128, 128, 128, 17, 3),
+    (64, 64, 256, 40, 1),    # many chunks, a short last one
+])
+def test_dot_probe_kernel_matches_plain(mode, m, k, n, ndots, grid):
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    dev = _card()
+    a, b = pm.dot_inputs(m, k, n, mode, dev)
+    pm.reset_launch_counts()
+    got = pm.dot_probe(0.5, a, b, ndots, grid, mode)
+    torch.cuda.synchronize()
+    assert pm.launch_counts()[f"probe_dot_{mode}"] == 1
+    want = pm.dot_probe_plain(0.5, a, b, ndots, grid, mode)
+    assert got.shape == want.shape == (8 * grid, 128)
+    assert _rel(got, want) < DOT_REL[mode]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,m,lanes", [
+    ("shift1", 64, 640), ("roll", 64, 640), ("roll", 16, 130),
+    ("pool3", 64, 640), ("copyblk", 256, 128), ("copyblk", 16, 128)])
+def test_shift_probe_kernel_matches_plain(mode, m, lanes):
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    dev = _card()
+    x = pm.shift_input(m, lanes, dev)
+    pm.reset_launch_counts()
+    got = pm.shift_probe(0.25, x, 7, 3, mode)
+    assert pm.launch_counts()[f"probe_shift_{mode}"] == 1
+    assert torch.equal(got, pm.shift_probe_plain(0.25, x, 7, 3, mode))

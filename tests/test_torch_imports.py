@@ -39,7 +39,8 @@ def test_port_modules_import_without_jax():
                  "detect.signals", "corpus.audioio", "train.checkpoints",
                  "data.preprocess", "train.losses", "train.metrics",
                  "train.state", "train.step", "train.loop",
-                 "models.backbones", "models.registry", "models.convert"):
+                 "models.backbones", "models.registry", "models.convert",
+                 "models.badwinner2", "probes.probe_megakernel"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
     leaked = [m for m in result["modules"] if _forbidden(m)]
     assert not leaked, leaked

@@ -129,10 +129,16 @@ def test_bf16_3x_tier_wiring(mel_w):
                                  normalize=False))
     assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16),
                        want.to(torch.bfloat16))
+    # with center=True both names frame as the centered exact tier does
+    # (parity: tests/test_torch_folds.py)
+    exact = ffz.FusedFeaturizer(mel_w, center=True, device="cpu")(
+        raw, pcen=False)
     for tier in ("bf16_3x", "bf16_3x_manual"):
-        with pytest.raises(ValueError, match="queue item 1"):
-            ffz.FusedFeaturizer(mel_w, precision=tier, center=True,
-                                device="cpu")
+        centered = ffz.FusedFeaturizer(mel_w, precision=tier, center=True,
+                                       device="cpu")(raw, pcen=False)
+        assert torch.equal(centered, ffz.mel_power_bf16_3x(
+            raw, fz.mel_weights, 281, center=True))
+        assert _rel(centered, exact) < TIER_REL
 
 
 # ---- a lane-level emulation of mel_bf16x3_kernel's mma fragment walk -----

@@ -201,11 +201,16 @@ def test_default_tier_wiring(mel_w):
                                  normalize=False))
     assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16),
                        want.to(torch.bfloat16))
-    # "default" with center=True is still deferred; the three-pass tiers
-    # are a tier of their own now (tests/test_torch_ladder.py), not this one
-    with pytest.raises(ValueError, match="queue item 1"):
-        ffz.FusedFeaturizer(mel_w, device="cpu", precision="default",
-                            center=True)
+    # "default" with center=True frames as the centered exact tier does
+    # (parity: tests/test_torch_folds.py); the three-pass tiers are a tier
+    # of their own (tests/test_torch_ladder.py), not this one
+    centered = ffz.FusedFeaturizer(mel_w, device="cpu", precision="default",
+                                   center=True)(raw, pcen=False)
+    assert torch.equal(centered, ffz.mel_power_bf16(raw, fz.mel_weights, 281,
+                                                    center=True))
+    assert _rel(centered, ffz.FusedFeaturizer(mel_w, device="cpu",
+                                              center=True)(raw, pcen=False)
+                ) < TIER_REL
     x3 = ffz.FusedFeaturizer(mel_w, 4096, 281, precision="bf16_3x",
                              device="cpu")(raw, pcen=False)
     assert not torch.equal(x3, want)
