@@ -114,6 +114,15 @@ class InferenceConfig:
 
 def config_from_dict(cls: type, data: dict) -> Any:
     """Build a config dataclass from a JSON dict, ignoring unknown keys
-    (a run's ``metadata.txt`` ``featurizer`` entry)."""
-    names = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: v for k, v in data.items() if k in names})
+    (a run's ``metadata.txt`` ``featurizer`` entry).  JSON has no tuples:
+    a list read back into a ``tuple[int, ...]`` field becomes a tuple
+    again, as in the JAX package."""
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in data.items():
+        if k not in fields:
+            continue
+        if fields[k].type == "tuple[int, ...]" and isinstance(v, list):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)

@@ -1,129 +1,127 @@
 // Fused power spectrum + mel projection for Hopper (sm_90a).
 //
 // Replaces: audio_training_tpu/ops/pallas/melspec.py::_power_mel_kernel (the
-// TPU kernel launched by fused_power_mel).  Same math --
-// out[r, m] = sum_f (re^2 + im^2)[r, f] * W[f, m] in exact fp32, r running
-// over the (batch, frame) rows of a time-major STFT -- but not the TPU
-// blocking: no padding of T, F and M to 128-multiples by the caller (the
-// ragged edges are masked here) and no resident VMEM copy of the whole
-// weight matrix.  The squared modulus is computed while the STFT tile is
-// staged into shared memory, so the power spectrum never reaches device
-// memory.
+// TPU kernel launched by fused_power_mel).  Same function --
+// out[r, m] = sum_f (re^2 + im^2)[r, f] * W[f, m] in fp32, r running over the
+// (batch, frame) rows of a time-major STFT -- but not the TPU blocking: no
+// padding of T, F and M to 128-multiples by the caller (the ragged rows are
+// masked here), no resident copy of the dense weight matrix, and no dense
+// product.  The squared modulus is computed while the STFT is staged into
+// shared memory, so the power spectrum never reaches device memory.
 //
-// What bounds it on the H100.  At the long-recording Predictor's n_fft=2048
-// shape (64 windows x 513 frames x 1025 bins, 160 mels) the dense product is
-// 10.8 GFLOP (0.16 ms at the card's 67 TFLOP/s fp32 peak) while the bytes it
-// must move are 269 MB of complex STFT in and 21 MB of mel out (0.087 ms at
-// 3.35 TB/s).  The mel bank is band-sparse, though: about 1/160 of W is
-// non-zero, so the work the data needs is ~0.2 GFLOP and the function is
-// bound by the bytes.  This kernel does the dense product, so in practice
-// it is bound by the fp32 FMA rate and shared-memory reads; walking each
-// filter's band (as the fused featurizer does) is the next step.
+// What bounds it on the H100.  The mel bank is band-sparse: each filter is
+// non-zero on one contiguous band of bins, and the bank as a whole on its
+// support [lo, hi), the union of the bands.  At the long-recording
+// Predictor's n_fft=2048 shape (64 windows x 513 frames x 1025 bins, 160
+// mels, FMAX 11000 Hz) the support is about 470 bins and the bank has about
+// 940 non-zeros, so the work the data needs is ~0.07 GFLOP, while the bytes
+// it must move are the support's complex STFT in (~123 MB) and the mel out
+// (21 MB): about 0.045 ms at 3.35 TB/s.  The function is bound by the bytes.
 //
-// What the design does.  A block computes a 64-row x 160-mel output tile
-// (all mels of the production bank, so each STFT element is read from
-// device memory once), 256 threads, each 8 rows x 5 mels in registers.  The
-// K loop walks 16 frequency bins at a time: the block stages the power of a
-// 64 x 16 STFT tile (k-major, padded against bank conflicts) and the 16 x
-// 160 weight tile in shared memory, then every thread does 8 x 5 FMAs per
-// bin.  Plain fp32 FMA on CUDA cores: no TF32 and no tensor cores, because
-// the JAX kernel runs at Precision.HIGHEST.  No cp.async/TMA pipelining yet.
+// What the design does.  The wrapper builds each filter's band (start,
+// length, offset into a flat weight list; ops/mel.py::band_tables) once on
+// the host.  A block takes a tile of ROWS rows and stages only the power of
+// the support bins in shared memory, each element read once: the complex64
+// STFT as float4 loads (two complex values; the pair grid is aligned to 16
+// bytes from the tensor's address, and the elements of a pair outside the
+// support are dropped), neighbouring threads on neighbouring pairs.  Then
+// each thread walks one filter's band for RPT rows of the tile, the weight
+// read once for all RPT rows, and the mel tile is stored with neighbouring
+// threads on neighbouring mels.  Plain fp32 FMA on CUDA cores, as the JAX
+// kernel's Precision.HIGHEST.
+//
+// Semantics: bins outside every band enter no sum, so a NaN or inf there no
+// longer reaches the output (the dense product spread it to every mel, 0 *
+// inf = NaN); K1's exact tier behaves the same way.  On finite input the
+// result is the dense product's up to the order of the sums.
 //
 // Plain C interface, loaded with ctypes.  The entry point launches on the
 // stream it is given and returns cudaGetLastError().
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64;        // output rows ((batch, frame) pairs) per block
-constexpr int BN = 160;       // mels per block
-constexpr int BK = 16;        // frequency bins per K step
-constexpr int THREADS = 256;  // 8 warps
-constexpr int TM = BM / (THREADS / 32);  // 8 rows per thread
-constexpr int TN = BN / 32;              // 5 mels per thread
-constexpr int AS_STRIDE = BM + 4;        // keeps float4 rows aligned
+constexpr int ROWS = 16;  // (batch, frame) rows per block
+constexpr int RPT = 8;    // rows per thread in the band walk
+constexpr int RG = ROWS / RPT;
 
-static_assert(TM == 8 && TN * 32 == BN, "thread tile layout");
+// grid ceil(rows / ROWS), blockDim >= 32, dynamic shared memory ROWS x
+// support floats.  The STFT element (row, f) is re[e], im[e] with e = row *
+// n_freq + f (kInterleaved false: two float tensors) or re[2 e], re[2 e + 1]
+// (kInterleaved: a complex64 tensor read in place).  Bands are relative to
+// bin 0; lo is the support's first bin.
+template <bool kInterleaved>
+__global__ void power_mel_kernel(const float* __restrict__ re,
+                                 const float* __restrict__ im, int rows,
+                                 int n_freq, int lo, int support,
+                                 const int* __restrict__ band_start,
+                                 const int* __restrict__ band_len,
+                                 const int* __restrict__ band_off,
+                                 const float* __restrict__ band_w, int n_mels,
+                                 float* __restrict__ out) {
+  extern __shared__ float power[];  // ROWS x support
+  const int row0 = blockIdx.x * ROWS;
 
-// grid (ceil(rows / BM), ceil(n_mels / BN)), THREADS threads.
-// The STFT element (r, f) is re[(r * n_freq + f) * stride] and
-// im[(r * n_freq + f) * stride]: stride 2 with im = re + 1 reads an
-// interleaved complex64 tensor, stride 1 two separate float tensors.
-__global__ void __launch_bounds__(THREADS)
-power_mel_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                 int stride, int rows, int n_freq,
-                 const float* __restrict__ w, int n_mels,
-                 float* __restrict__ out) {
-  __shared__ __align__(16) float a_s[BK][AS_STRIDE];
-  __shared__ float b_s[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;   // mel lane: mels tx + 32 j
-  const int ty = tid >> 5;   // row group: rows ty * TM + i
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < n_freq; k0 += BK) {
-    // 1. power of the 64 x 16 STFT tile; neighbouring threads read
-    //    neighbouring bins of one row; zeros past the ragged edges
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK;
-      const int k = i - r * BK;
-      const int gr = row0 + r;
-      const int gk = k0 + k;
-      float p = 0.f;
-      if (gr < rows && gk < n_freq) {
-        const size_t e = (static_cast<size_t>(gr) * n_freq + gk) * stride;
-        const float x = re[e];
-        const float y = im[e];
-        p = x * x + y * y;
-      }
-      a_s[k][r] = p;
+  // 1. the power of the support bins of the tile's rows
+  if (kInterleaved) {
+    // pairs of complex elements on the 16-byte grid: pair p holds the
+    // elements 2p - a0 and 2p + 1 - a0 of the tensor
+    const int a0 = static_cast<int>((reinterpret_cast<uintptr_t>(re) >> 3) & 1);
+    const float4* pairs = reinterpret_cast<const float4*>(re - 2 * a0);
+    const int per_row = support / 2 + 2;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * per_row; i += blockDim.x) {
+      const int r = i / per_row;
+      const int q = i - r * per_row;
+      const int row = row0 + r;
+      if (row >= rows) continue;
+      const long long first =
+          static_cast<long long>(row) * n_freq + lo;  // element of bin lo
+      const long long p = ((first + a0) >> 1) + q;
+      const int k = static_cast<int>(2 * p - a0 - first);  // bin - lo, >= -1
+      if (k >= support) continue;
+      const float4 v = __ldg(pairs + p);
+      float* dst = power + r * support + k;
+      if (k >= 0) dst[0] = v.x * v.x + v.y * v.y;
+      if (k + 1 < support) dst[1] = v.z * v.z + v.w * v.w;
     }
-    // 2. the 16 x 160 weight tile, coalesced along mels
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int k = i / BN;
-      const int n = i - k * BN;
-      const int gk = k0 + k;
-      const int gn = col0 + n;
-      b_s[k][n] = (gk < n_freq && gn < n_mels)
-                      ? w[static_cast<size_t>(gk) * n_mels + gn] : 0.f;
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * support; i += blockDim.x) {
+      const int r = i / support;
+      const int row = row0 + r;
+      if (row >= rows) continue;
+      const size_t e = static_cast<size_t>(row) * n_freq + lo + (i - r * support);
+      const float x = __ldg(re + e);
+      const float y = __ldg(im + e);
+      power[i] = x * x + y * y;
     }
-    __syncthreads();
-
-    // 3. 8 x 5 outer products per bin; the warp's A reads are broadcasts
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[k][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&a_s[k][ty * TM + 4]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float b[TN];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = b_s[k][tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+  __syncthreads();
 
-  // 4. store; a warp writes 32 consecutive mels of one row
+  // 2. each (filter, row group): the band walk, one weight for RPT rows;
+  //    a warp stores 32 neighbouring mels of a row
+  for (int i = threadIdx.x; i < n_mels * RG; i += blockDim.x) {
+    const int m = i % n_mels;
+    const int g = i / n_mels;
+    const int len = __ldg(band_len + m);
+    const float* w = band_w + __ldg(band_off + m);
+    const float* p = power + g * RPT * support + (__ldg(band_start + m) - lo);
+    float acc[RPT];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = row0 + ty * TM + i;
-    if (gr >= rows) break;
+    for (int k = 0; k < RPT; ++k) acc[k] = 0.f;
+    for (int j = 0; j < len; ++j) {
+      const float wj = __ldg(w + j);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = col0 + tx + 32 * j;
-      if (gn < n_mels) out[static_cast<size_t>(gr) * n_mels + gn] = acc[i][j];
+      for (int k = 0; k < RPT; ++k) acc[k] = fmaf(wj, p[k * support + j], acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int row = row0 + g * RPT + k;
+      if (row < rows) out[static_cast<size_t>(row) * n_mels + m] = acc[k];
     }
   }
 }
@@ -132,12 +130,26 @@ power_mel_kernel(const float* __restrict__ re, const float* __restrict__ im,
 
 extern "C" {
 
+// stride 2: re points at an interleaved complex64 tensor (im is unused);
+// stride 1: re and im are two float tensors.  Bands: n_mels entries of
+// start / length / offset into band_w; the support is [lo, lo + support).
 int pm_power_mel(const float* re, const float* im, int stride, int rows,
-                 int n_freq, const float* w, int n_mels, float* out,
-                 void* stream) {
-  const dim3 grid((rows + BM - 1) / BM, (n_mels + BN - 1) / BN);
-  power_mel_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      re, im, stride, rows, n_freq, w, n_mels, out);
+                 int n_freq, int lo, int support, const int* band_start,
+                 const int* band_len, const int* band_off, const float* band_w,
+                 int n_mels, float* out, void* stream) {
+  const size_t smem = sizeof(float) * ROWS * support;
+  const int want = (n_mels * RG + 31) / 32 * 32;
+  const int threads = want < 1024 ? want : 1024;
+  const auto kernel = stride == 2 ? power_mel_kernel<true>
+                                  : power_mel_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (rows + ROWS - 1) / ROWS;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      re, im, rows, n_freq, lo, support, band_start, band_len, band_off,
+      band_w, n_mels, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,7 +14,8 @@ cases, in the output's dtype, as in the JAX class (``:869-872``).
 Every mode of the JAX class is ported: tf ``pad_end`` framing or the
 centered (librosa) framing of the long-recording Predictor
 (``center=True``), any hop and frame count, f32 or bf16 output, at each
-precision tier: the exact f32 ``"highest"`` (a radix-2 FFT kernel); the
+precision tier: the exact f32 ``"highest"`` (a register-resident FFT
+kernel, :func:`fft_plan_tables`); the
 ``"default"`` tier (bf16 DFT products, f32 sums: the training featurizer),
 a tensor-core kernel whose plain version is :func:`mel_power_bf16`; and the
 ``"bf16_3x"`` / ``"bf16_3x_manual"`` tiers (each DFT product as three bf16
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 
 from audio_training_tpu_torch.ops.cuda.build import load_library
 from audio_training_tpu_torch.ops.features import mel_power, normalize_rows
+from audio_training_tpu_torch.ops.mel import band_tables
 from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
 from audio_training_tpu_torch.ops.stft import (
     hann_window,
@@ -89,7 +91,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_featurizer")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ff_mel_power.argtypes = [
-        ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
         i32, i32, ptr, ptr, f32, ptr, i32, ptr,
     ]
     lib.ff_mel_power.restype = i32
@@ -118,25 +120,136 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
+# ---------------------------------------------------------------------------
+# The exact tier's FFT plan (csrc/fused_featurizer.cu, mel_power_kernel):
+# the 2048-point FFT of the even/odd-packed frame as 2048 = 16 x 16 x 8, n =
+# 128 a + 8 e + g, k = c + 16 h + 256 i, three register passes on 128
+# threads a frame (pass 1: thread b = 8 e + g; pass 2: thread (c, g) = (lt
+# & 15, lt >> 4); pass 3: thread (c, h mod 8), h and h + 8), two exchanges
+# through shared memory and a natural-order store for the untangle.  The
+# index maps below are the kernel's, in float2 elements of a frame's buffer.
+# ---------------------------------------------------------------------------
+
+FFT_THREADS = 128  # threads of one frame's FFT
+X1_STRIDE = 17  # exchange 1, padded so each half-warp hits 16 banks
+# A block stages (frames - 1) * hop + 4096 samples of its clip, at most
+# SPAN_CAP, in two halves: even samples at ev[j], odd ones at od[j]
+SPAN_CAP = 8448
+FRAMES_PER_BLOCK = 16
+
+
+def exact_frames_per_block(hop: int) -> int:
+    """Frames a block of the exact kernel takes at this hop."""
+    return min(FRAMES_PER_BLOCK, 1 + (SPAN_CAP - N_FFT) // hop)
+
+
+def x1_index(b, c):
+    """Exchange 1 (buffer X): pass 1's output ``Y[b][c]``."""
+    return b * X1_STRIDE + c
+
+
+def x2_index(c, g, h):
+    """Exchange 2 (the same buffer): pass 2's output ``V[c][g][h]``."""
+    return (g * 16 + h) * 16 + c
+
+
+def x3_index(c, h, i):
+    """Pass 3's output ``Z[c + 16 h + 256 i]`` in natural order (the same
+    buffer), which the untangle reads at k and 2048 - k."""
+    return c + 16 * h + 256 * i
+
+
+def fft_plan_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The plan's inter-pass twiddles in float64 (the kernel gets them
+    rounded once to f32, :class:`FusedFeaturizer`): ``tw1[c, b] =
+    W2048^(b c)`` (16 x 128), applied after pass 1, and ``tw2[g, h] =
+    W128^(g h)`` (8 x 16), after pass 2; W_N = exp(-2 pi i / N), exact
+    zeros where cos or sin vanish."""
+    c, b = np.arange(16)[:, None], np.arange(128)[None, :]
+    g, h = np.arange(8)[:, None], np.arange(16)[None, :]
+    tw1 = _unit((b * c) % 2048, 2048)
+    tw2 = _unit((g * h) % 128, 128)
+    return tw1[0] + 1j * tw1[1], tw2[0] + 1j * tw2[1]
+
+
+def mel_pieces(start: np.ndarray, length: np.ndarray, offset: np.ndarray,
+               threads: int = FFT_THREADS) -> tuple[np.ndarray, ...]:
+    """The exact kernel's balanced mel walk over a bank's bands
+    (:func:`ops.mel.band_tables`): the non-zeros, flattened in mel order,
+    cut into ``threads`` equal slices, each slice into pieces that lie in
+    one filter's band.  Returns ``pieces`` (P, 3) int32 rows (flat start,
+    count, first bin), ``piece_off`` (threads + 1,): thread t walks
+    pieces ``piece_off[t]:piece_off[t + 1]``, and ``mel_piece_off`` (M +
+    1,): filter m's mel is the sum of pieces ``mel_piece_off[m]:
+    mel_piece_off[m + 1]`` in order (none for an empty filter)."""
+    nnz = int(length.sum())
+    ends = offset + length
+    pieces, mel_of, piece_off = [], [], [0]
+    for t in range(threads):
+        i, hi = t * nnz // threads, (t + 1) * nnz // threads
+        while i < hi:
+            m = int(np.flatnonzero((offset <= i) & (i < ends))[0])
+            end = min(hi, int(ends[m]))
+            pieces.append((i, end - i, int(start[m]) + i - int(offset[m])))
+            mel_of.append(m)
+            i = end
+        piece_off.append(len(pieces))
+    mel_piece_off = np.searchsorted(np.asarray(mel_of, np.int64),
+                                    np.arange(len(start) + 1))
+    return (np.asarray(pieces, np.int32).reshape(-1, 3),
+            np.asarray(piece_off, np.int32),
+            mel_piece_off.astype(np.int32))
+
+
+def mel_slots(start: np.ndarray, length: np.ndarray, offset: np.ndarray,
+              flat: np.ndarray,
+              threads: int = FFT_THREADS) -> tuple[np.ndarray, ...]:
+    """:func:`mel_pieces` as the kernel walks them: thread t's slice as
+    ``slot_w[:, t]`` (the weights, 0 past the slice) and ``slot_bin[:, t]``
+    (the bins, bit 16 set where a new piece starts), ``n_slots`` a multiple
+    of 4 rows; with ``piece_off`` and ``mel_piece_off``."""
+    pieces, piece_off, mel_piece_off = mel_pieces(start, length, offset,
+                                                  threads)
+    counts = [int(pieces[piece_off[t]:piece_off[t + 1], 1].sum())
+              for t in range(threads)]
+    n_slots = max(4, -(-max(counts) // 4) * 4)
+    slot_w = np.zeros((n_slots, threads), np.float32)
+    slot_bin = np.zeros((n_slots, threads), np.int32)
+    for t in range(threads):
+        j = 0
+        for p in range(piece_off[t], piece_off[t + 1]):
+            fs, n, b0 = pieces[p]
+            slot_w[j:j + n, t] = flat[fs:fs + n]
+            slot_bin[j:j + n, t] = b0 + np.arange(n)
+            if p > piece_off[t]:
+                slot_bin[j, t] |= 1 << 16
+            j += n
+    return slot_w, slot_bin, piece_off, mel_piece_off
+
+
+def _dif_flops(n: int) -> int:
+    """Real operations of one in-register radix-2 DIF n-point DFT: 4 per
+    butterfly, 6 per general twiddle, 4 per W16^2 / W16^6, 0 per 1 / -i."""
+    flops, h = 0, n // 2
+    while h >= 1:
+        for j in range(h):
+            m = j * (8 // h)
+            twiddle = 0 if m in (0, 4) else 4 if m in (2, 6) else 6
+            flops += (n // (2 * h)) * (4 + twiddle)
+        h //= 2
+    return flops
+
+
+# One frame's 2048-point FFT in the plan: 128 16-point DFTs and 15 twiddles
+# (6 flops each) per thread in passes 1 and 2, 256 8-point DFTs in pass 3
+EXACT_FFT_FLOPS = (2 * 128 * (_dif_flops(16) + 15 * 6)
+                   + 256 * _dif_flops(8))
+
+
 def _complex_table(z: np.ndarray, device) -> torch.Tensor:
     """Complex values as an (n, 2) f32 tensor (the kernel's float2)."""
     pairs = np.stack([z.real, z.imag], axis=-1).astype(np.float32)
     return torch.as_tensor(pairs, device=device)
-
-
-def _band_tables(mel_weights: np.ndarray) -> tuple[np.ndarray, ...]:
-    """Each filter's contiguous band of non-zero bins: start, length,
-    offset into the flat weights, and the flat weights."""
-    starts, lengths, flat = [], [], []
-    for row in np.asarray(mel_weights, np.float32):
-        nz = np.flatnonzero(row > 0)
-        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
-        starts.append(lo)
-        lengths.append(hi - lo)
-        flat.append(row[lo:hi])
-    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
-    return (np.asarray(starts, np.int32), np.asarray(lengths, np.int32),
-            offsets.astype(np.int32), np.concatenate(flat).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -552,19 +665,21 @@ class FusedFeaturizer:
             np.asarray(mel_weights, np.float32), device=device
         )
         self.device = self.mel_weights.device  # "cuda" resolved to "cuda:N"
-        start, length, offset, flat = _band_tables(mel_weights)
+        start, length, offset, flat = band_tables(mel_weights)
         self.n_bins = int((start + length).max())
         to_dev = functools.partial(torch.as_tensor, device=self.device)
         self.band_start, self.band_len = to_dev(start), to_dev(length)
         self.band_off, self.band_w = to_dev(offset), to_dev(flat)
+        # the exact tier's balanced mel walk
+        self.slot_w, self.slot_bin, self.piece_off, self.mel_piece_off = (
+            to_dev(t) for t in mel_slots(start, length, offset, flat))
         self.window = to_dev(hann_window(N_FFT))
-        # radix-2 stage s (half-span h = 2^s) uses exp(-2 pi i p / 2h),
-        # p < h, stored at h - 1; the untangle uses exp(-2 pi i k / 4096)
-        stage = np.concatenate([
-            np.exp(-2j * np.pi * np.arange(h) / (2 * h))
-            for h in (1 << s for s in range(11))
-        ])
-        self.stage_tw = _complex_table(stage, self.device)
+        # the exact tier's inter-pass twiddles: W2048^(b c) at c * 128 + b,
+        # then W128^(g h) at 2048 + g * 16 + h; the untangle's
+        # exp(-2 pi i k / 4096) in post_tw
+        tw1, tw2 = fft_plan_tables()
+        self.fft_tw = _complex_table(
+            np.concatenate([tw1.ravel(), tw2.ravel()]), self.device)
         self.post_tw = _complex_table(
             np.exp(-2j * np.pi * np.arange(MAX_BINS) / N_FFT), self.device
         )
@@ -669,10 +784,11 @@ class FusedFeaturizer:
             else:
                 err = _library().ff_mel_power(
                     raw.data_ptr(), batch, samples, self.hop, left_pad,
-                    frames, self.window.data_ptr(), self.stage_tw.data_ptr(),
-                    self.post_tw.data_ptr(), self.band_start.data_ptr(),
-                    self.band_len.data_ptr(), self.band_off.data_ptr(),
-                    self.band_w.data_ptr(), self.n_mels, self.n_bins,
+                    frames, self.window.data_ptr(), self.fft_tw.data_ptr(),
+                    self.post_tw.data_ptr(), self.slot_w.data_ptr(),
+                    self.slot_bin.data_ptr(), self.slot_w.shape[0],
+                    self.piece_off.data_ptr(), self.mel_piece_off.data_ptr(),
+                    self.n_mels, self.n_bins,
                     *fold_args, mel.data_ptr(),
                     int(mel_dtype == torch.bfloat16), _stream())
         _check(err, f"{self.precision} mel")

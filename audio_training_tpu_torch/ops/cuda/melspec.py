@@ -5,7 +5,10 @@ Port of ``audio_training_tpu/ops/pallas/melspec.py`` (``_power_mel_kernel``
 and ``fused_power_mel``).  ``out[b, t, m] = sum_f (re^2 + im^2)[b, t, f] *
 W[f, m]`` in exact fp32, output ``(B, T, M)`` time-major.  For CUDA tensors
 the wrappers launch the kernel or raise; for CPU tensors they compute
-:func:`power_mel_plain`.
+:func:`power_mel_plain`.  The kernel walks each filter's band of bins
+(:func:`band_walk_plan`, built once per weight tensor on the host) over the
+power of the bank's support, instead of the dense product: bins outside
+every band enter no sum.
 
 Two entries: :func:`fused_power_mel` keeps the JAX signature (real and
 imaginary parts as two float32 tensors); :func:`fused_power_mel_complex`
@@ -17,10 +20,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from audio_training_tpu_torch.ops.cuda.build import load_library
+from audio_training_tpu_torch.ops.mel import band_tables
+
+# csrc/melspec.cu's tile: ROWS STFT rows per block, staged as ROWS x support
+# f32, and RPT rows per thread in the band walk
+ROWS, RPT = 16, 8
+MAX_SUPPORT = 232448 // (4 * ROWS)  # bins of support one block can stage
 
 # Launches of the kernel since the last reset, counted where it launches.
 _LAUNCHES = {"power_mel": 0}
@@ -39,7 +51,8 @@ def reset_launch_counts() -> None:
 def _library() -> ctypes.CDLL:
     lib = load_library("melspec")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pm_power_mel.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr, ptr]
+    lib.pm_power_mel.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr,
+                                 ptr, ptr, i32, ptr, ptr]
     lib.pm_power_mel.restype = i32
     return lib
 
@@ -51,6 +64,52 @@ def power_mel_plain(
     return torch.einsum(
         "btf,fm->btm", stft_re * stft_re + stft_im * stft_im, mel_weights_t
     )
+
+
+class BandWalkPlan(NamedTuple):
+    """What the kernel walks: each filter's band (start, length, offset into
+    the flat weights, the flat weights; :func:`ops.mel.band_tables` of the
+    ``(M, F)`` bank) and the support ``[lo, lo + support)``, the union of
+    the bands."""
+    start: np.ndarray
+    length: np.ndarray
+    offset: np.ndarray
+    weights: np.ndarray
+    lo: int
+    support: int
+
+
+def band_walk_plan(mel_weights_t) -> BandWalkPlan:
+    """The band walk of an ``(F, M)`` weight matrix."""
+    start, length, offset, flat = band_tables(np.asarray(mel_weights_t).T)
+    used = length > 0
+    lo = int(start[used].min()) if used.any() else 0
+    hi = int((start + length)[used].max()) if used.any() else 0
+    return BandWalkPlan(start, length, offset, flat, lo, hi - lo)
+
+
+# id(weight tensor) -> (weak reference, its version, plan, device tables):
+# the host builds a bank's plan once, not per call
+_PLANS: dict[int, tuple] = {}
+
+
+def _device_plan(mel_weights_t: torch.Tensor):
+    key = id(mel_weights_t)
+    hit = _PLANS.get(key)
+    if (hit is not None and hit[0]() is mel_weights_t
+            and hit[1] == mel_weights_t._version):
+        return hit[2], hit[3]
+    plan = band_walk_plan(mel_weights_t.detach().cpu().numpy())
+    if plan.support > MAX_SUPPORT:
+        raise ValueError(
+            f"the mel bank's support spans {plan.support} bins; the kernel "
+            f"stages at most {MAX_SUPPORT}")
+    tables = tuple(torch.as_tensor(t, device=mel_weights_t.device)
+                   for t in plan[:4])
+    _PLANS[key] = (weakref.ref(mel_weights_t,
+                               lambda _, k=key: _PLANS.pop(k, None)),
+                   mel_weights_t._version, plan, tables)
+    return plan, tables
 
 
 def _check_weights(mel_weights_t: torch.Tensor, n_freq: int, device) -> None:
@@ -122,19 +181,18 @@ def _launch(re: int, im: int, stride: int, shape: torch.Size,
     device = mel_weights_t.device
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    if not mel_weights_t.is_contiguous():
-        raise ValueError("mel_weights_t must be contiguous")
     batch, frames, n_freq = shape
     rows, n_mels = batch * frames, mel_weights_t.shape[1]
     if not 0 < rows < 2**31 or n_freq == 0:
         raise ValueError(f"no kernel launch for an STFT of shape "
                          f"{tuple(shape)}")
+    plan, tables = _device_plan(mel_weights_t)
     out = torch.empty((batch, frames, n_mels), dtype=torch.float32,
                       device=device)
     with torch.cuda.device(device):
         err = _library().pm_power_mel(
-            re, im, stride, rows, n_freq, mel_weights_t.data_ptr(), n_mels,
-            out.data_ptr(),
+            re, im, stride, rows, n_freq, plan.lo, plan.support,
+            *(t.data_ptr() for t in tables), n_mels, out.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     if err != 0:

@@ -4,6 +4,8 @@ A copy of ``audio_training_tpu/ops/mel.py:18-85``, kept here so the port
 imports nothing of the JAX package.  Parity target: the reference
 ``custommel.py:6-61`` (librosa's filterbank with a generalized mel break
 frequency).  Built once on the host; the featurizer moves it to the device.
+:func:`band_tables` is the port's own: the band layout that the mel kernels
+(``csrc/fused_featurizer.cu``, ``csrc/melspec.cu``) walk.
 """
 
 from __future__ import annotations
@@ -75,3 +77,22 @@ def mel_filterbank(
             "will produce empty responses (increase sr/fmax or reduce n_mels)."
         )
     return weights
+
+
+def band_tables(mel_weights) -> tuple[np.ndarray, ...]:
+    """Each filter's contiguous band ``[start, start + length)`` of bins,
+    from its first to its last non-zero weight, for the kernels that walk
+    the bands instead of the dense product: (start, length, offset into the
+    flat weights, the flat weights), int32 and float32.  ``mel_weights`` is
+    ``(n_mels, n_bins)``; an all-zero filter has length 0."""
+    starts, lengths, flat = [], [], []
+    for row in np.asarray(mel_weights, np.float32):
+        nz = np.flatnonzero(row)
+        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+        starts.append(lo)
+        lengths.append(hi - lo)
+        flat.append(row[lo:hi])
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    return (np.asarray(starts, np.int32), np.asarray(lengths, np.int32),
+            offsets.astype(np.int32),
+            np.concatenate(flat).astype(np.float32))

@@ -16,7 +16,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    differ), global relative error < 1e-5; bf16 output bitwise the cast of
    the f32 output; PCEN (absolute error < 1e-4); the power-mel kernel at
    the Predictor's n_fft=2048 shape (B=64 x 513 frames x 1025 bins x 160
-   mels), global relative error < 1e-5;
+   mels; a band walk over the bank's support), global relative error
+   < 1e-5;
 4. the paths, each with the launch counts zeroed just before and read just
    after: the badwinner2 serving chain at full width (normalize_rows ->
    fused featurizer, bf16 image -> BadWinner2 bf16, 62 labels, B=256,
@@ -76,7 +77,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    featurizer once at B=64, each with its counts; the per-clip min-max
    kernel bitwise its plain version, the folds at every tier against their
    plain versions at B=8 and B=256 (phase 3's, 6's and 7's limits; the
-   "default" tier's flip-free impulse check with the frontend fold alone),
+   "default" tier's flip-free impulse check with the frontend fold alone;
+   the exact tier's normalize fold bitwise the unfolded kernel on
+   normalize_rows' clips),
    the centered tensor-core tiers at B=64 and on the 28,100-sample clip;
    f32 logits at B=8 of the folded chain against the unfused chain
    (normalize_rows -> K1 -> BadWinner2 with its frontend, same weights,
@@ -87,7 +90,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    SASS of K3 (its HMMA instructions, by ``cuobjdump -sass``); the probe's
    ``main`` (the TPU probe's list) with launch counts, then ``pool3``; per
    shape the rate, the bound and ``torch.matmul`` of the same bf16
-   products.
+   products; per K4 mode one PyTorch call doing a launch's ops on views of
+   the input (``torch.roll``, the slice copies, a 3-lane ``amax``).
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -446,6 +450,14 @@ def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
                                               normalize_waveform=True)
             err = max(err, check_tier(got, want, tier,
                                       f"B={b} {tier} normalize fold"))
+            if tier == "highest":
+                # the folded sample is normalize_rows' sample bitwise, so the
+                # folded kernel's output is the unfolded one's on it
+                same = torch.equal(got, fzs[tier](normalize_rows(raw),
+                                                  pcen=False))
+                log(f"check B={b} highest normalize fold: bitwise the "
+                    f"unfolded kernel on normalize_rows' clips: {same}")
+                check(same, "the folded sample is not normalize_rows' sample")
             del got, want
             torch.cuda.empty_cache()
             fold_err[tier] = max(fold_err[tier], err)
@@ -522,18 +534,20 @@ def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
 
     def tables(f):
         return sum(t.numel() * t.element_size() for t in (
-            f.window, f.band_start, f.band_len, f.band_off, f.band_w,
-            *((f.d1_frag, f.op2_frag) if hasattr(f, "d1_frag")
-              else (f.stage_tw, f.post_tw))))
+            f.window, *((f.d1_frag, f.op2_frag, f.band_start, f.band_len,
+                         f.band_off, f.band_w) if hasattr(f, "d1_frag")
+                        else (f.fft_tw, f.post_tw, f.slot_w, f.slot_bin,
+                              f.piece_off, f.mel_piece_off))))
 
-    # per frame: the exact tier's radix-2 FFT, untangle, power and banded
+    # per frame: the exact tier's register FFT, untangle, power and banded
     # mel; the tensor-core tiers' stage 1 and 2 MAC (three passes at
     # bf16_3x) and power and banded mel in f32
     tc_macs = 32 * 32 * 128 + 32 * 256 * 64
 
     def frame_flops(tier):
         if tier == "highest":
-            return cfg.n_fft + 11 * 1024 * 10 + 19 * fz.n_bins + 2 * nnz, 0
+            return (cfg.n_fft + ffz.EXACT_FFT_FLOPS + 19 * fz.n_bins
+                    + 2 * nnz), 0
         passes = 3 if tier == "bf16_3x" else 1
         return cfg.n_fft + 3 * 1024 + 2 * nnz, passes * 2 * tc_macs
 
@@ -754,14 +768,27 @@ def probe_phase(dev, card) -> list[dict]:
         x = pm.shift_input(m, lanes, dev)
         plain_ms = time_ms(lambda: pm.shift_probe_plain(
             0.0, x, nops, grid, mode), iters=1, warmup=1)
+        # one PyTorch call doing a launch's nops x grid ops on views of x:
+        # torch.roll, the slice copies of shift1 and copyblk, pool3's
+        # maximum of each 3 lanes
+        xs = x.expand(nops * grid, m, lanes)
+        library = {
+            "roll": lambda: torch.roll(xs, -1, dims=-1),
+            "shift1": lambda: xs[..., 1:513].clone(),
+            "copyblk": lambda: xs[:, :192, :128].clone(),
+            "pool3": lambda: xs[..., :507].unflatten(-1, (169, 3)).amax(-1),
+        }[mode]
+        lib_ms = time_ms(library, iters=3)
+        torch.cuda.empty_cache()
         log(f"time probe shift[{mode}] ({m}x{lanes}, {nops} ops, grid "
             f"{grid}): {r['ms']:.4f} ms a launch, {r['ns_per_op']:.2f} ns/op; "
             f"bound {bnd[0]:.4f} ms ({bnd[1]}), roofline share "
-            f"{bnd[0] / r['ms']:.3f}; plain {plain_ms:.4f} ms {card}")
+            f"{bnd[0] / r['ms']:.3f}; plain {plain_ms:.4f} ms; library (one "
+            f"call over {nops * grid} views) {lib_ms:.4f} ms {card}")
         records.append(kernel_record(
             f"probe_shift_{mode}", PROBE_SOURCE, PROBE_SHIFT_TPU,
             main_counts[f"probe_shift_{mode}"], shift_err[mode], r["ms"],
-            plain_ms, bnd, None))
+            plain_ms, bnd, lib_ms))
     return records
 
 
@@ -1236,13 +1263,14 @@ def main() -> None:
     n_frames_total = BATCH * frames
     nnz = int((mel_np > 0).sum())
     n_bins = fz.n_bins
-    # per frame: window, 11 radix-2 passes of 1024 butterflies (10 flops),
-    # untangle + |X|^2 (19 flops a bin), banded mel (2 flops a non-zero)
-    mel_flops = n_frames_total * (cfg.n_fft + 11 * 1024 * 10
+    # per frame: window, the plan's 2048-point FFT (16 x 16 x 8 in
+    # registers, ffz.EXACT_FFT_FLOPS), untangle + |X|^2 (19 flops a bin),
+    # banded mel (2 flops a non-zero)
+    mel_flops = n_frames_total * (cfg.n_fft + ffz.EXACT_FFT_FLOPS
                                   + 19 * n_bins + 2 * nnz)
     table_bytes = sum(t.numel() * t.element_size() for t in (
-        fz.window, fz.stage_tw, fz.post_tw, fz.band_start, fz.band_len,
-        fz.band_off, fz.band_w))
+        fz.window, fz.fft_tw, fz.post_tw, fz.slot_w, fz.slot_bin,
+        fz.piece_off, fz.mel_piece_off))
     mel_bytes = raw.numel() * 4 + BATCH * n_mels * frames * 2 + table_bytes
 
     mel_ms = time_ms(lambda: fz(raw, pcen=False, out_dtype=torch.bfloat16))
@@ -1318,7 +1346,7 @@ def main() -> None:
     cen_plain_ms = time_ms(lambda: ffz.fused_featurizer_plain(
         raw64, mel_w, cfg.hop_length, center=True), iters=5)
     cen_lib_ms = time_ms(library_centered, iters=5)
-    cen_flops = WINDOW_BATCH * frames_c * (cfg.n_fft + 11 * 1024 * 10
+    cen_flops = WINDOW_BATCH * frames_c * (cfg.n_fft + ffz.EXACT_FFT_FLOPS
                                            + 19 * n_bins + 2 * nnz)
     cen_bytes = (raw64.numel() * 4 + WINDOW_BATCH * n_mels * frames_c * 4
                  + table_bytes)
@@ -1340,19 +1368,24 @@ def main() -> None:
     stft_ms = time_ms(lambda: stft_centered(raw64, cfg2.n_fft,
                                             cfg2.hop_length), iters=5)
     rows, n_freq = WINDOW_BATCH * spec64.shape[1], spec64.shape[2]
-    # what this data needs: |X|^2 (3 flops a bin) and 2 flops for each
-    # non-zero of the band-sparse bank; the kernel does the dense product
-    pm_flops = rows * (3 * n_freq + 2 * int((mel2_np > 0).sum()))
-    pm_dense_flops = rows * (3 * n_freq + 2 * n_freq * cfg2.n_mels)
-    pm_bytes = spec64.numel() * 8 + rows * cfg2.n_mels * 4 + w2_t.numel() * 4
+    # What this function needs: it reads only the bank's support bins of
+    # the complex STFT (the kernel reads nothing else of it), writes the f32
+    # mel and reads the band tables; |X|^2 (3 flops a support bin) and 2
+    # flops for each non-zero of the band-sparse bank.  Counting the whole
+    # spectrum's bytes would let the roofline share read over 1.
+    plan = melspec.band_walk_plan(np.ascontiguousarray(mel2_np.T))
+    nnz2 = len(plan.weights)
+    pm_flops = rows * (3 * plan.support + 2 * nnz2)
+    pm_bytes = (rows * plan.support * 8 + rows * cfg2.n_mels * 4
+                + (3 * cfg2.n_mels + nnz2) * 4)
     pm_bound_ms, pm_bound_by = bound_ms(pm_flops, pm_bytes)
-    log(f"time power mel kernel B={WINDOW_BATCH} ({rows} rows x {n_freq} bins "
-        f"x {cfg2.n_mels} mels): {pm_ms:.4f} ms, plain {pm_plain_ms:.4f} ms, "
+    log(f"time power mel kernel B={WINDOW_BATCH} ({rows} rows x {n_freq} bins, "
+        f"support {plan.support} bins from bin {plan.lo}, {nnz2} non-zeros, "
+        f"{cfg2.n_mels} mels): {pm_ms:.4f} ms, plain {pm_plain_ms:.4f} ms, "
         f"library matmul {pm_lib_ms:.4f} ms, bound {pm_bound_ms:.4f} ms "
-        f"({pm_bound_by}; {pm_flops / 1e9:.3f} GFLOP needed, "
+        f"({pm_bound_by}; {pm_flops / 1e9:.3f} GFLOP, "
         f"{pm_bytes / 1e6:.1f} MB), roofline share {pm_bound_ms / pm_ms:.3f}; "
-        f"dense product {pm_dense_flops / 1e9:.2f} GFLOP, its operations "
-        f"bound {pm_dense_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms; "
+        f"the whole spectrum's bytes {spec64.numel() * 8 / 1e6:.1f} MB; "
         f"stft_centered feeding it {stft_ms:.4f} ms {card}")
 
     # ---- the Predictor end to end --------------------------------------

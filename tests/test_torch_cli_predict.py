@@ -8,7 +8,11 @@ geometry of tests/test_infer.py::test_predictor_end_to_end, so the JAX
 Predictor runs K2 in interpret mode).  Tracks must match exactly; labels
 and tags exactly; confidences, rounded percentages of probabilities that
 agree to 1e-4, to within 1.  Each flag of the JAX CLI that the port does not
-take yet must exit non-zero naming its ROADMAP item.
+take yet must exit non-zero naming its ROADMAP item.  A MobileNetV2 run
+(PCEN frontend, 3 channels) loads through both packages' ``load_predictor``
+(the JAX side from an orbax checkpoint of the same Flax variables) and its
+per-track mean probabilities agree to 1e-4 of max |p|, the f32 tolerance of
+tests/test_torch_backbones.py.
 """
 
 import json
@@ -18,12 +22,15 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from audio_training_tpu.cli.predict import load_predictor as jax_load_predictor
 from audio_training_tpu.cli.predict import predict_file as jax_predict_file
 from audio_training_tpu.config import FeaturizerConfig as JaxConfig
 from audio_training_tpu.config import InferenceConfig as JaxInferenceConfig
 from audio_training_tpu.infer import Predictor as JaxPredictor
 from audio_training_tpu_torch.cli import predict
+from audio_training_tpu_torch.infer.windows import extract_track_windows
 from audio_training_tpu_torch.models.convert import (
+    backbone_classifier_state_dict_from_flax,
     badwinner2_state_dict_from_flax,
 )
 from audio_training_tpu_torch.train.checkpoints import (
@@ -31,6 +38,7 @@ from audio_training_tpu_torch.train.checkpoints import (
     save_state_dict,
 )
 
+from test_torch_backbones import flax_classifier
 from test_torch_badwinner2 import flax_variables
 
 torch.set_num_threads(2)
@@ -156,6 +164,59 @@ def test_loader_reads_the_port_weights_only(run, tmp_path):
         predict.weights_path(orbax, "val-loss")
     with pytest.raises(FileNotFoundError, match="no val-loss.pt"):
         predict.weights_path(tmp_path, "val-loss")
+
+
+@pytest.fixture(scope="module")
+def mobilenet_run(run, tmp_path_factory):
+    """A MobileNetV2 run dir in both packages' formats: the port's weights
+    file and an orbax checkpoint of the same Flax variables."""
+    import orbax.checkpoint as ocp
+
+    jcfg = JaxConfig(**CFG)
+    _, v = flax_classifier((1, jcfg.n_mels, jcfg.mel_frames, 3), "pcen",
+                           num_labels=len(LABELS))
+    run_dir = tmp_path_factory.mktemp("mobilenet")
+    save_state_dict(run_dir / "val-loss.pt",
+                    backbone_classifier_state_dict_from_flax(v))
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save((run_dir / "val-loss").resolve(),
+               {"params": v["params"], "batch_stats": v["batch_stats"],
+                "step": np.asarray(0)}, force=True)
+    ckptr.wait_until_finished()
+    meta = json.loads((run[0] / "metadata.txt").read_text())
+    meta.update(name="mobilenet", channels=3)
+    (run_dir / "metadata.txt").write_text(json.dumps(meta))
+    return run_dir
+
+
+def test_mobilenet_run_matches_jax_load_predictor(run, mobilenet_run,
+                                                  tmp_path):
+    """``load_predictor`` builds any registered model: a MobileNetV2 run's
+    per-track mean probabilities match the JAX CLI's loader's."""
+    paths = run[3]
+    pred, meta = predict.load_predictor(mobilenet_run, "val-loss",
+                                        device="cpu")
+    jpred, jmeta = jax_load_predictor(mobilenet_run, "val-loss")
+    assert meta["name"] == jmeta["name"] == "mobilenet"
+    assert pred.channels == jpred.channels == 3
+    frames = _recording(0, 1500)
+    tracks, _ = pred.predict_recording(frames, SR, threshold=0.5)
+    batch = extract_track_windows(
+        frames, SR, tracks, segment_length=pred.cfg.segment_length,
+        stride=pred.cfg.segment_stride, fmin=pred.cfg.fmin,
+        fmax=pred.cfg.fmax)
+    got, want = (p.predict_windows(batch.windows) for p in (pred, jpred))
+    per_track = [np.flatnonzero(batch.track_index == i)
+                 for i in range(len(tracks))]
+    assert sum(len(i) for i in per_track) == len(batch.windows) >= 2
+    got = np.stack([got[i].mean(0) for i in per_track])
+    want = np.stack([want[i].mean(0) for i in per_track])
+    assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
+    # and the CLI runs the run end to end
+    out = tmp_path / "out.json"
+    assert predict.main([str(mobilenet_run), "--file", str(paths[0]),
+                         "--json-out", str(out), "--device", "cpu"]) == 0
+    assert len(json.loads(out.read_text())[str(paths[0])]) == len(tracks)
 
 
 def test_needs_file_or_dir(run):

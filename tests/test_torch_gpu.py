@@ -15,7 +15,11 @@ featurizer's; the "default" (bf16) tier as stated above its test; the
 kernel, "bf16_3x_manual" bitwise equal to it; the PCEN -> MobileNetV2
 chain's f32 logits within 1e-4 of max |logit| of the plain featurizer's
 (and of the exact tier's, for "bf16_3x"), the folded gray stem's within
-1e-5; K1's folds at each tier as the tier's unfolded kernel (the "default"
+1e-5; the power-mel band walk on the mel banks of n_fft 512 / 1024 / 2048 x
+64 / 128 / 160 mels x FMAX 11 kHz / sr/2 as the dense plain version; the
+exact kernel's four fold instances at left_pad 0 and 2048, f32 and bf16,
+as the plain version (its normalize fold bitwise the unfolded kernel on
+normalize_rows' clips); K1's folds at each tier as the tier's unfolded kernel (the "default"
 tier's flip-free impulse check with the frontend fold alone: the normalize
 fold makes every sample in the clip non-zero), the folded badwinner2 chain's
 f32 logits within 1e-4 of max |logit| of the unfused chain's; the probe's
@@ -285,6 +289,36 @@ def test_power_mel_kernel_matches_plain(batch, frames, bins, mels):
                                         .transpose(1, 2), w_t)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmax", [11000.0, 24000.0])  # up to sr / 2
+@pytest.mark.parametrize("n_mels", [64, 128, 160])
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+def test_power_mel_band_walk_matches_plain(n_fft, n_mels, fmax):
+    """The band walk over the mel bank of each geometry, on 3 x 37 rows (a
+    ragged last tile), through both entries and a complex64 tensor whose
+    address is 8 bytes off the 16-byte grid."""
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig(n_fft=n_fft, n_mels=n_mels,
+                                           fmax=fmax))
+    w_t = torch.from_numpy(np.ascontiguousarray(w.T)).to(dev)
+    rng = np.random.default_rng(n_fft + n_mels)
+    re, im = (torch.from_numpy(rng.standard_normal(
+        (3, 37, w.shape[1])).astype(np.float32)).to(dev) for _ in range(2))
+    melspec.reset_launch_counts()
+    got = melspec.fused_power_mel(re, im, w_t)
+    want = melspec.power_mel_plain(re, im, w_t)
+    assert got.shape == (3, 37, n_mels)
+    assert _rel(got, want) < MEL_REL
+    spec = torch.complex(re, im)
+    assert torch.equal(melspec.fused_power_mel_complex(spec, w_t), got)
+    shifted = torch.empty(spec.numel() + 1, dtype=torch.complex64,
+                          device=dev)[1:].view(spec.shape)
+    shifted.copy_(spec)
+    assert shifted.data_ptr() % 16 == 8
+    assert torch.equal(melspec.fused_power_mel_complex(shifted, w_t), got)
+    assert melspec.launch_counts() == {"power_mel": 3}
+
+
 def _predictor(n_fft, dev):
     cfg = FeaturizerConfig(n_fft=n_fft)
     model = build_model("badwinner2", 7, logits_only=True,
@@ -479,6 +513,49 @@ def test_folded_kernels_match_plain(tier, fold):
         assert _rel(got, want) < X3_REL_TIERS[tier]
     assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16, **kw),
                        got.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("center", [False, True])
+@pytest.mark.parametrize("fold", ["none", "normalize", "frontend", "both"])
+def test_exact_kernel_instances_match_plain(fold, center, out_dtype):
+    """Each of mel_power_kernel's four fold instances at left_pad 0 and
+    2048, f32 or bf16 out, against fused_featurizer_plain (the folds with
+    the centered framing are no entry of the class, JAX's contract, so
+    that instance is launched through ``_launch``); the normalize fold's
+    output bitwise the unfolded kernel's on normalize_rows' clips."""
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig())
+    fz = ffz.FusedFeaturizer(w, center=center, device=dev)
+    norm = fold in ("normalize", "both")
+    fp = _frontend_params(2) if fold in ("frontend", "both") else None
+    frontend = None if fp is None else ffz.frontend_tables(fp, 160, dev)
+    rng = np.random.default_rng(7)
+    raw = torch.from_numpy((0.3 * rng.standard_normal((3, 144000)) + 0.2)
+                           .astype(np.float32)).to(dev)
+    if not norm:
+        raw = normalize_rows(raw)
+    ffz.reset_launch_counts()
+    got = fz._launch(raw, None, out_dtype, norm, frontend)
+    want_counts = dict.fromkeys(ffz.launch_counts(), 0)
+    want_counts[ffz.mel_counter("highest", center, fold != "none")] = 1
+    want_counts["clip_minmax"] = int(norm)
+    assert ffz.launch_counts() == want_counts
+    want = ffz.fused_featurizer_plain(
+        raw, fz.mel_weights, 281, center=center, normalize_waveform=norm,
+        frontend=frontend)
+    frames = 1 + 144000 // 281 if center else 513
+    assert got.shape == want.shape == (3, 160, frames)
+    assert got.dtype == out_dtype
+    if out_dtype == torch.float32:
+        assert _rel(got, want) < MEL_REL
+        if norm:
+            assert torch.equal(got, fz._launch(normalize_rows(raw), None,
+                                               out_dtype, False, frontend))
+    else:
+        f32 = fz._launch(raw, None, torch.float32, norm, frontend)
+        assert torch.equal(got, f32.to(torch.bfloat16))
 
 
 @pytest.mark.gpu

@@ -7,6 +7,7 @@ be bit-exact; the f32 ops agree to rtol 1e-5, with an absolute floor of
 
 import dataclasses
 import importlib
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,6 +68,28 @@ def test_config_copy_matches_jax():
     for const in ("SR", "NFFT", "HOP_LENGTH", "N_MELS", "SAMPLES_PER_CLIP",
                   "STFT_BINS", "MEL_FRAMES"):
         assert getattr(jax_config, const) == getattr(tconfig, const)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("InferenceConfig", {}),
+    ("InferenceConfig", {"bucket_sizes": (3, 9), "aggregation": "max"}),
+    ("FeaturizerConfig", {}),
+    ("FeaturizerConfig", {"sr": 8000, "n_fft": 512, "hop_length": 100,
+                          "n_mels": 96, "fmax": 3500.0, "htk": True}),
+])
+def test_config_json_round_trip_matches_jax(name, kw):
+    """A config written to JSON and read back by ``config_from_dict`` holds
+    the same fields with the same types in both packages: JSON's lists
+    become tuples again."""
+    jcls, tcls = getattr(jax_config, name), getattr(tconfig, name)
+    text = json.dumps(dataclasses.asdict(tcls(**kw)))
+    assert text == json.dumps(dataclasses.asdict(jcls(**kw)))
+    got = tconfig.config_from_dict(tcls, json.loads(text))
+    want = jax_config.config_from_dict(jcls, json.loads(text))
+    assert got == tcls(**kw)
+    for field in dataclasses.fields(tcls):
+        a, b = getattr(got, field.name), getattr(want, field.name)
+        assert a == b and type(a) is type(b), field.name
 
 
 @pytest.mark.parametrize("bad", [
