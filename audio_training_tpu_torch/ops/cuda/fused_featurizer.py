@@ -95,13 +95,16 @@ def _library() -> ctypes.CDLL:
         i32, i32, ptr, ptr, f32, ptr, i32, ptr,
     ]
     lib.ff_mel_power.restype = i32
-    lib.ff_mel_bf16.argtypes = [
-        ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, ptr, ptr, f32, ptr, i32, ptr,
+    tc_args = [
+        ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
+        i32, ptr, ptr, f32, ptr, i32, i32,
     ]
+    lib.ff_mel_bf16.argtypes = [*tc_args, ptr]
     lib.ff_mel_bf16.restype = i32
-    lib.ff_mel_bf16x3.argtypes = lib.ff_mel_bf16.argtypes
+    lib.ff_mel_bf16x3.argtypes = [*tc_args, ptr, ptr]  # and the scratch
     lib.ff_mel_bf16x3.restype = i32
+    lib.ff_tc_config.argtypes = [i32, ptr, ptr, ptr, ptr]
+    lib.ff_tc_config.restype = i32
     lib.ff_clip_minmax.argtypes = [ptr, i32, i32, ptr, ptr]
     lib.ff_clip_minmax.restype = i32
     lib.ff_pcen.argtypes = [
@@ -130,16 +133,17 @@ def _check(err: int, what: str) -> None:
 # index maps below are the kernel's, in float2 elements of a frame's buffer.
 # ---------------------------------------------------------------------------
 
-FFT_THREADS = 128  # threads of one frame's FFT
+FFT_THREADS = 128  # threads of one frame's FFT; slices of every mel walk
 X1_STRIDE = 17  # exchange 1, padded so each half-warp hits 16 banks
-# A block stages (frames - 1) * hop + 4096 samples of its clip, at most
-# SPAN_CAP, in two halves: even samples at ev[j], odd ones at od[j]
+# A block of any mel kernel stages (frames - 1) * hop + 4096 samples of its
+# clip, at most SPAN_CAP: the exact kernel in two halves, even samples at
+# ev[j], odd ones at od[j]; the tensor-core kernels in one run (span_pos)
 SPAN_CAP = 8448
 FRAMES_PER_BLOCK = 16
 
 
-def exact_frames_per_block(hop: int) -> int:
-    """Frames a block of the exact kernel takes at this hop."""
+def frames_per_block(hop: int) -> int:
+    """Frames a block of the mel kernels takes at this hop."""
     return min(FRAMES_PER_BLOCK, 1 + (SPAN_CAP - N_FFT) // hop)
 
 
@@ -172,59 +176,56 @@ def fft_plan_tables() -> tuple[np.ndarray, np.ndarray]:
     return tw1[0] + 1j * tw1[1], tw2[0] + 1j * tw2[1]
 
 
-def mel_pieces(start: np.ndarray, length: np.ndarray, offset: np.ndarray,
-               threads: int = FFT_THREADS) -> tuple[np.ndarray, ...]:
-    """The exact kernel's balanced mel walk over a bank's bands
-    (:func:`ops.mel.band_tables`): the non-zeros, flattened in mel order,
-    cut into ``threads`` equal slices, each slice into pieces that lie in
-    one filter's band.  Returns ``pieces`` (P, 3) int32 rows (flat start,
-    count, first bin), ``piece_off`` (threads + 1,): thread t walks
-    pieces ``piece_off[t]:piece_off[t + 1]``, and ``mel_piece_off`` (M +
-    1,): filter m's mel is the sum of pieces ``mel_piece_off[m]:
-    mel_piece_off[m + 1]`` in order (none for an empty filter)."""
-    nnz = int(length.sum())
-    ends = offset + length
-    pieces, mel_of, piece_off = [], [], [0]
+def slot_walk(mel_of: np.ndarray, pos: np.ndarray, weights: np.ndarray,
+              n_mels: int, threads: int = FFT_THREADS
+              ) -> tuple[np.ndarray, ...]:
+    """A balanced walk over a bank's non-zeros listed in filter order:
+    entry i is weight ``weights[i]`` of filter ``mel_of[i]`` at position
+    ``pos[i]`` of the kernel's power row.  The entries are cut into
+    ``threads`` equal slices, each slice into pieces of one filter.  Thread
+    t walks its slice as ``slot_w[:, t]`` (the weights, 0 past the slice)
+    and ``slot_pos[:, t]`` (the positions, bit 16 set where a new piece
+    starts), ``n_slots`` a multiple of 4 rows; its pieces are
+    ``piece_off[t]:piece_off[t + 1]``, and filter m's mel is the sum of
+    pieces ``mel_piece_off[m]:mel_piece_off[m + 1]`` in order (none for a
+    filter without entries)."""
+    mel_of = np.asarray(mel_of, np.int64)
+    cuts = np.arange(threads + 1) * len(mel_of) // threads
+    n_slots = max(4, -(-int(np.diff(cuts).max()) // 4) * 4)
+    slot_w = np.zeros((n_slots, threads), np.float32)
+    slot_pos = np.zeros((n_slots, threads), np.int32)
+    piece_mel, piece_off = [], [0]
     for t in range(threads):
-        i, hi = t * nnz // threads, (t + 1) * nnz // threads
-        while i < hi:
-            m = int(np.flatnonzero((offset <= i) & (i < ends))[0])
-            end = min(hi, int(ends[m]))
-            pieces.append((i, end - i, int(start[m]) + i - int(offset[m])))
-            mel_of.append(m)
-            i = end
-        piece_off.append(len(pieces))
-    mel_piece_off = np.searchsorted(np.asarray(mel_of, np.int64),
-                                    np.arange(len(start) + 1))
-    return (np.asarray(pieces, np.int32).reshape(-1, 3),
-            np.asarray(piece_off, np.int32),
+        lo, hi = cuts[t], cuts[t + 1]
+        slot_w[:hi - lo, t] = weights[lo:hi]
+        slot_pos[:hi - lo, t] = pos[lo:hi]
+        new = np.flatnonzero(np.diff(mel_of[lo:hi])) + 1
+        slot_pos[new, t] |= 1 << 16
+        if hi > lo:
+            piece_mel += [mel_of[lo], *mel_of[lo + new]]
+        piece_off.append(len(piece_mel))
+    mel_piece_off = np.searchsorted(np.asarray(piece_mel, np.int64),
+                                    np.arange(n_mels + 1))
+    return (slot_w, slot_pos, np.asarray(piece_off, np.int32),
             mel_piece_off.astype(np.int32))
 
 
-def mel_slots(start: np.ndarray, length: np.ndarray, offset: np.ndarray,
-              flat: np.ndarray,
+def bank_entries(start: np.ndarray, length: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(filter, bin) of each non-zero of a bank's bands
+    (:func:`ops.mel.band_tables`), in filter order."""
+    mel_of = np.repeat(np.arange(len(start)), length)
+    bins = np.concatenate([np.arange(s, s + n) for s, n in zip(start, length)]
+                          + [np.zeros(0, np.int64)])
+    return mel_of, bins
+
+
+def mel_slots(start: np.ndarray, length: np.ndarray, flat: np.ndarray,
               threads: int = FFT_THREADS) -> tuple[np.ndarray, ...]:
-    """:func:`mel_pieces` as the kernel walks them: thread t's slice as
-    ``slot_w[:, t]`` (the weights, 0 past the slice) and ``slot_bin[:, t]``
-    (the bins, bit 16 set where a new piece starts), ``n_slots`` a multiple
-    of 4 rows; with ``piece_off`` and ``mel_piece_off``."""
-    pieces, piece_off, mel_piece_off = mel_pieces(start, length, offset,
-                                                  threads)
-    counts = [int(pieces[piece_off[t]:piece_off[t + 1], 1].sum())
-              for t in range(threads)]
-    n_slots = max(4, -(-max(counts) // 4) * 4)
-    slot_w = np.zeros((n_slots, threads), np.float32)
-    slot_bin = np.zeros((n_slots, threads), np.int32)
-    for t in range(threads):
-        j = 0
-        for p in range(piece_off[t], piece_off[t + 1]):
-            fs, n, b0 = pieces[p]
-            slot_w[j:j + n, t] = flat[fs:fs + n]
-            slot_bin[j:j + n, t] = b0 + np.arange(n)
-            if p > piece_off[t]:
-                slot_bin[j, t] |= 1 << 16
-            j += n
-    return slot_w, slot_bin, piece_off, mel_piece_off
+    """The exact kernel's balanced mel walk: the :func:`slot_walk` of the
+    bank's bands over the bins (``slot_pos`` is the bin)."""
+    mel_of, bins = bank_entries(start, length)
+    return slot_walk(mel_of, bins, flat, len(start), threads)
 
 
 def _dif_flops(n: int) -> int:
@@ -496,24 +497,131 @@ def dft_fragments_x3() -> tuple[np.ndarray, np.ndarray]:
     return d1, op2
 
 
+# ---------------------------------------------------------------------------
+# The tensor-core kernels' layouts (csrc/fused_featurizer.cu): the
+# operator ring's chunk order, the power tiles and the balanced walks over
+# them.  A block takes one clip and frames_per_block(hop) frames at a time;
+# blocks run in clusters of TC_CLUSTER clips, each block copying its
+# 1/TC_CLUSTER of every RING_CHUNK-byte chunk of the stage-2 operator's re
+# rows to all of them.
+# ---------------------------------------------------------------------------
+
+TC_CLUSTER = 2
+TC_FRAMES = 16  # frames a block takes at once (one m16 tile)
+RING_CHUNK = 16384  # bytes
+# The "bf16_3x" kernel's halves: entry e of half h is k1 = X3_K1[h, e]; warp
+# w takes entry w + 8 r in round r
+X3_K1 = np.array([[*range(8), 16, *range(25, 32)],
+                  [*range(8, 16), *range(17, 25)]])
+
+
+def span_pos(j):
+    """Word of sample j of a tensor-core block's staged span: 8 words of
+    padding every 256 samples, so that a warp's fragment loads (8
+    consecutive samples at 4 strides of 256) hit 32 banks."""
+    return j + 8 * (j >> 8)
+
+
+def tc_power_pos(k):
+    """Bin k's place in a frame's row of the ``"default"`` kernel's bf16
+    power tile: 2 of padding every 64 bins (rows of 1064), so that each
+    scatter store (frames g, g + 8, bins 64 t + const) hits 32 banks."""
+    return k + 2 * (k >> 6)
+
+
+def x3_power_pos(k2, e):
+    """(k2, entry e)'s place in a frame's row of the ``"bf16_3x"`` kernel's
+    f32 half-power tile: rows of 17 by k2 // 2, odd k2 after even ones
+    (rows of 548), so that each scatter store hits 32 banks."""
+    return (k2 & 1) * 272 + (k2 >> 1) * 17 + e
+
+
+def ring_chunks(op2: np.ndarray) -> np.ndarray:
+    """The ``"default"`` kernel's stage-2 B fragments (32 k1, 16 k-steps, 8
+    n-tiles, 32 lanes, 2) in its ring's order.  Only the re rows travel
+    (k-steps 0..7): the im rows' fragments are the re rows' with each
+    n-tile pair swapped and signed (:func:`stage2_operator`: -s im, s
+    re).  Chunk 8 r + ks holds k-step ks of k1 = w + 8 r for warps w =
+    0..7, (8 warps, 8 n-tiles, 32 lanes, 2) uint32, 16 KB."""
+    return np.ascontiguousarray(
+        op2[:, :8].reshape(4, 8, 8, 8, 32, 2).transpose(0, 2, 1, 3, 4, 5))
+
+
+def ring_chunks_x3(op2: np.ndarray) -> np.ndarray:
+    """The ``"bf16_3x"`` kernel's stage-2 B fragments (32 k1, 16 k-steps, 8
+    n-tiles, 32 lanes, 4) in its ring's order, the re rows only as in
+    :func:`ring_chunks`: chunk ((2 h + r) 8 + ks) 2 + jh holds k-step ks,
+    n-tiles 4 jh..4 jh + 3 of k1 = X3_K1[h, w + 8 r] for warps w = 0..7, (8
+    warps, 4 n-tiles, 32 lanes, 4) uint32, 16 KB."""
+    t = op2[X3_K1.reshape(2, 2, 8), :8]  # (h, r, w, ks, j, lane, 4)
+    t = t.reshape(2, 2, 8, 8, 2, 4, 32, 4)  # j -> (jh, j)
+    return np.ascontiguousarray(t.transpose(0, 1, 3, 4, 2, 5, 6, 7))
+
+
+def tc_walk(start: np.ndarray, length: np.ndarray, flat: np.ndarray
+            ) -> tuple[np.ndarray, ...]:
+    """The ``"default"`` kernel's walk: the bank's bands over its power
+    tile (:func:`tc_power_pos`), with the weights rounded to bf16."""
+    mel_of, bins = bank_entries(start, length)
+    return slot_walk(mel_of, tc_power_pos(bins), round_bf16(flat),
+                     len(start))
+
+
+def x3_walk(start: np.ndarray, length: np.ndarray, flat: np.ndarray
+            ) -> tuple[np.ndarray, ...]:
+    """The ``"bf16_3x"`` kernel's walks, one per half, stacked (2, ...):
+    half h walks the bank's non-zeros whose bin k1 + 32 k2 has k1 in
+    X3_K1[h], over its half-power tile (:func:`x3_power_pos`), with f32
+    weights; both halves have the same number of slots."""
+    mel_of, bins = bank_entries(start, length)
+    entry = np.full((2, R1), -1)
+    for h in range(2):
+        entry[h, X3_K1[h]] = np.arange(16)
+    walks = []
+    for h in range(2):
+        keep = entry[h, bins % R1] >= 0
+        walks.append(slot_walk(
+            mel_of[keep],
+            x3_power_pos(bins[keep] // R1, entry[h, bins[keep] % R1]),
+            flat[keep], len(start)))
+    n_slots = max(w[0].shape[0] for w in walks)
+    return tuple(np.stack([
+        np.pad(w[i], ((0, n_slots - w[i].shape[0]), (0, 0))) if i < 2 else w[i]
+        for w in walks]) for i in range(4))
+
+
 class _Tier(NamedTuple):
     """A tensor-core tier's kernel: its C entry point, its launch counter,
-    its operator fragments and whether its mel weights are rounded to
-    bf16."""
+    its operator fragments, their ring order, its walk, and whether it
+    keeps partial mels in a scratch (16 x n_mels f32 a block)."""
     entry: str
     counter: str
     fragments: Callable[[], tuple[np.ndarray, np.ndarray]]
-    bf16_mel: bool
+    ring: Callable[[np.ndarray], np.ndarray]
+    walk: Callable[..., tuple[np.ndarray, ...]]
+    scratch: bool
 
 
 # the tiers other than the exact "highest"; both 3x names launch one kernel
 _TENSOR_CORE = {
     "default": _Tier("ff_mel_bf16", "fused_featurizer_mel_bf16",
-                     dft_fragments, True),
+                     dft_fragments, ring_chunks, tc_walk, False),
     "bf16_3x": _Tier("ff_mel_bf16x3", "fused_featurizer_mel_bf16x3",
-                     dft_fragments_x3, False),
+                     dft_fragments_x3, ring_chunks_x3, x3_walk, True),
 }
 _TENSOR_CORE["bf16_3x_manual"] = _TENSOR_CORE["bf16_3x"]
+
+
+def tc_launch_config(precision: str) -> dict[str, int]:
+    """A tensor-core tier's launch shape on the current card (builds the
+    library): blocks a cluster, threads a block, dynamic shared memory a
+    block in bytes, and how many such clusters the card holds at once."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    _check(_library().ff_tc_config(int(precision != "default"),
+                                   *map(ctypes.byref, vals)),
+           f"{precision} cluster query")
+    return dict(zip(("cluster", "threads", "smem_bytes", "active_clusters"),
+                    (v.value for v in vals)))
 
 
 def mel_counter(precision: str, center: bool = False,
@@ -665,14 +773,17 @@ class FusedFeaturizer:
             np.asarray(mel_weights, np.float32), device=device
         )
         self.device = self.mel_weights.device  # "cuda" resolved to "cuda:N"
-        start, length, offset, flat = band_tables(mel_weights)
+        start, length, _, flat = band_tables(mel_weights)
         self.n_bins = int((start + length).max())
         to_dev = functools.partial(torch.as_tensor, device=self.device)
-        self.band_start, self.band_len = to_dev(start), to_dev(length)
-        self.band_off, self.band_w = to_dev(offset), to_dev(flat)
-        # the exact tier's balanced mel walk
-        self.slot_w, self.slot_bin, self.piece_off, self.mel_piece_off = (
-            to_dev(t) for t in mel_slots(start, length, offset, flat))
+        tier = _TENSOR_CORE.get(precision)
+        # the tier's balanced mel walk: the exact tier's over the bins, a
+        # tensor-core tier's over its power tile
+        walk = (mel_slots(start, length, flat) if tier is None
+                else tier.walk(start, length, flat))
+        self.slot_w, self.slot_pos, self.piece_off, self.mel_piece_off = (
+            to_dev(t) for t in walk)
+        self.n_slots = walk[0].shape[-2]
         self.window = to_dev(hann_window(N_FFT))
         # the exact tier's inter-pass twiddles: W2048^(b c) at c * 128 + b,
         # then W128^(g h) at 2048 + g * 16 + h; the untangle's
@@ -683,15 +794,24 @@ class FusedFeaturizer:
         self.post_tw = _complex_table(
             np.exp(-2j * np.pi * np.arange(MAX_BINS) / N_FFT), self.device
         )
-        tier = _TENSOR_CORE.get(precision)
         if tier is not None:
-            # the tier's operators in fragment order (stage 2: 1 MB for
-            # "default", 2 MB of hi/lo for "bf16_3x")
+            # the tier's operators in fragment order, stage 2's re rows in
+            # its ring's chunk order (512 KB for "default", 1 MB of hi/lo
+            # for "bf16_3x")
             d1, op2 = tier.fragments()
             self.d1_frag = to_dev(d1.view(np.int32))
-            self.op2_frag = to_dev(op2.view(np.int32))
-            if tier.bf16_mel:
-                self.band_w = to_dev(round_bf16(flat))
+            self.op2_ring = to_dev(tier.ring(op2).view(np.int32))
+        self.tc_config = None  # a tensor-core tier's, at its first launch
+
+    def table_bytes(self) -> int:
+        """Bytes of the tables this tier's mel kernel reads: the window, the
+        operators (tensor-core tiers) or the FFT twiddles (the exact
+        tier), and the mel walk."""
+        tables = ((self.d1_frag, self.op2_ring) if hasattr(self, "op2_ring")
+                  else (self.fft_tw, self.post_tw))
+        return sum(t.numel() * t.element_size() for t in (
+            self.window, *tables, self.slot_w, self.slot_pos, self.piece_off,
+            self.mel_piece_off))
 
     def __call__(
         self,
@@ -755,6 +875,7 @@ class FusedFeaturizer:
             raise ValueError(f"no kernel for device {raw.device}")
         if not raw.is_contiguous():
             raise ValueError("raw must be contiguous")
+        tier = _TENSOR_CORE.get(self.precision)
         batch, samples = raw.shape
         if not 0 < batch <= 65535:
             raise ValueError(f"batch {batch} outside the kernel's grid")
@@ -770,25 +891,31 @@ class FusedFeaturizer:
         fe_g, fe = (0.0, None) if frontend is None else frontend
         fold_args = (None if norm is None else norm.data_ptr(),
                      None if fe is None else fe.data_ptr(), fe_g)
-        tier = _TENSOR_CORE.get(self.precision)
+        walk = (self.slot_w.data_ptr(), self.slot_pos.data_ptr(),
+                self.n_slots, self.piece_off.data_ptr(),
+                self.mel_piece_off.data_ptr(), self.n_mels)
         with torch.cuda.device(raw.device):
             if tier is not None:
+                if self.tc_config is None:
+                    self.tc_config = tc_launch_config(self.precision)
+                clusters = self.tc_config["active_clusters"]
+                scratch = []
+                if tier.scratch:  # held until the launch is queued
+                    part = torch.empty(
+                        clusters * self.tc_config["cluster"] * TC_FRAMES
+                        * self.n_mels, device=raw.device)
+                    scratch = [part.data_ptr()]
                 err = getattr(_library(), tier.entry)(
                     raw.data_ptr(), batch, samples, self.hop, left_pad,
                     frames, self.window.data_ptr(), self.d1_frag.data_ptr(),
-                    self.op2_frag.data_ptr(), self.band_start.data_ptr(),
-                    self.band_len.data_ptr(), self.band_off.data_ptr(),
-                    self.band_w.data_ptr(), self.n_mels, *fold_args,
+                    self.op2_ring.data_ptr(), *walk, *fold_args,
                     mel.data_ptr(), int(mel_dtype == torch.bfloat16),
-                    _stream())
+                    clusters, *scratch, _stream())
             else:
                 err = _library().ff_mel_power(
                     raw.data_ptr(), batch, samples, self.hop, left_pad,
                     frames, self.window.data_ptr(), self.fft_tw.data_ptr(),
-                    self.post_tw.data_ptr(), self.slot_w.data_ptr(),
-                    self.slot_bin.data_ptr(), self.slot_w.shape[0],
-                    self.piece_off.data_ptr(), self.mel_piece_off.data_ptr(),
-                    self.n_mels, self.n_bins,
+                    self.post_tw.data_ptr(), *walk, self.n_bins,
                     *fold_args, mel.data_ptr(),
                     int(mel_dtype == torch.bfloat16), _stream())
         _check(err, f"{self.precision} mel")

@@ -268,6 +268,37 @@ def impulse_batch(batch: int, samples: int, seed: int):
     return x
 
 
+def ptxas_kernels(log: str) -> list[tuple[str, str]]:
+    """(kernel, registers / shared memory / spills) of each entry in an
+    ``nvcc -Xptxas -v`` log; a kernel is named with its fold template
+    arguments, e.g. ``mel_bf16_kernel<1,0>``."""
+    import re
+
+    def name_of(mangled: str) -> str:
+        # the length-prefixed identifier ending in _kernel
+        for m in re.finditer("_kernel", mangled):
+            for start in range(m.end() - 8, 0, -1):
+                ident = mangled[start:m.end()]
+                size = str(len(ident))
+                if ident[0].isalpha() and mangled[:start].endswith(size):
+                    folds = re.match(r"ILb([01])ELb([01])E", mangled[m.end():])
+                    return ident + (f"<{folds[1]},{folds[2]}>" if folds
+                                    else "")
+        return mangled
+
+    out, name, props = [], None, []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name, props = name_of(entry.group(1)), []
+        elif name and ("spill" in line or "registers" in line):
+            props.append(line.replace("ptxas info    :", "").strip())
+            if "registers" in line:
+                out.append((name, "; ".join(props)))
+                name = None
+    return out
+
+
 def bound_ms(fp32_flops: float, nbytes: float,
              bf16_flops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take for the work: its operations (the
@@ -475,6 +506,38 @@ def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
         check(rel < BF16_FLIP_FREE_REL, "default frontend fold disagrees")
         fold_err["default"] = max(fold_err["default"], err)
 
+    # the tensor-core tiers where a cluster of TC_CLUSTER clips is padded
+    # (B=7) and on the short clip (100 frames: a 4-frame last block), tf
+    # framing, against their plain versions, one launch each
+    for raw in (normalize_rows(clips(7)), normalize_rows(torch.randn(
+            4, SHORT_CLIP, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1)))):
+        for tier in tiers[1:]:
+            torch.cuda.synchronize()
+            ffz.reset_launch_counts()
+            got = fzs[tier](raw, pcen=False)
+            torch.cuda.synchronize()
+            check(expect(ffz.launch_counts(), **{ffz.mel_counter(tier): 1}),
+                  f"the {tier} tier did not launch its kernel alone")
+            want = ffz.fused_featurizer_plain(raw, mel_w, hop, precision=tier)
+            check(got.shape == (raw.shape[0], n_mels,
+                                -(-raw.shape[1] // hop)),
+                  f"{tier} shape {tuple(got.shape)}")
+            check_tier(got, want, tier,
+                       f"B={raw.shape[0]} x {raw.shape[1]} {tier}")
+            cast = torch.equal(fzs[tier](raw, pcen=False,
+                                         out_dtype=torch.bfloat16),
+                               got.to(torch.bfloat16))
+            check(cast, f"{tier} bf16 output is not the cast")
+    imp = torch.as_tensor(impulse_batch(7, cfg.samples_per_clip, SEED + 7),
+                          device=dev)
+    _, rel, _ = rel_rms(fzs["default"](imp, pcen=False),
+                          ffz.fused_featurizer_plain(imp, mel_w, hop,
+                                                     precision="default"))
+    log(f"check B=7 default tier on impulses (no rounding can flip): global "
+        f"rel err {rel:.3e} (limit {BF16_FLIP_FREE_REL})")
+    check(rel < BF16_FLIP_FREE_REL, "default tier disagrees on impulses")
+
     cen_err = dict.fromkeys(tiers[1:], 0.0)
     for raw in (raw64, normalize_rows(torch.randn(
             4, SHORT_CLIP, device=dev,
@@ -532,13 +595,6 @@ def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
                           pad_mode="constant", return_complex=True)
         return torch.matmul(mel_w, spec.real**2 + spec.imag**2)
 
-    def tables(f):
-        return sum(t.numel() * t.element_size() for t in (
-            f.window, *((f.d1_frag, f.op2_frag, f.band_start, f.band_len,
-                         f.band_off, f.band_w) if hasattr(f, "d1_frag")
-                        else (f.fft_tw, f.post_tw, f.slot_w, f.slot_bin,
-                              f.piece_off, f.mel_piece_off))))
-
     # per frame: the exact tier's register FFT, untangle, power and banded
     # mel; the tensor-core tiers' stage 1 and 2 MAC (three passes at
     # bf16_3x) and power and banded mel in f32
@@ -587,7 +643,7 @@ def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
         extra = 7 * raw256.numel() + 5 * BATCH * n_mels * frames
         bnd = bound_ms(BATCH * frames * f32_ops + extra,
                        raw256.numel() * 4 + BATCH * n_mels * frames * 2
-                       + tables(f) + n_mels * 8 + BATCH * 8,
+                       + f.table_bytes() + n_mels * 8 + BATCH * 8,
                        BATCH * frames * tc_ops)
         log(f"time folded {tier} featurizer (min-max + mel with both folds, "
             f"bf16 out) B={BATCH}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
@@ -612,7 +668,7 @@ def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
         f32_ops, tc_ops = frame_flops(tier)
         bnd = bound_ms(WINDOW_BATCH * frames_c * f32_ops,
                        raw64.numel() * 4 + WINDOW_BATCH * n_mels * frames_c * 4
-                       + tables(f), WINDOW_BATCH * frames_c * tc_ops)
+                       + f.table_bytes(), WINDOW_BATCH * frames_c * tc_ops)
         log(f"time centered {tier} mel kernel (f32 out) B={WINDOW_BATCH}: "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library stft(center) + "
             f"matmul {l_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
@@ -825,9 +881,13 @@ def main() -> None:
     build.build_libraries(names)
     log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
     for name in names:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, props in ptxas_kernels(build.build_log(name)):
+            log(f"  ptxas {name} {kernel}: {props}")
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+
+    for tier in ("default", "bf16_3x"):
+        log(f"  launch {tier} tier: {ffz.tc_launch_config(tier)} "
+            f"(clusters of (1, cluster) blocks along the clips)")
 
     from audio_training_tpu_torch.config import FeaturizerConfig
     from audio_training_tpu_torch.detect import (
@@ -835,7 +895,6 @@ def main() -> None:
     from audio_training_tpu_torch.infer import Predictor, extract_track_windows
     from audio_training_tpu_torch.infer.fused import make_fused_infer_fn
     from audio_training_tpu_torch.models import build_model
-    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
     from audio_training_tpu_torch.ops.cuda import melspec
     from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
     from audio_training_tpu_torch.ops.features import (
@@ -1268,9 +1327,7 @@ def main() -> None:
     # banded mel (2 flops a non-zero)
     mel_flops = n_frames_total * (cfg.n_fft + ffz.EXACT_FFT_FLOPS
                                   + 19 * n_bins + 2 * nnz)
-    table_bytes = sum(t.numel() * t.element_size() for t in (
-        fz.window, fz.fft_tw, fz.post_tw, fz.slot_w, fz.slot_bin,
-        fz.piece_off, fz.mel_piece_off))
+    table_bytes = fz.table_bytes()
     mel_bytes = raw.numel() * 4 + BATCH * n_mels * frames * 2 + table_bytes
 
     mel_ms = time_ms(lambda: fz(raw, pcen=False, out_dtype=torch.bfloat16))
@@ -1447,9 +1504,7 @@ def main() -> None:
     # x 256 x 64 MAC), |X|^2 (3 flops a bin), banded mel (2 a non-zero)
     bf16_frame_flops = (2 * 32 * 32 * 128 + 2 * 32 * 256 * 64 + 3 * 1024
                         + 2 * nnz)
-    bf16_tables = sum(t.numel() * t.element_size() for t in (
-        fz16.window, fz16.d1_frag, fz16.op2_frag, fz16.band_start,
-        fz16.band_len, fz16.band_off, fz16.band_w))
+    bf16_tables = fz16.table_bytes()
     bf16_bound = {}
     for b in (TRAIN_BATCH, BATCH):
         flops = b * frames * bf16_frame_flops
@@ -1684,9 +1739,7 @@ def main() -> None:
     # in f32 on the CUDA cores
     x3_tc_flops = x3_frames * 3 * 2 * (32 * 32 * 128 + 32 * 256 * 64)
     x3_f32_flops = x3_frames * (cfg.n_fft + 3 * 1024 + 2 * nnz)
-    x3_tables = sum(t.numel() * t.element_size() for t in (
-        fz3.window, fz3.d1_frag, fz3.op2_frag, fz3.band_start, fz3.band_len,
-        fz3.band_off, fz3.band_w))
+    x3_tables = fz3.table_bytes()
     x3_bytes = (raw512.numel() * 4 + BATCH_PCEN * n_mels * frames * 4
                 + x3_tables)
     x3_bound_ms, x3_bound_by = bound_ms(x3_f32_flops, x3_bytes, x3_tc_flops)
@@ -1696,6 +1749,22 @@ def main() -> None:
         f"({x3_bound_by}; {x3_tc_flops / 1e9:.2f} GFLOP at the bf16 peak + "
         f"{x3_f32_flops / 1e9:.2f} GFLOP f32, {x3_bytes / 1e6:.1f} MB), "
         f"roofline share {x3_bound_ms / x3_ms:.3f} {card}")
+
+    # the "default" tier at the official line's batch (f32 out: the PCEN
+    # epilogue's input); the library call is the one timed above
+    d512_ms = time_ms(lambda: fz16(raw512, pcen=False))
+    d512_plain_ms = time_ms(lambda: ffz.fused_featurizer_plain(
+        raw512, mel_w, cfg.hop_length, precision="default"), iters=2,
+        warmup=1)
+    torch.cuda.empty_cache()
+    d512_flops = BATCH_PCEN * frames * bf16_frame_flops
+    d512_bound = bound_ms(0.0, raw512.numel() * 4
+                          + BATCH_PCEN * n_mels * frames * 4
+                          + fz16.table_bytes(), d512_flops)
+    log(f"time bf16-tier mel kernel (f32 out) B={BATCH_PCEN}: {d512_ms:.4f} "
+        f"ms, plain {d512_plain_ms:.4f} ms, library stft+matmul "
+        f"{x3_lib_ms:.4f} ms, bound {d512_bound[0]:.4f} ms ({d512_bound[1]}"
+        f"), roofline share {d512_bound[0] / d512_ms:.3f} {card}")
 
     # the chain per tier, and its split into featurizer and CNN
     mn_mel = {t: make_mel_fn(cfg, device=dev, pcen=True, precision=t,
@@ -1808,6 +1877,11 @@ def main() -> None:
                       TPU_KERNEL,
                       mn_counts["bf16_3x"]["fused_featurizer_mel_bf16x3"],
                       x3_err, x3_ms, x3_plain_ms, (x3_bound_ms, x3_bound_by),
+                      x3_lib_ms),
+        kernel_record("fused_featurizer_mel_bf16 at B=512", KERNEL_SOURCE,
+                      TPU_KERNEL,
+                      mn_counts["default"]["fused_featurizer_mel_bf16"],
+                      bf16_err, d512_ms, d512_plain_ms, d512_bound,
                       x3_lib_ms),
     ]
     # ---- 8. the folded badwinner2 chain; 9. the megakernel probe --------

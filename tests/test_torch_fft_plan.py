@@ -101,7 +101,7 @@ def test_plan_model_matches_numpy_fft(samples, hop, left_pad, block):
     clip = np.random.default_rng(hop + block).standard_normal(samples)
     window = hann_window(4096).astype(np.float64)
     n_frames = (1 + samples // hop if left_pad else -(-samples // hop))
-    fpb = ffz.exact_frames_per_block(hop)
+    fpb = ffz.frames_per_block(hop)
     t_base = block * fpb
     n_valid = min(fpb, n_frames - t_base)
     assert n_valid >= 1
@@ -172,9 +172,40 @@ def test_plan_constants():
     assert (tw1[:, 0] == 1).all() and tw1[8, 64] == -1j  # exact
     assert ffz.EXACT_FFT_FLOPS == 82432
     for hop in (1, 160, 281, 313, 4096, 10000):
-        fpb = ffz.exact_frames_per_block(hop)
+        fpb = ffz.frames_per_block(hop)
         assert 1 <= fpb <= 16 and (fpb - 1) * hop + 4096 <= ffz.SPAN_CAP
-    assert ffz.exact_frames_per_block(281) == 16
+    assert ffz.frames_per_block(281) == 16
+
+
+def _mel_pieces(start: np.ndarray, length: np.ndarray, offset: np.ndarray,
+               threads: int = ffz.FFT_THREADS) -> tuple[np.ndarray, ...]:
+    """The exact kernel's balanced mel walk as pieces, the reference that
+    ``mel_slots`` is held to: the non-zeros of a bank's bands
+    (:func:`ops.mel.band_tables`), flattened in mel order,
+    cut into ``threads`` equal slices, each slice into pieces that lie in
+    one filter's band.  Returns ``pieces`` (P, 3) int32 rows (flat start,
+    count, first bin), ``piece_off`` (threads + 1,): thread t walks
+    pieces ``piece_off[t]:piece_off[t + 1]``, and ``mel_piece_off`` (M +
+    1,): filter m's mel is the sum of pieces ``mel_piece_off[m]:
+    mel_piece_off[m + 1]`` in order (none for an empty filter)."""
+    nnz = int(length.sum())
+    ends = offset + length
+    pieces, mel_of, piece_off = [], [], [0]
+    for t in range(threads):
+        i, hi = t * nnz // threads, (t + 1) * nnz // threads
+        while i < hi:
+            m = int(np.flatnonzero((offset <= i) & (i < ends))[0])
+            end = min(hi, int(ends[m]))
+            pieces.append((i, end - i, int(start[m]) + i - int(offset[m])))
+            mel_of.append(m)
+            i = end
+        piece_off.append(len(pieces))
+    mel_piece_off = np.searchsorted(np.asarray(mel_of, np.int64),
+                                    np.arange(len(start) + 1))
+    return (np.asarray(pieces, np.int32).reshape(-1, 3),
+            np.asarray(piece_off, np.int32),
+            mel_piece_off.astype(np.int32))
+
 
 
 @pytest.mark.parametrize("bank", ["production", "n_mels=64", "n_mels=128",
@@ -199,9 +230,9 @@ def test_mel_pieces_balance_the_banded_walk(bank):
         n_mels = 160 if bank == "production" else int(bank.split("=")[1])
         w = build_mel_weights(FeaturizerConfig(n_mels=n_mels))
     start, length, offset, flat = band_tables(w)
-    pieces, piece_off, mel_piece_off = ffz.mel_pieces(start, length, offset)
+    pieces, piece_off, mel_piece_off = _mel_pieces(start, length, offset)
     slot_w, slot_bin, piece_off2, mel_piece_off2 = ffz.mel_slots(
-        start, length, offset, flat)
+        start, length, flat)
     np.testing.assert_array_equal(piece_off, piece_off2)
     np.testing.assert_array_equal(mel_piece_off, mel_piece_off2)
     n_mels, nnz = w.shape[0], int(length.sum())

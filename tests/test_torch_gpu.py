@@ -576,6 +576,77 @@ def test_frontend_fold_on_impulses_is_flip_free():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["default", "bf16_3x"])
+@pytest.mark.parametrize("batch,samples", [(7, 144000), (4, 28100),
+                                           (1, 144000), (9, 30000)])
+def test_tensor_core_tiers_pad_their_clusters(tier, batch, samples):
+    """Blocks run in clusters of TC_CLUSTER clips: at a batch the cluster
+    does not divide, the padding blocks take part and store nothing.  The
+    tier against its plain version (tf framing, the short clip's 4-frame
+    last block too), one launch; each clip's mel bitwise the same as in a
+    batch one larger (no padding block writes into the output)."""
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig())
+    fz = ffz.FusedFeaturizer(w, precision=tier, device=dev)
+    raw = normalize_rows(torch.from_numpy(np.random.default_rng(
+        batch).standard_normal((batch + 1, samples)).astype(
+            np.float32))).to(dev)
+    ffz.reset_launch_counts()
+    got = fz(raw[:batch], pcen=False)
+    want_counts = dict.fromkeys(ffz.launch_counts(), 0)
+    want_counts[ffz.mel_counter(tier)] = 1
+    assert ffz.launch_counts() == want_counts
+    want = ffz.fused_featurizer_plain(raw[:batch], fz.mel_weights, 281,
+                                      precision=tier)
+    assert got.shape == want.shape == (batch, 160, -(-samples // 281))
+    if tier == "default":
+        assert _rms_rel(got, want) < BF16_RMS_REL
+        assert _rel(got, want) < BF16_STEP
+    else:
+        assert _rel(got, want) < X3_REL
+    assert torch.equal(fz(raw, pcen=False)[:batch], got)
+    assert torch.equal(fz(raw[:batch], pcen=False, out_dtype=torch.bfloat16),
+                       got.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["default", "bf16_3x"])
+@pytest.mark.parametrize("n_mels", [64, 256])
+def test_tensor_core_tiers_take_any_bank(tier, n_mels):
+    """Other banks than the production one, 256 mels among them (half 0's
+    partial mels of "bf16_3x" live in a global scratch that grows with
+    n_mels): the tier against its plain version, f32 and bf16 out."""
+    dev = _card()
+    w = build_mel_weights(FeaturizerConfig(n_mels=n_mels))
+    fz = ffz.FusedFeaturizer(w, precision=tier, device=dev)
+    raw = normalize_rows(torch.from_numpy(np.random.default_rng(
+        n_mels).standard_normal((5, 30000)).astype(np.float32))).to(dev)
+    got = fz(raw, pcen=False)
+    want = ffz.fused_featurizer_plain(raw, fz.mel_weights, 281,
+                                      precision=tier)
+    assert got.shape == want.shape == (5, n_mels, -(-30000 // 281))
+    if tier == "default":
+        assert _rms_rel(got, want) < BF16_RMS_REL
+        assert _rel(got, want) < BF16_STEP
+    else:
+        assert _rel(got, want) < X3_REL
+    assert torch.equal(fz(raw, pcen=False, out_dtype=torch.bfloat16),
+                       got.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["default", "bf16_3x"])
+def test_tensor_core_launch_config(tier):
+    """Clusters of TC_CLUSTER blocks of 9 warps (8 compute warps and the
+    ring's producer) that fit the block's shared memory and the card."""
+    _card()
+    cfg = ffz.tc_launch_config(tier)
+    assert cfg["cluster"] == ffz.TC_CLUSTER and cfg["threads"] == 288
+    assert 200_000 < cfg["smem_bytes"] <= 232_448
+    assert cfg["active_clusters"] >= 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("tier", ["default", "bf16_3x", "bf16_3x_manual"])
 @pytest.mark.parametrize("batch,samples", [(3, 144000), (1, 28100),
                                            (2, 20000)])

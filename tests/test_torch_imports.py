@@ -40,7 +40,8 @@ def test_port_modules_import_without_jax():
                  "data.preprocess", "train.losses", "train.metrics",
                  "train.state", "train.step", "train.loop",
                  "models.backbones", "models.registry", "models.convert",
-                 "models.badwinner2", "probes.probe_megakernel"):
+                 "models.badwinner2", "probes.probe_megakernel",
+                 "ops.cuda.ablate"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
     leaked = [m for m in result["modules"] if _forbidden(m)]
     assert not leaked, leaked

@@ -28,7 +28,7 @@ from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
 from audio_training_tpu_torch.ops.pcen import pcen
 from audio_training_tpu_torch.ops.stft import hann_window
 
-from test_torch_train_featurizer import _mma, _tones
+from test_torch_train_featurizer import SPAN_WORDS, _mma, _tones, _walk
 
 torch.set_num_threads(2)
 
@@ -60,6 +60,23 @@ def test_plain_tier_matches_jax_tier_interpret(mel_w, tier):
     assert got.shape == (2, 160, -(-SHORT // 281))
     assert _rel(got, want) < TIER_REL
     assert _rel(got, exact) < TIER_REL
+
+
+@pytest.mark.parametrize("tier", ["bf16_3x", "bf16_3x_manual"])
+def test_tier_takes_256_mels_as_jax(tier):
+    """The tier takes any bank the geometry allows (the kernel keeps half
+    0's partial mels in a global scratch, not in shared memory): at 256
+    mels the CPU path matches the JAX tier in interpret mode."""
+    w = build_mel_weights(FeaturizerConfig(n_mels=256))
+    assert ffz.geometry_error(w, 4096) is None
+    raw = np.random.default_rng(3).standard_normal((2, SHORT)).astype(
+        np.float32)
+    want = JaxFusedFeaturizer(w, 4096, 281, precision=tier)(
+        jnp.asarray(raw), pcen=False, interpret=True)
+    got = ffz.FusedFeaturizer(w, 4096, 281, precision=tier,
+                              device="cpu")(torch.from_numpy(raw), pcen=False)
+    assert got.shape == (2, 256, -(-SHORT // 281))
+    assert _rel(got, want) < TIER_REL
 
 
 @pytest.mark.parametrize("kind", ["noise", "tones"])
@@ -107,8 +124,11 @@ def test_manual_tier_is_the_same_function(mel_w):
     a = ffz.FusedFeaturizer(mel_w, precision="bf16_3x", device="cpu")
     b = ffz.FusedFeaturizer(mel_w, precision="bf16_3x_manual", device="cpu")
     assert torch.equal(a(raw, pcen=False), b(raw, pcen=False))
-    assert torch.equal(a.op2_frag, b.op2_frag)
-    assert torch.equal(a.band_w, b.band_w)  # f32 weights, not rounded
+    assert torch.equal(a.op2_ring, b.op2_ring)
+    # the walks' weights: the bank's f32 values, not rounded to bf16
+    assert torch.equal(a.slot_w, b.slot_w)
+    w = a.slot_w[a.slot_w != 0].numpy()
+    assert np.isin(w, mel_w).all() and (ffz.round_bf16(w) != w).any()
     # on a card both names launch the one kernel and count there
     assert ffz._TENSOR_CORE["bf16_3x"] == ffz._TENSOR_CORE["bf16_3x_manual"]
     assert (ffz.mel_counter("bf16_3x") == ffz.mel_counter("bf16_3x_manual")
@@ -145,7 +165,7 @@ def test_bf16_3x_tier_wiring(mel_w):
 
 _G, _T = np.arange(32) >> 2, np.arange(32) & 3
 _A_REGS = [(0, 0), (8, 0), (0, 8), (8, 8)]  # (row, col) offsets of a0..a3
-X3_ROW, X3_P_ROW = 264, 1028
+X3_ROW, X3_RE_ROW, X3_HP_ROW = 264, 136, 548
 
 
 def _split(v):
@@ -155,32 +175,37 @@ def _split(v):
     return hi, ffz.round_bf16(v - hi)
 
 
-def _x3_k1(h, e):
-    if h == 0:
-        return e if e < 8 else (16 if e == 8 else 16 + e)
-    return 8 + e if e < 8 else 9 + e
-
-
-def _emulate_x3_tile(x, hop, fz):
-    """The kernel's first 16-frame tile of one clip, step by step, with
-    shared memory that starts as NaN (a read of an unwritten plane shows)."""
-    d1, op2 = ffz.dft_fragments_x3()
+def _emulate_x3_tile(x, hop, fz, t_base=0, left_pad=0):
+    """The kernel's block of frames t_base.. of one clip, step by step,
+    with shared memory that starts as NaN (a read of an unwritten value
+    shows): per half the staged span, stage 1 into the half's plane slots
+    (half 0's slots 0 and 8 hold re rows alone), stage 2 on the ring's
+    chunks (chunk ((2 h + r) 8 + ks) 2 + jh, warp w's part: the re rows of
+    entry w + 8 r of the half, n-tiles 4 jh..; the im rows derived), the
+    half-power tile and the half's walk;
+    half 0's per-filter sums plus half 1's.  Returns the block's (n_mels,
+    valid frames) mel."""
+    d1, _ = ffz.dft_fragments_x3()
+    chunks = fz.op2_ring.numpy().view(np.uint32).reshape(64, 8, 4, 32, 4)
     window = hann_window(4096)
-    planes = np.full((9, 16, X3_ROW), np.nan, np.float32)
-    planes[[0, 8], :, 128:256] = 0.0  # step 0: im of k1' = 0 and 16
-    power = np.full((16, X3_P_ROW), np.nan, np.float32)
+    n_frames = 1 + len(x) // hop if left_pad else -(-len(x) // hop)
+    n_valid = min(ffz.frames_per_block(hop), n_frames - t_base)
+    mel = np.zeros((fz.n_mels, n_valid))
     for h in range(2):
+        span = np.full(SPAN_WORDS, np.nan, np.float32)
+        j = np.arange((n_valid - 1) * hop + 4096)
+        s = t_base * hop - left_pad + j
+        span[ffz.span_pos(j)] = np.where((s >= 0) & (s < len(x)),
+                                         x[np.clip(s, 0, len(x) - 1)], 0)
+        planes = np.full((9, 16, X3_ROW), np.nan, np.float32)
         split = 9 if h == 0 else 8
-        for f in range(16):
-            start = f * hop
-            for j in range(16):
+        for jt in range(16):
+            for f in range(n_valid):
                 bh, bl = {}, {}
                 for ks in range(2):
                     for hh in range(2):
-                        i0 = 128 * (16 * ks + 2 * _T + 8 * hh) + 8 * j + _G
-                        v = [np.where(start + i < len(x),
-                                      x[np.minimum(start + i, len(x) - 1)]
-                                      * window[i], np.float32(0))
+                        i0 = 128 * (16 * ks + 2 * _T + 8 * hh) + 8 * jt + _G
+                        v = [span[ffz.span_pos(f * hop + i)] * window[i]
                              for i in (i0, i0 + 128)]
                         (h0, l0), (h1, l1) = _split(v[0]), _split(v[1])
                         bh[ks, hh] = ffz._pack_bf16(h0, h1)
@@ -194,51 +219,84 @@ def _emulate_x3_tile(x, hop, fz):
                 for hr in range(2):
                     r = _G + 8 * hr
                     slot = np.where(r < split, r, r - 8)
-                    col = np.where(r < split, 0, 128) + 8 * j + 2 * _T
+                    col = np.where(r < split, 0, 128) + 8 * jt + 2 * _T
                     planes[slot, f, col] = acc[:, 2 * hr]
                     planes[slot, f, col + 1] = acc[:, 2 * hr + 1]
-        for e in range(16):
-            k1 = _x3_k1(h, e)
-            kp = min(k1, 32 - k1)
-            rows = planes[8 if kp == 16 else kp - 8 * h]
-            acc = np.zeros((8, 32, 4))
-            for ks in range(16):
-                kk = 16 * ks + 2 * _T
-                ah, al = [], []
-                for dr, dc in _A_REGS:
-                    (h0, l0), (h1, l1) = (_split(rows[_G + dr, kk + dc + i])
-                                          for i in (0, 1))
-                    ah.append(ffz._pack_bf16(h0, h1))
-                    al.append(ffz._pack_bf16(l0, l1))
-                for j in range(8):
-                    b = op2[k1, ks, j]
-                    _mma(acc[j], ah, b[:, 0], b[:, 1])
-                    _mma(acc[j], ah, b[:, 2], b[:, 3])
-                    _mma(acc[j], al, b[:, 0], b[:, 1])
-            for q in range(4):
-                for c in range(4):
-                    re = np.float32(acc[2 * q, :, c])
-                    im = np.float32(acc[2 * q + 1, :, c])
-                    k2 = 8 * q + 2 * _T + (c & 1)
-                    power[_G + 8 * (c >> 1), k1 + 32 * k2] = re * re + im * im
-    start, length = fz.band_start.numpy(), fz.band_len.numpy()
-    off, w = fz.band_off.numpy(), fz.band_w.numpy().astype(np.float64)
-    return np.stack([[w[off[m]:off[m] + length[m]]
-                      @ power[f, start[m]:start[m] + length[m]]
-                      for f in range(16)] for m in range(fz.n_mels)])
+        hpow = np.full((16, X3_HP_ROW), np.nan, np.float32)
+        for rr in range(2):
+            for w in range(8):
+                e = w + 8 * rr
+                k1 = ffz.X3_K1[h, e]
+                kp = min(k1, 32 - k1)
+                slot = 8 if kp == 16 else kp - 8 * h
+                re_only = h == 0 and slot in (0, 8)
+                rows = planes[slot]
+                if re_only:  # the slot holds no im row
+                    assert np.isnan(rows[:, 128:]).all()
+                flip_re = np.uint32(0x80008000 if k1 <= 16 else 0)
+                flip_im = flip_re ^ np.uint32(0x80008000)
+                acc = np.zeros((8, 32, 4))
+                for ks in range(8):
+                    split = []
+                    for kk in (16 * ks + 2 * _T, 128 + 16 * ks + 2 * _T):
+                        ah, al = [], []
+                        for dr, dc in _A_REGS:
+                            (h0, l0), (h1, l1) = (
+                                _split(rows[_G + dr, kk + dc + i]) for i in (0, 1))
+                            ah.append(ffz._pack_bf16(h0, h1))
+                            al.append(ffz._pack_bf16(l0, l1))
+                        split.append((ah, al))
+                        if re_only:
+                            break
+                    for jh in range(2):
+                        bv = chunks[((2 * h + rr) * 8 + ks) * 2 + jh, w]
+                        for jn in range(4):
+                            d = acc[4 * jh + jn]
+                            (ah, al), b = split[0], bv[jn]
+                            _mma(d, ah, b[:, 0], b[:, 1])
+                            _mma(d, ah, b[:, 2], b[:, 3])
+                            _mma(d, al, b[:, 0], b[:, 1])
+                        if re_only:  # the im rows are zeros
+                            continue
+                        for jn in range(4):  # im rows: pairs swapped, signed
+                            d = acc[4 * jh + jn]
+                            f = flip_im if jn & 1 else flip_re
+                            (ah, al), b = split[1], bv[jn ^ 1] ^ f
+                            _mma(d, ah, b[:, 0], b[:, 1])
+                            _mma(d, ah, b[:, 2], b[:, 3])
+                            _mma(d, al, b[:, 0], b[:, 1])
+                for q in range(4):
+                    for c in range(4):
+                        re = np.float32(acc[2 * q, :, c])
+                        im = np.float32(acc[2 * q + 1, :, c])
+                        k2 = 8 * q + 2 * _T + (c & 1)
+                        hpow[_G + 8 * (c >> 1), ffz.x3_power_pos(k2, e)] = (
+                            re * re + im * im)
+        tables = [t[h].numpy() for t in (fz.slot_w, fz.slot_pos,
+                                         fz.piece_off, fz.mel_piece_off)]
+        mel += np.stack([_walk(tables, hpow[f], fz.n_mels)
+                         for f in range(n_valid)], axis=1)
+    return mel
 
 
-def test_x3_kernel_fragment_walk_emulation_matches_plain(mel_w):
-    """One 16-frame tile of a tonal clip; the clip ends inside the tile, so
-    its last frames read the tf pad_end zeros.  Emulation and plain version
-    differ in summation order only (f64 sums of the fragments here, and
-    the splits of planes that differ in their last bits): global relative
-    error < 2e-6, a tenth of the tier's tolerance."""
-    fz = ffz.FusedFeaturizer(mel_w, 4096, 281, precision="bf16_3x",
-                             device="cpu")
-    x = _tones(1, 4000, 3)[0]
-    got = _emulate_x3_tile(x, 281, fz)[:, :-(-4000 // 281)]
+@pytest.mark.parametrize("samples,hop,left_pad,block", [
+    (4000, 281, 0, 0),        # the clip ends inside the block: pad_end zeros
+    (144000, 281, 2048, 20),  # centered framing, a block inside the clip
+    (30000, 313, 0, 6),       # 14 frames a block; the last, 12-frame block
+])
+def test_x3_kernel_fragment_walk_emulation_matches_plain(mel_w, samples, hop,
+                                                         left_pad, block):
+    """One block of a tonal clip.  Emulation and plain version differ in
+    summation order only (f64 sums of the fragments here, and the splits
+    of planes that differ in their last bits): global relative error <
+    2e-6, a tenth of the tier's tolerance."""
+    fz = ffz.FusedFeaturizer(mel_w, 4096, hop, precision="bf16_3x",
+                             center=bool(left_pad), device="cpu")
+    x = _tones(1, samples, 3)[0]
+    t_base = block * ffz.frames_per_block(hop)
+    got = _emulate_x3_tile(x, hop, fz, t_base, left_pad)
     want = fz(torch.from_numpy(x[None]), pcen=False)[0].numpy()
-    assert got.shape == want.shape == (160, 15)
+    want = want[:, t_base:t_base + got.shape[1]]
+    assert got.shape == want.shape and got.shape[1] >= 12
     assert np.isfinite(got).all()
     assert _rel(got, want) < 2e-6

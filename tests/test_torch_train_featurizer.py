@@ -115,21 +115,51 @@ def _pack(lo, hi):
                           ffz.round_bf16(np.float32(hi)))
 
 
-def _emulate_tile(x, hop, fz):
-    """The kernel's first 16-frame tile of one clip, step by step."""
-    d1, op2 = ffz.dft_fragments()
+SPAN_WORDS = ffz.SPAN_CAP + 8 * (ffz.SPAN_CAP // 256)  # the staged span
+P_ROW = 1064  # bf16 per frame of the kernel's power tile
+
+
+def _walk(tables, row, n_mels):
+    """The kernel's balanced walk of one frame's power row: each thread's
+    slots in order (padding slots add 0 x row[0] to its last piece), the
+    piece sums of threads that have slots, each filter's pieces in order."""
+    slot_w, slot_pos, piece_off, mel_piece_off = (np.asarray(t)
+                                                  for t in tables)
+    seg = piece_off[:-1] + np.cumsum(slot_pos >> 16, axis=0)
+    live = np.broadcast_to(piece_off[1:] > piece_off[:-1], seg.shape)
+    sums = np.zeros(piece_off[-1])
+    np.add.at(sums, seg[live], (slot_w.astype(np.float64)
+                                * row[slot_pos & 0xFFFF])[live])
+    return np.array([sums[mel_piece_off[m]:mel_piece_off[m + 1]].sum()
+                     for m in range(n_mels)])
+
+
+def _emulate_tile(x, hop, fz, t_base=0, left_pad=0):
+    """The kernel's block of frames t_base.. of one clip, step by step,
+    with shared memory that starts as NaN: the staged span, stage 1's
+    fragments, stage 2 on the ring's chunks (chunk 8 r + ks, warp w's part:
+    the re rows of k1 = w + 8 r, the im rows derived), the power tile and
+    the balanced walk.  Returns the
+    block's (n_mels, valid frames) mel."""
+    d1, _ = ffz.dft_fragments()
+    chunks = fz.op2_ring.numpy().view(np.uint32).reshape(32, 8, 8, 32, 2)
     window = hann_window(4096)
-    planes = np.zeros((17, 16, 264))  # the shared-memory plane rows
-    for f in range(16):
-        start = f * hop
-        for j in range(16):
+    n_frames = 1 + len(x) // hop if left_pad else -(-len(x) // hop)
+    n_valid = min(ffz.frames_per_block(hop), n_frames - t_base)
+    span = np.full(SPAN_WORDS, np.nan, np.float32)
+    j = np.arange((n_valid - 1) * hop + 4096)
+    s = t_base * hop - left_pad + j
+    span[ffz.span_pos(j)] = np.where((s >= 0) & (s < len(x)),
+                                     x[np.clip(s, 0, len(x) - 1)], 0)
+    planes = np.full((17, 16, 264), np.nan)  # the shared-memory plane rows
+    planes[[0, 16], :, 128:256] = 0.0  # step 0: im of k1' = 0 and 16
+    for jt in range(16):
+        for f in range(n_valid):
             b = {}
             for ks in range(2):
                 for h in range(2):
-                    i0 = 128 * (16 * ks + 2 * _T + 8 * h) + 8 * j + _G
-                    v = [np.where(start + i < len(x),
-                                  x[np.minimum(start + i, len(x) - 1)]
-                                  * window[i], np.float32(0))
+                    i0 = 128 * (16 * ks + 2 * _T + 8 * h) + 8 * jt + _G
+                    v = [span[ffz.span_pos(f * hop + i)] * window[i]
                          for i in (i0, i0 + 128)]
                     b[ks, h] = _pack(*v)
             for mt in range(2):
@@ -139,44 +169,63 @@ def _emulate_tile(x, hop, fz):
                 for hr in range(2):
                     p = 16 * mt + _G + 8 * hr
                     kp, half = np.where(p <= 16, p, p - 16), np.where(p <= 16, 0, 128)
-                    col = half + 8 * j + 2 * _T
+                    col = half + 8 * jt + 2 * _T
                     planes[kp, f, col] = ffz.round_bf16(acc[:, 2 * hr])
                     planes[kp, f, col + 1] = ffz.round_bf16(acc[:, 2 * hr + 1])
-    power = np.zeros((16, 1024))
-    for k1 in range(32):
-        rows = planes[k1 if k1 <= 16 else 32 - k1].astype(np.float32)
-        acc = np.zeros((8, 32, 4))
-        for ks in range(16):
-            kk = 16 * ks + 2 * _T
-            a = [ffz._pack_bf16(rows[_G + dr, kk + dc], rows[_G + dr, kk + dc + 1])
-                 for dr, dc in _A_REGS]
-            for j in range(8):
-                _mma(acc[j], a, op2[k1, ks, j, :, 0], op2[k1, ks, j, :, 1])
-        for q in range(4):
-            for c in range(4):
-                re = np.float32(acc[2 * q, :, c])
-                im = np.float32(acc[2 * q + 1, :, c])
-                power[_G + 8 * (c >> 1), k1 + 32 * (8 * q + 2 * _T + (c & 1))] = (
-                    ffz.round_bf16(re * re + im * im))
-    start, length = fz.band_start.numpy(), fz.band_len.numpy()
-    off, w = fz.band_off.numpy(), fz.band_w.numpy().astype(np.float64)
-    return np.stack([[w[off[m]:off[m] + length[m]]
-                      @ power[f, start[m]:start[m] + length[m]]
-                      for f in range(16)] for m in range(fz.n_mels)])
+    power = np.full((16, P_ROW), np.nan)
+    for r in range(4):
+        for w in range(8):
+            k1 = w + 8 * r
+            rows = planes[min(k1, 32 - k1)].astype(np.float32)
+            flip_re = np.uint32(0x80008000 if k1 <= 16 else 0)
+            flip_im = flip_re ^ np.uint32(0x80008000)
+            acc = np.zeros((8, 32, 4))
+            for ks in range(8):
+                a = [[ffz._pack_bf16(rows[_G + dr, kk + dc],
+                                     rows[_G + dr, kk + dc + 1])
+                      for dr, dc in _A_REGS]
+                     for kk in (16 * ks + 2 * _T, 128 + 16 * ks + 2 * _T)]
+                bv = chunks[8 * r + ks, w]  # the re rows' fragments
+                for jn in range(8):
+                    _mma(acc[jn], a[0], bv[jn, :, 0], bv[jn, :, 1])
+                for q in range(4):  # the im rows': pairs swapped, signed
+                    _mma(acc[2 * q], a[1], bv[2 * q + 1, :, 0] ^ flip_re,
+                         bv[2 * q + 1, :, 1] ^ flip_re)
+                    _mma(acc[2 * q + 1], a[1], bv[2 * q, :, 0] ^ flip_im,
+                         bv[2 * q, :, 1] ^ flip_im)
+            for q in range(4):
+                for c in range(4):
+                    re = np.float32(acc[2 * q, :, c])
+                    im = np.float32(acc[2 * q + 1, :, c])
+                    k2 = 8 * q + 2 * _T + (c & 1)
+                    power[_G + 8 * (c >> 1), ffz.tc_power_pos(k1 + 32 * k2)] = (
+                        ffz.round_bf16(re * re + im * im))
+    tables = [t.numpy() for t in (fz.slot_w, fz.slot_pos, fz.piece_off,
+                                  fz.mel_piece_off)]
+    return np.stack([_walk(tables, power[f], fz.n_mels)
+                     for f in range(n_valid)], axis=1)
 
 
-def test_kernel_fragment_walk_emulation_matches_plain(mel_w):
-    """One 16-frame tile of a tonal clip; the clip ends inside the tile, so
-    its last frames read the tf pad_end zeros.  Emulation and plain version
-    differ in summation order only (f64 products of the fragments here):
-    relative RMS < 1e-5 and no value off by more than one bf16 step of the
-    max (2^-7), the tier's contract."""
-    fz = ffz.FusedFeaturizer(mel_w, 4096, 281, precision="default",
-                             device="cpu")
-    x = _tones(1, 4000, 3)[0]
-    got = _emulate_tile(x, 281, fz)[:, :-(-4000 // 281)]
+@pytest.mark.parametrize("samples,hop,left_pad,block", [
+    (4000, 281, 0, 0),        # the clip ends inside the block: pad_end zeros
+    (144000, 281, 2048, 20),  # centered framing, a block inside the clip
+    (30000, 313, 0, 6),       # 14 frames a block; the last, 12-frame block
+])
+def test_kernel_fragment_walk_emulation_matches_plain(mel_w, samples, hop,
+                                                       left_pad, block):
+    """One block of a tonal clip.  Emulation and plain version differ in
+    summation order only (f64 products of the fragments here): relative
+    RMS < 1e-5 and no value off by more than one bf16 step of the max
+    (2^-7), the tier's contract."""
+    fz = ffz.FusedFeaturizer(mel_w, 4096, hop, precision="default",
+                             center=bool(left_pad), device="cpu")
+    x = _tones(1, samples, 3)[0]
+    t_base = block * ffz.frames_per_block(hop)
+    got = _emulate_tile(x, hop, fz, t_base, left_pad)
     want = fz(torch.from_numpy(x[None]), pcen=False)[0].numpy()
-    assert got.shape == want.shape == (160, 15)
+    want = want[:, t_base:t_base + got.shape[1]]
+    assert got.shape == want.shape and got.shape[1] >= 12
+    assert np.isfinite(got).all()
     assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5
     assert _rel(got, want) < 2 ** -7
 
