@@ -21,27 +21,50 @@
 // What bounds it.  2 m k n ndots grid operations on the tensor cores: at the
 // probe's first shape (64 x 640 x 512, 512 dots, 8 steps) 172 GFLOP, 0.174 ms
 // at the 989 TFLOP/s dense bf16 peak; the operands are 1 MB and stay in L2.
-// So the operations bound it.
+// So the operations bound it.  "store" and "brot" also write every d_i
+// (537 MB a launch at the first shape) into a scratch that L2 holds.
 //
-// Design.  The products run on the tensor cores as mma.sync m16n8k16 bf16
-// (the instruction of the featurizer's tensor-core tiers; wgmma, which alone
-// reaches the card's peak, is later work), so the rate this kernel measures
-// is the mma.sync rate with operands streamed from L2 through shared memory,
-// not the card's wgmma peak.  The TPU held both operands in 100 MB of VMEM;
-// here a is (4, m, k) bf16 (327 KB at 64 x 640) and b (k, n) (655 KB), so each
-// block stages 64 x 64 chunks of A (rows m, k contiguous) and of B
-// (transposed to rows n, k contiguous, so that both fragments are 32-bit
-// shared loads) and walks k.  A block computes one 64 x 64 output tile
-// (4 warps of 32 x 32, 8 mma per 16-deep k step) for a contiguous chunk of
-// the dots, so one grid step's products spread over (m/64)(n/64)(chunks)
-// blocks; the wrapper picks the chunk count to give the card about two
-// blocks per SM.  Every product is kept live: in "store" and "brot" each
-// d_i is written to its slot of a global scratch (g, 8, m, n), as the TPU
-// kernel's acc[i % 8] = d; in "accum" each block sums its chunk's d_i in
-// registers (acc += d after each dot, the TPU's order) and adds the sum to
-// the output (rows < 8, columns < 128) or to a global scratch (g, m, n) with
-// atomics, so the chunks' partial sums meet in an order that varies from
-// run to run.  The wrapper zero-fills both in "accum".
+// Design.  Every product runs on the tensor cores as wgmma m64n64k16 (bf16
+// in, f32 accumulators in registers), none deduplicated although the dots
+// with equal i % 4 are equal: a launch issues ndots grid (m/64) (n/64)
+// (k/16) wgmma instructions.  A work unit is (step g, j = i % 4, a 64 x 64
+// output tile, a run of the dots i = j (mod 4)).  Its A rows and B columns,
+// k-complete ((64 + 64) k bf16: 160 KB at k = 640, 192 KB at 768), are copied
+// into shared memory once by 1-D bulk copies completing on one mbarrier,
+// and every dot of the unit reads them there; so does the next unit when
+// it has the same operands (the operands do not depend on g).  The TPU kept
+// both operands in VMEM for the whole launch; shared memory holds one tile
+// pair.  The wrapper packs a and b, once a launch, into the order of the
+// no-swizzle wgmma descriptor: a tile is 64 rows x k, its 8 x 8 core
+// matrices (8 rows of 16 bytes, 128 contiguous bytes) at byte (k/8 index x
+// 8 + row/8 index) x 128, so core matrices adjacent along k lie DOT_LBO =
+// 1024 bytes apart and along m (n) DOT_SBO = 128 bytes; one k16 step is
+// 2048 bytes, and each tile is one contiguous copy.  Both tiles are k-major
+// (B is packed transposed, rows n).  No thread writes shared memory that
+// wgmma reads (the bulk copies do), so no fence.proxy.async is needed.
+// Above k = DOT_KC = 896 the pair does not fit (227 KB a block): there
+// dot_probe_kernel<true> walks each dot's k in phases of up to 896, each a
+// contiguous run of both packed tiles copied in turn into the same place
+// and summed into the same accumulators, so the operands are read again
+// for every dot.  No shape of the probe's list takes it; ptxas serializes
+// its wgmma instructions (remark C7520: a warpgroup without a dot skips
+// them on a divergent path).
+//
+// The host plans the walk (probes/probe_megakernel.py::dot_plan): the
+// ndots grid tiles dot-tiles in the order (j, tile, g, i) are cut into one
+// contiguous run per block, one block per SM (persistent), the runs equal
+// to within one dot; a run is cut into units where (j, tile, g) changes.
+// A block has two warpgroups that take the unit's dots in turn (dot s of
+// the unit to warpgroup s % 2), so one warpgroup's epilogue overlaps the
+// other's products (above k = 896 both wait at every phase's fill).  Each
+// dot: wgmma.fence, k/16 wgmma into 32 registers a thread, commit, wait.  In "store" and "brot" each d_i then goes to its
+// slot of a global scratch (g, 8, m, n) as 8-byte stores that fill whole
+// 32-byte sectors (the accumulator fragment holds column pairs); in
+// "accum" each warpgroup sums its dots of the unit in registers in
+// ascending i and adds the sum to the output (rows < 8, columns < 128) or
+// to a global scratch (g, m, n) with atomics, so the units' partial sums
+// meet in an order that varies from run to run.  The wrapper zero-fills
+// both in "accum".
 //
 // ---------------------------------------------------------------------------
 // K4, shift_probe_kernel.  Per grid step, nops iterations i of y = x +
@@ -75,160 +98,239 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_ptx.cuh"
+
 namespace {
 
-constexpr int DOT_TILE = 64;          // output rows and columns per block
-constexpr int DOT_KC = 64;            // k per staged chunk
-constexpr int DOT_THREADS = 128;      // 4 warps, 2 x 2 sub-tiles of 32 x 32
-constexpr int DOT_LD = DOT_KC + 8;    // bf16 per shared row (144 bytes)
-constexpr int OUT_ROWS = 8;           // the (8, 128) output block of a step
+constexpr int DOT_TILE = 64;        // rows of an A tile, of a B tile (n)
+constexpr int DOT_WG = 128;         // threads of a warpgroup
+constexpr int DOT_WGS = 2;          // warpgroups a block
+constexpr int DOT_THREADS = DOT_WG * DOT_WGS;
+constexpr int DOT_KC = 896;         // most k a fill holds: 2 x 64 x 896 bf16
+constexpr uint32_t DOT_LBO = 1024;  // bytes between core matrices along k
+constexpr uint32_t DOT_SBO = 128;   // bytes between core matrices along m, n
+constexpr uint32_t DOT_K16 = 2 * DOT_LBO;  // bytes of one k16 step of a tile
+constexpr int UNIT_INTS = 5;        // (g, j, tile, first dot i, dots)
+constexpr int OUT_ROWS = 8;         // the (8, 128) output block of a step
 constexpr int OUT_COLS = 128;
 
 enum DotMode { DOT_STORE = 0, DOT_ACCUM = 1, DOT_BROT = 2 };
 enum ShiftMode { SHIFT1 = 0, ROLL = 1, POOL3 = 2, COPYBLK = 3 };
 
-// D = A(16x16, row) B(16x8, col) + D, bf16 operands, f32 accumulators (the
-// PTX fragment layout of mma.sync.m16n8k16, as in fused_featurizer.cu).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// the wgmma shared-memory descriptor of a no-swizzle k-major tile at smem
+// address `addr`: the address, DOT_LBO and DOT_SBO in 16-byte units (bits
+// 0-13, 16-29, 32-45); base offset 0 and layout type 0 (no swizzle, bits
+// 62-63)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(DOT_LBO >> 4) << 16) |
+         (static_cast<uint64_t>(DOT_SBO >> 4) << 32);
+}
+
+// d (+)= A(64 x 16) B(16 x 64), both from shared memory, k-major (no
+// transpose); d is zeroed first unless `accumulate`.  Element r of d sits at
+// row 16 (warp % 4) + lane / 4 + 8 ((r / 2) % 2), column 8 (r / 4) +
+// 2 (lane % 4) + r % 2.
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// keeps the compiler from moving reads or writes of d across a wgmma fence
+// or wait
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r) asm volatile("" : "+f"(d[r])::"memory");
 }
 
-// grid ((m/64) (n/64), chunks, steps), DOT_THREADS threads.
-__global__ void __launch_bounds__(DOT_THREADS)
-dot_probe_kernel(float salt, const __nv_bfloat16* __restrict__ a,
-                 const __nv_bfloat16* __restrict__ b, int m, int k, int n,
-                 int ndots, int dots_per_chunk, int mode,
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// one dot's products over k16 k steps of the tiles at a_s, b_s: d = A B,
+// or d += A B when `accumulate`
+__device__ __forceinline__ void dot_phase(float (&d)[32], uint32_t a_s,
+                                          uint32_t b_s, int k16,
+                                          bool accumulate) {
+  fence_operands(d);
+  wgmma_fence();
+  for (int ks = 0; ks < k16; ++ks)
+    wgmma_64x64(d, wgmma_desc(a_s + ks * DOT_K16),
+                wgmma_desc(b_s + ks * DOT_K16), accumulate || ks > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operands(d);
+}
+
+// grid (blocks), DOT_THREADS threads, (2 x 64 min(k, DOT_KC)) bf16 + one
+// mbarrier of dynamic shared memory.  plan: blocks + 1 offsets into the
+// unit list, then UNIT_INTS ints a unit; block b walks units plan[b] ..
+// plan[b + 1].  ap: a packed, (4, m / 64) tiles of 64 k bf16; bp: b packed,
+// ((4,) n / 64) tiles of 64 k bf16 (the B tile of columns 64 t .. 64 t +
+// 63).  kPhased: k > DOT_KC, walked in phases (a separate instantiation,
+// so that the k-complete walk's code is not shaped by the phases').
+template <bool kPhased>
+__global__ void __launch_bounds__(DOT_THREADS, 1)
+dot_probe_kernel(float salt, const __nv_bfloat16* __restrict__ ap,
+                 const __nv_bfloat16* __restrict__ bp, int m, int k, int n,
+                 int ndots, int mode, const int* __restrict__ plan,
                  float* __restrict__ scratch, float* __restrict__ out) {
-  __shared__ __align__(16) __nv_bfloat16 as[DOT_TILE][DOT_LD];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 bs[DOT_TILE][DOT_LD];  // [n][k]
+  extern __shared__ __align__(1024) unsigned char smem_dot[];
+  const int kc = kPhased ? DOT_KC : k;  // k of a phase
+  const int phases = (k + kc - 1) / kc;
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_dot);
+  __nv_bfloat16* bs = as + DOT_TILE * kc;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + DOT_TILE * kc);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / DOT_WG;
+  const int warp = (tid % DOT_WG) >> 5;  // of the warpgroup
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int row0 = 16 * warp + (lane >> 2);  // fragment rows row0, row0 + 8
+  const int col0 = 2 * (lane & 3);           // columns col0 + 8 q, + 1
+  const int tiles_m = m / DOT_TILE;
   const int tiles_n = n / DOT_TILE;
-  const int row0 = (blockIdx.x / tiles_n) * DOT_TILE + (warp >> 1) * 32;
-  const int col0 = (blockIdx.x % tiles_n) * DOT_TILE + (warp & 1) * 32;
-  const int tile_r = (blockIdx.x / tiles_n) * DOT_TILE;
-  const int tile_c = (blockIdx.x % tiles_n) * DOT_TILE;
-  const int chunk = blockIdx.y;
-  const int step = blockIdx.z;
-  const int i_begin = chunk * dots_per_chunk;
-  const int i_end = min(ndots, i_begin + dots_per_chunk);
   const int i_out = ((ndots - 1) / 8) * 8;  // the dot left in slot 0
-  const int out_cols = min(n, OUT_COLS);
+  const size_t tile_elems = static_cast<size_t>(DOT_TILE) * k;
+  const uint32_t a_s = smem_u32(as);
+  const uint32_t b_s = smem_u32(bs);
 
-  // fragment element c of sub-tile (mi, ni) sits at row row0 + 16 mi + g +
-  // 8 (c >> 1), column col0 + 8 ni + 2 t + (c & 1)
-  float total[2][4][4];
-  const float init = (mode == DOT_ACCUM && chunk == 0) ? salt * 1e-30f : 0.f;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) total[mi][ni][c] = init;
-
-  for (int i = i_begin; i < i_end; ++i) {
-    const __nv_bfloat16* A =
-        a + static_cast<size_t>(mode == DOT_BROT ? 0 : i % 4) * m * k +
-        static_cast<size_t>(tile_r) * k;
-    const __nv_bfloat16* B =
-        b + static_cast<size_t>(mode == DOT_BROT ? i % 4 : 0) * k * n + tile_c;
-    float d[2][4][4] = {};
-    for (int kc = 0; kc < k; kc += DOT_KC) {
-      __syncthreads();  // the previous chunk's fragment loads are done
-      // A: 64 rows x 64 k, eight bf16 a thread-load
-      for (int v = tid; v < DOT_TILE * DOT_KC / 8; v += DOT_THREADS) {
-        const int r = v / (DOT_KC / 8);
-        const int c8 = (v % (DOT_KC / 8)) * 8;
-        *reinterpret_cast<uint4*>(&as[r][c8]) = __ldg(
-            reinterpret_cast<const uint4*>(A + static_cast<size_t>(r) * k + kc + c8));
-      }
-      // B: 64 k x 64 n, eight bf16 along n a thread-load, stored transposed
-      for (int v = tid; v < DOT_KC * DOT_TILE / 8; v += DOT_THREADS) {
-        const int kr = v / (DOT_TILE / 8);
-        const int n8 = (v % (DOT_TILE / 8)) * 8;
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-            B + static_cast<size_t>(kc + kr) * n + n8));
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bs[n8 + j][kr] = e[j];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < DOT_KC / 16; ++ks) {
-        const int kk = 16 * ks + 2 * t;
-        uint32_t af[2][4], bf[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = row0 - tile_r + 16 * mi + g;
-          af[mi][0] = lds32(&as[r][kk]);
-          af[mi][1] = lds32(&as[r + 8][kk]);
-          af[mi][2] = lds32(&as[r][kk + 8]);
-          af[mi][3] = lds32(&as[r + 8][kk + 8]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int c = col0 - tile_c + 8 * ni + g;
-          bf[ni][0] = lds32(&bs[c][kk]);
-          bf[ni][1] = lds32(&bs[c][kk + 8]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            mma_bf16(d[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-      }
-    }
-    // keep d_i: accumulate it ("accum") or store it to its slot (the
-    // loops unroll, so that d and total stay in registers)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (mode == DOT_ACCUM) {
-            total[mi][ni][c] = __fadd_rn(total[mi][ni][c], d[mi][ni][c]);
-            continue;
-          }
-          const int r = row0 + 16 * mi + g + 8 * (c >> 1);
-          const int col = col0 + 8 * ni + 2 * t + (c & 1);
-          scratch[((static_cast<size_t>(step) * 8 + i % 8) * m + r) * n + col] =
-              d[mi][ni][c];
-          if (i == i_out && r < OUT_ROWS && col < out_cols)
-            out[(static_cast<size_t>(step) * OUT_ROWS + r) * OUT_COLS + col] =
-                d[mi][ni][c];
-        }
-      }
-    }
+  if (tid == 0) {
+    mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (mode != DOT_ACCUM || i_begin >= i_end) return;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = row0 + 16 * mi + g + 8 * (c >> 1);
-        const int col = col0 + 8 * ni + 2 * t + (c & 1);
-        float* dst =
-            (r < OUT_ROWS && col < out_cols)
-                ? out + (static_cast<size_t>(step) * OUT_ROWS + r) * OUT_COLS + col
-                : scratch + (static_cast<size_t>(step) * m + r) * n + col;
-        atomicAdd(dst, total[mi][ni][c]);
+  __syncthreads();
+
+  const int* units = plan + gridDim.x + 1;
+  float d[32] = {};    // the dot's accumulators (zeroed by its first wgmma)
+  int loaded = -1;     // the operand pair in shared memory (k-complete)
+  int loads = 0;       // bulk fills so far
+  bool waited = true;  // this thread has seen the last fill complete
+  for (int u = plan[blockIdx.x]; u < plan[blockIdx.x + 1]; ++u) {
+    const int* unit = units + UNIT_INTS * u;
+    const int step = unit[0], j = unit[1], tile = unit[2];
+    const int i_first = unit[3], count = unit[4];
+    const int tm = tile / tiles_n, tn = tile % tiles_n;
+    const int aj = mode == DOT_BROT ? 0 : j;
+    const int bj = mode == DOT_BROT ? j : 0;
+    const int pair = (aj * tiles_m + tm) * 4 * tiles_n + bj * tiles_n + tn;
+
+    // fill phase h of the unit's tiles (all threads; after every product
+    // reading the old tiles has completed)
+    auto fill = [&](int h) {
+      __syncthreads();
+      if (tid == 0) {
+        const uint32_t bytes =
+            DOT_TILE * min(kc, k - h * kc) * sizeof(__nv_bfloat16);
+        const size_t at = static_cast<size_t>(h) * kc * DOT_TILE;
+        mbar_expect_tx(full, 2 * bytes);
+        bulk_copy(as, ap + (aj * tiles_m + tm) * tile_elems + at, bytes, full);
+        bulk_copy(bs, bp + (bj * tiles_n + tn) * tile_elems + at, bytes, full);
       }
+      ++loads;
+      waited = false;
+    };
+    auto wait_fill = [&]() {
+      if (!waited) {
+        mbar_wait(full, (loads - 1) & 1);
+        waited = true;
+      }
+    };
+
+    // rows < 8 are row0 of warp 0, columns < 128 in the first two tiles
+    const bool keep_out = tm == 0 && warp == 0 && tn * DOT_TILE < OUT_COLS;
+    float total[32];
+    const float init =
+        (mode == DOT_ACCUM && i_first == 0 && wg == 0) ? salt * 1e-30f : 0.f;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) total[r] = init;
+    // d_i done: summed in "accum", else to its slot, per q rows row0 and
+    // row0 + 8, 8 bytes a thread
+    auto finish = [&](int s) {
+      const int i = i_first + 4 * s;
+      if (mode == DOT_ACCUM) {
+#pragma unroll
+        for (int r = 0; r < 32; ++r) total[r] = __fadd_rn(total[r], d[r]);
+        return;
+      }
+      float* slot = scratch +
+                    (static_cast<size_t>(step) * 8 + i % 8) * m * n +
+                    static_cast<size_t>(tm) * DOT_TILE * n + tn * DOT_TILE;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = 8 * q + col0;
+        *reinterpret_cast<float2*>(slot + static_cast<size_t>(row0) * n + c) =
+            make_float2(d[4 * q], d[4 * q + 1]);
+        *reinterpret_cast<float2*>(slot + static_cast<size_t>(row0 + 8) * n +
+                                   c) = make_float2(d[4 * q + 2], d[4 * q + 3]);
+      }
+      if (i == i_out && keep_out) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          *reinterpret_cast<float2*>(
+              out + (static_cast<size_t>(step) * OUT_ROWS + row0) * OUT_COLS +
+              tn * DOT_TILE + 8 * q + col0) =
+              make_float2(d[4 * q], d[4 * q + 1]);
+      }
+    };
+
+    if (!kPhased) {
+      // dot s of the unit to warpgroup s % 2, each at its own pace
+      if (pair != loaded) {
+        fill(0);
+        loaded = pair;
+      }
+      for (int s = wg; s < count; s += DOT_WGS) {
+        wait_fill();
+        dot_phase(d, a_s, b_s, k / 16, false);
+        finish(s);
+      }
+    } else {
+      // both warpgroups walk the same loops and meet at every phase's fill
+      for (int s0 = 0; s0 < count; s0 += DOT_WGS) {
+        const int s = s0 + wg;
+        for (int h = 0; h < phases; ++h) {
+          fill(h);
+          if (s >= count) continue;
+          wait_fill();
+          dot_phase(d, a_s, b_s, min(kc, k - h * kc) / 16, h > 0);
+        }
+        if (s < count) finish(s);
+      }
+    }
+    if (mode != DOT_ACCUM || wg >= count) continue;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int row = tm * DOT_TILE + row0 + 8 * ((r >> 1) & 1);
+      const int col = tn * DOT_TILE + 8 * (r >> 2) + col0 + (r & 1);
+      float* dst =
+          (row < OUT_ROWS && col < OUT_COLS)
+              ? out + (static_cast<size_t>(step) * OUT_ROWS + row) * OUT_COLS +
+                    col
+              : scratch + (static_cast<size_t>(step) * m + row) * n + col;
+      atomicAdd(dst, total[r]);
     }
   }
 }
@@ -295,19 +397,26 @@ shift_probe_kernel(float salt, const float* __restrict__ x, int lanes,
 
 extern "C" {
 
-// a: (4, m, k) bf16; b: (k, n) bf16, or (4, k, n) in "brot"; m, n and k
-// multiples of 64, n >= 128; scratch: (steps, 8, m, n) f32, or (steps, m, n)
-// f32 zero-filled in "accum"; out: (8 steps, 128) f32, zero-filled in
-// "accum".
-int probe_dot(float salt, const void* a, const void* b, int m, int k, int n,
-              int ndots, int steps, int chunks, int mode, float* scratch,
-              float* out, void* stream) {
-  const int dots_per_chunk = (ndots + chunks - 1) / chunks;
-  const dim3 grid((m / DOT_TILE) * (n / DOT_TILE), chunks, steps);
-  dot_probe_kernel<<<grid, DOT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      salt, static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), m, k, n, ndots, dots_per_chunk,
-      mode, scratch, out);
+// ap, bp: a (4, m, k) and b ((4,) k, n) bf16 packed as dot_probe_kernel
+// reads them; m, n and k multiples of 64, n >= 128; plan: the walk of
+// `blocks` blocks; scratch: (steps, 8, m, n) f32, or (steps, m, n) f32
+// zero-filled in "accum"; out: (8 steps, 128) f32, zero-filled in "accum".
+int probe_dot(float salt, const void* ap, const void* bp, int m, int k, int n,
+              int ndots, int blocks, const int* plan, int mode,
+              float* scratch, float* out, void* stream) {
+  const bool phased = k > DOT_KC;
+  const int kc = phased ? DOT_KC : k;
+  const int smem = 2 * DOT_TILE * kc * static_cast<int>(sizeof(__nv_bfloat16)) +
+                   static_cast<int>(sizeof(uint64_t));
+  const auto kernel =
+      phased ? dot_probe_kernel<true> : dot_probe_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, DOT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      salt, static_cast<const __nv_bfloat16*>(ap),
+      static_cast<const __nv_bfloat16*>(bp), m, k, n, ndots, mode, plan,
+      scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 

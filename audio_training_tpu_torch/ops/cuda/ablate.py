@@ -139,7 +139,11 @@ TIERS = {
 
 def build_variants(out_dir: Path, variants: dict) -> dict[str, ctypes.CDLL]:
     """Compile every variant (all nvcc processes at once) and load it."""
-    source = (build.CSRC_DIR / "fused_featurizer.cu").read_text()
+    # the shared header inlined, so that a variant may replace its text too
+    source = (build.CSRC_DIR / "fused_featurizer.cu").read_text().replace(
+        '#include "hopper_ptx.cuh"',
+        (build.CSRC_DIR / "hopper_ptx.cuh").read_text().replace(
+            "#pragma once\n", ""))
     procs = {}
     for name, subs in variants.items():
         text = source

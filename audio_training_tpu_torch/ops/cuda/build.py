@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` at the
 repository root: a shared library with a plain C interface, compiled for
 Hopper (``sm_90a``) at first use.  The file name carries a hash of the
-source and flags, so an edited source rebuilds; ``.gitignore`` lists
-``build/``.  ``nvcc -Xptxas -v`` output (registers, shared memory, spills)
+source, of every header in ``csrc/`` (``*.cuh``, which the sources include)
+and of the flags, so an edited source or header rebuilds; ``.gitignore``
+lists ``build/``.  ``nvcc -Xptxas -v`` output (registers, shared memory, spills)
 is kept beside each library as ``<name>-<hash>.log``.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -40,10 +41,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
+    text = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        text += header.name.encode() + header.read_bytes()
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

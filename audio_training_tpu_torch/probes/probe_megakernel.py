@@ -36,8 +36,7 @@ SLOTS = 8
 OUT_ROWS, OUT_COLS = 8, 128
 DOT_MODES = ("store", "accum", "brot")
 SHIFT_MODES = ("shift1", "roll", "pool3", "copyblk")
-DOT_TILE = 64  # the kernel's output tile and k chunk
-BLOCKS_PER_SM = 2  # the dot kernel's chunking aims at this many blocks
+DOT_TILE = 64  # the dot kernel's output tile (64 x 64) and operand tiles
 
 # the lanes each shift mode reads (x[:, 1:513], x[:, 2:509:3], the 128
 # output lanes)
@@ -61,7 +60,7 @@ def reset_launch_counts() -> None:
 def _library() -> ctypes.CDLL:
     lib = load_library("probe_megakernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.probe_dot.argtypes = [f32, ptr, ptr, i32, i32, i32, i32, i32, i32,
+    lib.probe_dot.argtypes = [f32, ptr, ptr, i32, i32, i32, i32, i32, ptr,
                               i32, ptr, ptr, ptr]
     lib.probe_dot.restype = i32
     lib.probe_shift.argtypes = [f32, ptr, i32, i32, i32, i32, i32, ptr, ptr]
@@ -126,14 +125,64 @@ def dot_probe_plain(salt: float, a: torch.Tensor, b: torch.Tensor,
     return acc[:OUT_ROWS, :OUT_COLS].repeat(grid, 1)
 
 
-def dot_chunks(m: int, n: int, ndots: int, grid: int, sms: int) -> int:
-    """How many chunks of the dots one output tile is split into, so that
-    the card gets about ``BLOCKS_PER_SM`` blocks per SM."""
-    tiles = (m // DOT_TILE) * (n // DOT_TILE) * grid
-    want = -(-BLOCKS_PER_SM * sms // tiles)
-    chunks = max(1, min(ndots, want))
-    per = -(-ndots // chunks)
-    return -(-ndots // per)
+def pack_dot_a(a: torch.Tensor) -> torch.Tensor:
+    """a (4, m, k) in the kernel's tile order: (4, m / 64) tiles of 64 rows
+    x k, each the (k / 8, 8) grid of its 8 x 8 core matrices, k-outer, as
+    the no-swizzle k-major wgmma descriptor of csrc/probe_megakernel.cu
+    reads them.  Any dtype: the tests pack indices."""
+    four, m, k = a.shape
+    return a.reshape(four, m // DOT_TILE, 8, 8, k // 8, 8).permute(
+        0, 1, 4, 2, 3, 5).contiguous()
+
+
+def pack_dot_b(b: torch.Tensor) -> torch.Tensor:
+    """b (k, n) or (4, k, n) transposed into the same order: ((4,) n / 64)
+    tiles of 64 columns of b as rows x k."""
+    x = b if b.ndim == 3 else b[None]
+    q, k, n = x.shape
+    return x.reshape(q, k // 8, 8, n // DOT_TILE, 8, 8).permute(
+        0, 3, 1, 4, 5, 2).contiguous()
+
+
+def dot_plan(m: int, n: int, ndots: int, grid: int,
+             blocks: int) -> tuple[list[int], list[tuple[int, ...]]]:
+    """The kernel's walk: the grid x tiles x ndots dot-tiles, in the order
+    (j = i % 4, output tile, step g, i), cut into one run per block (at
+    most ``blocks``), the runs equal to within one dot; a run is cut into
+    units (g, j, tile, first dot i, dots) where (j, tile, g) changes.
+    Returns (offsets, units): block b takes units offsets[b] ..
+    offsets[b + 1]."""
+    tiles = (m // DOT_TILE) * (n // DOT_TILE)
+    total = grid * tiles * ndots
+    blocks = min(blocks, total)
+    ends = [(b + 1) * total // blocks for b in range(blocks)]
+    offsets, units = [0], []
+    pos = b = 0
+    for j in range(min(4, ndots)):
+        dots = (ndots - j + 3) // 4  # i = j, j + 4, ... < ndots
+        for t in range(tiles):
+            for g in range(grid):
+                s = 0
+                while s < dots:
+                    take = min(dots - s, ends[b] - pos)
+                    units.append((g, j, t, j + 4 * s, take))
+                    s += take
+                    pos += take
+                    if pos == ends[b]:
+                        offsets.append(len(units))
+                        b += 1
+    return offsets, units
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(device: torch.device, m: int, n: int, ndots: int,
+             grid: int) -> tuple[torch.Tensor, int]:
+    """:func:`dot_plan` for one block an SM as the kernel reads it (the
+    offsets, then five ints a unit), on the device; and the block count."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    offsets, units = dot_plan(m, n, ndots, grid, sms)
+    flat = np.array(offsets + [v for u in units for v in u], np.int32)
+    return torch.from_numpy(flat).to(device), len(offsets) - 1
 
 
 def dot_probe(salt: float, a: torch.Tensor, b: torch.Tensor, ndots: int,
@@ -141,20 +190,27 @@ def dot_probe(salt: float, a: torch.Tensor, b: torch.Tensor, ndots: int,
     """K3: ``grid`` steps of ``ndots`` (m, k) x (k, n) bf16 products, as
     ``docs/probes/probe_megakernel.py::dot_kernel`` computes them; returns
     the (8 grid, 128) f32 output.  On CUDA the kernel (m, k, n multiples of
-    64), on the CPU :func:`dot_probe_plain`."""
-    m, k, n = _dot_shapes(a, b, ndots, grid, mode)
+    64; a and b packed into its tile order on the way, which the launch's
+    time includes), on the CPU :func:`dot_probe_plain`."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return dot_probe_plain(salt, a, b, ndots, grid, mode)
+    return _dot_launch(salt, a, b, ndots, grid, mode)[0]
+
+
+def _dot_launch(salt: float, a: torch.Tensor, b: torch.Tensor, ndots: int,
+                grid: int, mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel: (out, scratch), the scratch (grid, 8, m, n)
+    holding each slot's last d_i, or in "accum" (grid, m, n) the sums
+    outside the output block."""
+    m, k, n = _dot_shapes(a, b, ndots, grid, mode)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"no kernel for a on {a.device}, b on {b.device}")
     if m % DOT_TILE or n % DOT_TILE or k % DOT_TILE:
         raise ValueError(f"the kernel takes m, k, n multiples of {DOT_TILE}, "
                          f"got {m}, {k}, {n}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("a and b must be contiguous")
     dev = a.device
-    chunks = dot_chunks(m, n, ndots, grid,
-                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan, blocks = _plan_on(dev, m, n, ndots, grid)
+    ap, bp = pack_dot_a(a), pack_dot_b(b)
     if mode == "accum":
         scratch = torch.zeros((grid, m, n), dtype=torch.float32, device=dev)
         out = torch.zeros((OUT_ROWS * grid, OUT_COLS), dtype=torch.float32,
@@ -166,11 +222,18 @@ def dot_probe(salt: float, a: torch.Tensor, b: torch.Tensor, ndots: int,
                           device=dev)
     with torch.cuda.device(dev):
         _check(_library().probe_dot(
-            float(np.float32(salt)), a.data_ptr(), b.data_ptr(), m, k, n,
-            ndots, grid, chunks, DOT_MODES.index(mode), scratch.data_ptr(),
-            out.data_ptr(), _stream()), f"dot probe ({mode})")
+            float(np.float32(salt)), ap.data_ptr(), bp.data_ptr(), m, k, n,
+            ndots, blocks, plan.data_ptr(), DOT_MODES.index(mode),
+            scratch.data_ptr(), out.data_ptr(), _stream()),
+            f"dot probe ({mode})")
     _LAUNCHES[f"probe_dot_{mode}"] += 1
-    return out
+    return out, scratch
+
+
+def wgmma_count(m: int, k: int, n: int, ndots: int, grid: int) -> int:
+    """wgmma m64n64k16 instructions a launch issues: one per 64 x 64 output
+    tile, 16-deep k step, dot and step."""
+    return ndots * grid * (m // DOT_TILE) * (n // DOT_TILE) * (k // 16)
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +415,7 @@ MAIN_SHIFTS = [dict(mode="shift1"), dict(mode="roll"),
 def main() -> dict[str, list[dict]]:
     dev = _card()
     print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
-    print("--- bf16 mma.sync dot rates (candidate conv2 formulations) ---")
+    print("--- bf16 wgmma dot rates (candidate conv2 formulations) ---")
     dots = [bench_dot(**kw) for kw in MAIN_DOTS[:9]]
     print("--- stationary-A / rotating-B (real conv2 operand pattern) ---")
     dots += [bench_dot(**kw) for kw in MAIN_DOTS[9:]]

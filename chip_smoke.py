@@ -85,11 +85,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (normalize_rows -> K1 -> BadWinner2 with its frontend, same weights,
    1e-4); timing of both chains and of each new kernel and mode;
 9. the megakernel probe: K3 (``dot_probe_kernel``) in its three modes and
-   K4 (``shift_probe_kernel``) in its four against their plain versions at
-   small ndots / nops (K3 within ``DOT_REL`` of max |out|, K4 bitwise); the
-   SASS of K3 (its HMMA instructions, by ``cuobjdump -sass``); the probe's
+   K4 (``shift_probe_kernel``) in its four against their plain versions
+   (K3 within ``DOT_REL`` of max |out|, in the output and in every element
+   of its scratch, at small ndots, at the probe's first shape and at k past
+   one fill; K4 bitwise at small nops); the
+   SASS of K3 (its HGMMA instructions and no HMMA, by ``cuobjdump -sass``;
+   ptxas' wgmma remarks); the probe's
    ``main`` (the TPU probe's list) with launch counts, then ``pool3``; per
-   shape the rate, the bound and ``torch.matmul`` of the same bf16
+   shape the rate, the wgmma count, the bound and ``torch.matmul`` of the
+   same bf16
    products; per K4 mode one PyTorch call doing a launch's ops on views of
    the input (``torch.roll``, the slice copies, a 3-lane ``amax``).
 
@@ -178,8 +182,8 @@ PROBE_SOURCE = "audio_training_tpu_torch/csrc/probe_megakernel.cu"
 PROBE_DOT_TPU = "docs/probes/probe_megakernel.py:81"
 PROBE_SHIFT_TPU = "docs/probes/probe_megakernel.py:161"
 # K3 against its plain version, relative to max |out|: bf16 products are
-# exact in f32 and only the sums are reordered (16-deep mma steps against
-# cuBLAS's f32 order); "accum" adds ndots products, whose chunks meet
+# exact in f32 and only the sums are reordered (16-deep wgmma steps against
+# cuBLAS's f32 order); "accum" adds ndots products, whose units meet
 # through atomics in a run-dependent order
 DOT_REL = {"store": 1e-5, "brot": 1e-5, "accum": 5e-5}
 
@@ -281,9 +285,10 @@ def ptxas_kernels(log: str) -> list[tuple[str, str]]:
                 ident = mangled[start:m.end()]
                 size = str(len(ident))
                 if ident[0].isalpha() and mangled[:start].endswith(size):
-                    folds = re.match(r"ILb([01])ELb([01])E", mangled[m.end():])
-                    return ident + (f"<{folds[1]},{folds[2]}>" if folds
-                                    else "")
+                    args = re.match(r"I((?:Lb[01]E)+)E", mangled[m.end():])
+                    return ident + (
+                        "<" + ",".join(re.findall(r"Lb([01])E", args[1]))
+                        + ">" if args else "")
         return mangled
 
     out, name, props = [], None, []
@@ -706,6 +711,8 @@ def probe_phase(dev, card) -> list[dict]:
     shift_probe_kernel) against its plain versions, the SASS of K3, the
     probe's main list with rates, bounds and torch.matmul yardsticks, and
     pool3.  Returns the kernel records."""
+    import re
+
     import torch
 
     from audio_training_tpu_torch.ops.cuda import build
@@ -715,17 +722,43 @@ def probe_phase(dev, card) -> list[dict]:
     dot_err = dict.fromkeys(pm.DOT_MODES, 0.0)
     for mode in pm.DOT_MODES:
         for m, k, n, ndots, grid in ((64, 640, 512, 9, 8),
+                                     (64, 640, 512, 512, 8),
                                      (512, 512, 512, 9, 2),
-                                     (64, 640, 128, 17, 8)):
+                                     (64, 640, 128, 17, 8),
+                                     (128, 768, 128, 13, 8),
+                                     (512, 640, 128, 10, 1),
+                                     (64, 1024, 128, 9, 2)):
             a, b = pm.dot_inputs(m, k, n, mode, dev)
-            got = pm.dot_probe(0.5, a, b, ndots, grid, mode)
+            got, scratch = pm._dot_launch(0.5, a, b, ndots, grid, mode)
             want = pm.dot_probe_plain(0.5, a, b, ndots, grid, mode)
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
+            # every element the launch wrote: each slot's last d_i, or in
+            # "accum" the sums (the scratch, the output block inside it)
+            af, bf = a.float(), b.float()
+            idx = torch.arange(ndots, device=dev) % 4
+            prods = (torch.matmul(af[0], bf[idx]) if mode == "brot"
+                     else torch.matmul(af[idx], bf))
+            if mode == "accum":
+                full = scratch.clone()
+                full[:, :8, :128] += got.reshape(grid, 8, 128)
+                acc = torch.full_like(prods[0], 0.5 * 1e-30)
+                for d in prods:
+                    acc = acc + d
+                rel_all = ((full - acc).abs().max()
+                           / acc.abs().max()).item()
+            else:
+                last = {i % pm.SLOTS: i for i in range(ndots)}
+                rel_all = max(((scratch[:, r] - prods[i]).abs().max()
+                               / prods[i].abs().max()).item()
+                              for r, i in last.items())
+            del prods, scratch
             log(f"check probe dot[{mode}] M={m} K={k} N={n} ndots={ndots} "
                 f"grid={grid}: rel err {rel:.3e} of max |out| (limit "
-                f"{DOT_REL[mode]}), max abs err {err:.3e}")
-            check(rel < DOT_REL[mode], f"dot probe ({mode}) disagrees")
+                f"{DOT_REL[mode]}), max abs err {err:.3e}; whole scratch "
+                f"rel err {rel_all:.3e}")
+            check(rel < DOT_REL[mode] and rel_all < DOT_REL[mode],
+                  f"dot probe ({mode}) disagrees")
             dot_err[mode] = max(dot_err[mode], err)
     shift_err = {}
     for mode in pm.SHIFT_MODES:
@@ -739,22 +772,53 @@ def probe_phase(dev, card) -> list[dict]:
         check(same, f"shift probe ({mode}) disagrees")
         shift_err[mode] = (got - want).abs().max().item()
 
-    # the SASS: every product the rate counts is an HMMA the kernel issues
+    # the SASS: every product the rate counts is a wgmma (HGMMA) the kernel
+    # issues, and none an mma.sync (HMMA), in both instantiations
+    # (dot_probe_kernel<0> takes k <= 896 k-complete, <1> walks k in phases)
     library = build.library_path("probe_megakernel")
     sass = subprocess.run([cuobjdump_path(), "-sass", str(library)],
                           check=True, capture_output=True, text=True).stdout
-    sections = sass.split("Function : ")
-    dot_sass = [sec for sec in sections[1:]
-                if sec.split()[0].find("dot_probe_kernel") >= 0]
-    check(len(dot_sass) == 1, "no dot_probe_kernel in the SASS")
-    hmma = [ln for ln in dot_sass[0].splitlines() if "HMMA" in ln]
-    kinds = sorted({ln.split("HMMA")[1].split()[0] for ln in hmma})
-    log(f"sass dot_probe_kernel: {len(hmma)} HMMA{kinds}; the k-chunk loop "
-        f"holds 32 a warp (2 m16 x 4 n8 tiles x 4 k16 steps), a 64x64x64 "
-        f"product (128 HMMA a block, 4096 flops each)")
-    check(len(hmma) >= 32 and len(hmma) % 32 == 0
-          and kinds == [".16816.F32.BF16"],
-          "the SASS does not hold the k-chunk loop's 32 HMMA a warp")
+    sections = {re.search(r"dot_probe_kernelILb([01])E", sec.split()[0])[1]:
+                sec for sec in sass.split("Function : ")[1:]
+                if "dot_probe_kernel" in sec.split()[0]}
+    check(sorted(sections) == ["0", "1"],
+          "dot_probe_kernel<0> and <1> are not both in the SASS")
+    # ptxas adds one HGMMA.64x8x16.F16 with zero-register operands and a
+    # false predicate (!UPT) where it injects warpgroup.arrive: a no-op;
+    # any other HGMMA without bf16 operands fails the check
+    noop = re.compile(r"HGMMA\.64x8x16\.F16 RZ, gdesc\[URZ\], RZ, !UPT")
+    for inst, sec in sorted(sections.items()):
+        lines = sec.splitlines()
+        hgmma = [ln for ln in lines if "HGMMA" in ln]
+        hmma = [ln for ln in lines if "HMMA" in ln]
+        kinds = [ln.split("HGMMA")[1].split()[0] for ln in hgmma]
+        products = [kd for kd in kinds if "BF16" in kd]
+        log(f"sass dot_probe_kernel<{inst}>: {len(hmma)} HMMA; HGMMA "
+            f"{ {kd: kinds.count(kd) for kd in sorted(set(kinds))} }; each "
+            f".64x64x16.F32.BF16 is a 64x64x16 product of one warpgroup "
+            f"(131,072 flops)")
+        others = [ln for ln in hgmma if "BF16" not in ln]
+        for ln in others:
+            log(f"  sass (no bf16 operands): {ln.strip()}")
+        check(products and not hmma
+              and all(re.fullmatch(r"\.64x\d+x16\.F32\.BF16", kd)
+                      for kd in products),
+              f"dot_probe_kernel<{inst}>'s bf16 products in the SASS are not "
+              f"all HGMMA .64xNx16.F32.BF16, or an HMMA remains")
+        check(all(noop.search(ln) for ln in others),
+              f"dot_probe_kernel<{inst}>'s SASS holds an HGMMA without bf16 "
+              f"operands that is not the predicated-off no-op")
+    # ptxas' wgmma remarks; a serialized wgmma (C7510 / C7520) fails the
+    # check in the k-complete instantiation, the one every shape of the
+    # probe's list runs
+    remarks = [ln.strip() for ln in build.build_log(
+        "probe_megakernel").splitlines()
+        if re.search("GMMA|warpgroup|wgmma", ln)]
+    for ln in remarks:
+        log(f"  ptxas remark: {ln}")
+    check(not any("serialized" in ln and "dot_probe_kernelILb0E" in ln
+                  for ln in remarks),
+          "ptxas serializes dot_probe_kernel<0>'s wgmma instructions")
 
     # the probe's own main, launch counts zeroed before and read after;
     # then pool3, which main leaves out as the TPU probe does
@@ -792,10 +856,10 @@ def probe_phase(dev, card) -> list[dict]:
         lib_ms = time_ms(lib, iters=3, warmup=1)
         del lib
         torch.cuda.empty_cache()
-        hmma_n = ndots * grid * (m // 16) * (n // 8) * (k // 16)
+        wgmma_n = pm.wgmma_count(m, k, n, ndots, grid)
         log(f"time probe dot[{mode}] M={m} K={k} N={n} ndots={ndots} grid="
             f"{grid}: {r['ms']:.4f} ms a launch, {r['tflops']:.1f} TFLOP/s, "
-            f"{r['ns_per_dot']:.1f} ns/dot ({hmma_n} HMMA a launch); bound "
+            f"{r['ns_per_dot']:.1f} ns/dot ({wgmma_n} wgmma a launch); bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}, {flops / 1e9:.1f} GFLOP at the bf16 "
             f"peak), roofline share {bnd[0] / r['ms']:.3f}; torch.matmul of "
             f"the same bf16 products {lib_ms:.4f} ms "

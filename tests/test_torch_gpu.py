@@ -23,7 +23,7 @@ normalize_rows' clips); K1's folds at each tier as the tier's unfolded kernel (t
 tier's flip-free impulse check with the frontend fold alone: the normalize
 fold makes every sample in the clip non-zero), the folded badwinner2 chain's
 f32 logits within 1e-4 of max |logit| of the unfused chain's; the probe's
-K3 within 1e-5 of max |out| (5e-5 in "accum", whose chunks meet through
+K3 within 1e-5 of max |out| (5e-5 in "accum", whose units meet through
 atomics) and K4 bitwise.  TF32 is off for the plain versions' einsums and
 the CNN.
 """
@@ -711,9 +711,15 @@ DOT_REL = {"store": 1e-5, "brot": 1e-5, "accum": 5e-5}
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["store", "accum", "brot"])
 @pytest.mark.parametrize("m,k,n,ndots,grid", [
-    (64, 640, 512, 9, 2),    # chunked: 2 chunks of dots per tile
+    (64, 640, 512, 9, 2),     # 144 dot-tiles: one or two a block
+    (64, 640, 512, 512, 8),   # the probe's first shape
     (128, 128, 128, 17, 3),
-    (64, 64, 256, 40, 1),    # many chunks, a short last one
+    (64, 64, 256, 40, 1),
+    (64, 768, 128, 13, 2),    # k = 768; ndots not a multiple of 4 or 8
+    (512, 640, 128, 10, 1),   # m = 512 with n = 128; grid 1
+    (64, 640, 128, 300, 1),   # runs of (j, tile) cut into 4-5 dot units
+    (64, 1024, 128, 9, 2),    # k past one fill: phases of 896 and 128
+    (128, 2048, 128, 6, 1),   # three phases
 ])
 def test_dot_probe_kernel_matches_plain(mode, m, k, n, ndots, grid):
     from audio_training_tpu_torch.probes import probe_megakernel as pm
@@ -727,6 +733,66 @@ def test_dot_probe_kernel_matches_plain(mode, m, k, n, ndots, grid):
     want = pm.dot_probe_plain(0.5, a, b, ndots, grid, mode)
     assert got.shape == want.shape == (8 * grid, 128)
     assert _rel(got, want) < DOT_REL[mode]
+
+
+def _dot_scratch_plain(a, b, ndots, grid, mode):
+    """What the kernel leaves in its whole scratch, computed plainly:
+    "store"/"brot" (grid, 8, m, n), slot r the last d_i with i % 8 == r
+    (slots past ndots unwritten, None); "accum" the (grid, m, n) sums."""
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    af, bf = a.float(), b.float()
+    idx = torch.arange(ndots, device=a.device) % 4
+    prods = (torch.matmul(af[0], bf[idx]) if mode == "brot"
+             else torch.matmul(af[idx], bf))
+    if mode == "accum":
+        acc = torch.full(prods.shape[1:], 0.5 * 1e-30, device=a.device)
+        for d in prods:
+            acc = acc + d
+        return acc.expand(grid, *acc.shape)
+    last = [max(i for i in range(ndots) if i % pm.SLOTS == r)
+            if r < ndots else None for r in range(pm.SLOTS)]
+    return [prods[i] if i is not None else None for i in last]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["store", "accum", "brot"])
+@pytest.mark.parametrize("m,k,n,ndots,grid", [
+    (128, 640, 192, 13, 2),   # every row of the fragment, tiles tm, tn > 0
+    (192, 1024, 128, 6, 1),   # two k phases; slots 6, 7 unwritten
+])
+def test_dot_probe_kernel_scratch_matches_plain(mode, m, k, n, ndots, grid):
+    """Every element the kernel writes, not only the (8, 128) output: each
+    slot's d_i in "store"/"brot", in "accum" the sums (the scratch outside
+    the output block, the output inside it), at the same limits."""
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    dev = _card()
+    a, b = pm.dot_inputs(m, k, n, mode, dev)
+    out, scratch = pm._dot_launch(0.5, a, b, ndots, grid, mode)
+    torch.cuda.synchronize()
+    want = _dot_scratch_plain(a, b, ndots, grid, mode)
+    if mode == "accum":
+        got = scratch.clone()
+        got[:, :8, :128] += out.reshape(grid, 8, 128)
+        assert _rel(got, want) < DOT_REL[mode]
+        return
+    for g in range(grid):
+        for r, w in enumerate(want):
+            if w is not None:
+                assert _rel(scratch[g, r], w) < DOT_REL[mode], (g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(64, 1000, 128), (64, 96, 128),
+                                   (100, 640, 128), (64, 640, 160)])
+def test_dot_probe_kernel_refuses_what_it_does_not_take(m, k, n):
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    dev = _card()
+    a, b = pm.dot_inputs(m, k, n, "store", dev)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        pm.dot_probe(0.5, a, b, 9, 1, "store")
 
 
 @pytest.mark.gpu
