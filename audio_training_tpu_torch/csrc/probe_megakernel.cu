@@ -77,18 +77,45 @@
 // Mosaic could not lower "pool3"; here it is one more strided read.
 //
 // What bounds it.  The input (m x lanes f32) is read once and the output is
-// 4 KB a step, so the bytes take well under a microsecond; the f32 adds and
-// maxima (nops x grid x the region's elements) bound it, at the card's 67
-// TFLOP/s f32 peak.  In practice the shared-memory traffic bounds it.
+// 4 KB a step, so device memory takes well under a microsecond.  The work
+// is nops x grid iterations, each an f32 add (pool3: three adds and two
+// maxima) for every element of the mode's region and a store of the region
+// to on-chip memory, as the TPU loop stores its scratch.  On the H100 the
+// adds and maxima issue at 128 a clock an SM and the stores at 128 bytes a
+// clock an SM (132 SMs at about 1.98 GHz: 33.5 T instructions/s, 33.5
+// TB/s): at the probe's first shape (64 x 640, 2048 ops, grid 8) shift1
+// stores 2.15 GB, 0.064 ms, and adds 537 M times, 0.016 ms.  So the stores
+// bound every mode but pool3, whose 5 operations an element bound it.  The
+// loads of x take the same shared-memory pipe as the stores, so shift1,
+// roll and copyblk cannot run faster than about twice the store bound.
 //
-// Design.  One block takes 8 rows of x for one grid step (grid (m/8,
-// steps)), stages them in shared memory, and runs the nops iterations into a
-// shared scratch of the same shape.  Both are read and written through
-// volatile pointers, so every iteration re-reads x and stores its whole
-// region, as the TPU kernel's loop does (no store of an overwritten
-// iteration may be dropped, no load hoisted).  Every value is one IEEE f32
-// add or max of the same operands as the plain version: the outputs agree
-// bitwise.
+// Design.  A step's region is cut into items of 4 adjacent output lanes of
+// one row (a row's quads, the last one partial where the width is not a
+// multiple of 4), numbered row-major; thread t of block b of step g takes
+// item b x threads + t, and the host plans the block size
+// (probes/probe_megakernel.py::shift_plan): 128 threads, or 64 or 32 where
+// fewer would leave the card under two blocks an SM (at the probe's shapes
+// 512 / 640 / 344 / 384 blocks of 4 / 4 / 2 / 4 warps for shift1 / roll /
+// pool3 / copyblk on 132 SMs; copyblk's region has min(m, 192) rows, so no
+// block idles).  A block stages the rows its items touch (x_lanes a row,
+// zero-padded to a multiple of 4) in shared memory once, and keeps its
+// part of the scratch beside them (4 quads lanes a row, so a warp's stores
+// are one contiguous run).  Every iteration, each thread reads its operands
+// with 16-byte ld.shared.v4 (pool3: three, the stride-3 windows of its 4
+// outputs), adds, and stores its quad with one st.shared.v4 (scalar stores
+// for a partial quad).  shift1 and roll read x[4q + 1 .. 4q + 4]: the
+// aligned quad x[4q .. 4q + 3] and, for the fourth, the next lane's first
+// element by __shfl_down_sync; lane 31 and the last quad of a row load it
+// alone (roll's wraps to x[0]); four scalar loads instead took 1.9x the
+// time on the H100 (ops/cuda/ablate.py --probe).  The loads and stores
+// are asm volatile PTX: the compiler may neither drop an overwritten
+// iteration's stores nor hoist the loop-invariant loads, yet nothing
+// orders one access after another beyond program order, so a warp's loads
+// of one iteration are in flight together.  Each value is one IEEE f32 add
+// or max of the same operands as the plain version: the outputs agree
+// bitwise.  After the last iteration each thread holding a quad of rows
+// 0-7, lanes 0-127 reads it back from the scratch into the step's output
+// block.
 //
 // Plain C interface, loaded with ctypes.  Every entry point launches on the
 // stream it is given and returns cudaGetLastError().
@@ -335,61 +362,123 @@ dot_probe_kernel(float salt, const __nv_bfloat16* __restrict__ ap,
   }
 }
 
-constexpr int SHIFT_ROWS = 8;        // rows of x per block
-constexpr int SHIFT_THREADS = 256;
-constexpr int SHIFT1_WIDTH = 512;    // scr[:, :512] = y[:, 1:513]
-constexpr int POOL3_WIDTH = 169;     // 0:507:3
-constexpr int COPY_ROWS = 192;       // scr[:192, :128]
-constexpr int COPY_WIDTH = 128;
+constexpr int SHIFT_MAX_THREADS = 128;  // the largest block shift_plan takes
 
-// grid (m / 8, steps), SHIFT_THREADS threads, 2 x 8 x lanes f32 of shared
-// memory.
-__global__ void __launch_bounds__(SHIFT_THREADS)
+// asm volatile shared-memory accesses (addresses in the shared window):
+// never dropped or hoisted out of the iteration loop, not ordered beyond
+// program order
+__device__ __forceinline__ float4 lds4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ float lds1(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void sts4(uint32_t a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w));
+}
+
+__device__ __forceinline__ void sts1(uint32_t a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" :: "r"(a), "f"(v));
+}
+
+// the first n (1..4) lanes of v; a whole quad in one access
+__device__ __forceinline__ void store_quad(uint32_t a, float4 v, int n) {
+  if (n == 4) {
+    sts4(a, v);
+  } else {
+    sts1(a, v.x);
+    if (n > 1) sts1(a + 4, v.y);
+    if (n > 2) sts1(a + 8, v.z);
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 v, float c) {
+  return make_float4(__fadd_rn(v.x, c), __fadd_rn(v.y, c), __fadd_rn(v.z, c),
+                     __fadd_rn(v.w, c));
+}
+
+__device__ __forceinline__ float max3(float a, float b, float c, float s) {
+  return fmaxf(fmaxf(__fadd_rn(a, s), __fadd_rn(b, s)), __fadd_rn(c, s));
+}
+
+// grid (blocks, steps) of shift_plan's threads; rows x quads items a step,
+// each 4 output lanes (width a row) of one row; dynamic shared memory:
+// smem_rows x (x_lanes + 4 quads) f32.
+template <int kMode>
+__global__ void __launch_bounds__(SHIFT_MAX_THREADS)
 shift_probe_kernel(float salt, const float* __restrict__ x, int lanes,
-                   int nops, int mode, float* __restrict__ out) {
-  extern __shared__ float smem_shift[];
-  volatile float* xs = smem_shift;                      // 8 rows of x
-  volatile float* scr = smem_shift + SHIFT_ROWS * lanes;  // their scratch
+                   int nops, int rows, int quads, int width, int x_lanes,
+                   float* __restrict__ out) {
+  extern __shared__ float4 smem_shift[];
+  const int threads = blockDim.x;
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * SHIFT_ROWS;
-  for (int e = tid; e < SHIFT_ROWS * lanes; e += SHIFT_THREADS)
-    xs[e] = x[static_cast<size_t>(r0) * lanes + e];
-  __syncthreads();
-
-  const int rows =
-      mode == COPYBLK ? max(0, min(SHIFT_ROWS, COPY_ROWS - r0)) : SHIFT_ROWS;
-  const int width = mode == SHIFT1 ? SHIFT1_WIDTH
-                    : mode == ROLL ? lanes
-                    : mode == POOL3 ? POOL3_WIDTH
-                                    : COPY_WIDTH;
-  for (int i = 0; i < nops; ++i) {
-    const float c = __fadd_rn(static_cast<float>(i % 4), salt);
-    for (int r = 0; r < rows; ++r) {
-      volatile float* xr = xs + r * lanes;
-      volatile float* sr = scr + r * lanes;
-      for (int j = tid; j < width; j += SHIFT_THREADS) {
-        float v;
-        if (mode == SHIFT1) {
-          v = __fadd_rn(xr[j + 1], c);
-        } else if (mode == ROLL) {
-          v = __fadd_rn(xr[j + 1 == lanes ? 0 : j + 1], c);
-        } else if (mode == POOL3) {
-          v = fmaxf(fmaxf(__fadd_rn(xr[3 * j], c), __fadd_rn(xr[3 * j + 1], c)),
-                    __fadd_rn(xr[3 * j + 2], c));
-        } else {
-          v = __fadd_rn(__fadd_rn(xr[j], c), 1.0f);
-        }
-        sr[j] = v;
-      }
-    }
+  const int lane = tid % 32;
+  const int scr_lanes = 4 * quads;
+  const int first = blockIdx.x * threads;  // the block's first item
+  const int r0 = first / quads;
+  const int nrows = min(rows - 1, (first + threads - 1) / quads) - r0 + 1;
+  float* xs = reinterpret_cast<float*>(smem_shift);  // nrows x x_lanes
+  for (int e = tid; e < nrows * x_lanes; e += threads) {
+    const int r = e / x_lanes;
+    const int l = e - r * x_lanes;
+    xs[e] = l < lanes ? x[static_cast<size_t>(r0 + r) * lanes + l] : 0.f;
   }
   __syncthreads();
-  if (blockIdx.x != 0) return;
-  for (int e = tid; e < OUT_ROWS * OUT_COLS; e += SHIFT_THREADS) {
-    const int r = e / OUT_COLS;
-    const int c = e % OUT_COLS;
-    out[(static_cast<size_t>(blockIdx.y) * OUT_ROWS + r) * OUT_COLS + c] =
-        scr[r * lanes + c];
+
+  const int item = first + tid;
+  const bool live = item < rows * quads;
+  const int row = item / quads;
+  const int q = item - row * quads;
+  const int n = min(4, width - 4 * q);  // output lanes of the quad
+  const uint32_t xa = smem_u32(xs + (row - r0) * x_lanes);
+  const uint32_t sa =
+      smem_u32(xs + nrows * x_lanes + (row - r0) * scr_lanes) + 16 * q;
+  // shift1 / roll: the source of the quad's last output lane, 4q + n (roll
+  // wraps it to 0); the next lane holds it unless the quad ends a row or
+  // the warp
+  const int next = kMode == ROLL && 4 * q + n == lanes ? 0 : 4 * q + n;
+  const bool alone = lane == 31 || q == quads - 1;
+
+#pragma unroll 4
+  for (int i = 0; i < nops; ++i) {
+    const float c = __fadd_rn(static_cast<float>(i % 4), salt);
+    float4 v;
+    if constexpr (kMode == SHIFT1 || kMode == ROLL) {
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live) w = lds4(xa + 16 * q);
+      float nb = __shfl_down_sync(0xffffffffu, w.x, 1);
+      if (live && alone) nb = lds1(xa + 4 * next);
+      if (!live) continue;
+      // lanes 4q .. 4q + n - 1 read x[4q + 1 ..], the last of them nb
+      v = add4(make_float4(n == 1 ? nb : w.y, n == 2 ? nb : w.z,
+                           n == 3 ? nb : w.w, nb), c);
+    } else if constexpr (kMode == POOL3) {
+      if (!live) continue;
+      const float4 a = lds4(xa + 48 * q);
+      const float4 b = lds4(xa + 48 * q + 16);
+      const float4 d = lds4(xa + 48 * q + 32);
+      v = make_float4(max3(a.x, a.y, a.z, c), max3(a.w, b.x, b.y, c),
+                      max3(b.z, b.w, d.x, c), max3(d.y, d.z, d.w, c));
+    } else {
+      if (!live) continue;
+      v = add4(add4(lds4(xa + 16 * q), c), 1.0f);
+    }
+    store_quad(sa, v, n);
+  }
+  // the step's output block: scr[:8, :128] of the last iteration, each
+  // quad read back by the thread that stored it
+  if (live && row < OUT_ROWS && q < OUT_COLS / 4) {
+    reinterpret_cast<float4*>(
+        out + (static_cast<size_t>(blockIdx.y) * OUT_ROWS + row) * OUT_COLS)
+        [q] = lds4(sa);
   }
 }
 
@@ -420,18 +509,26 @@ int probe_dot(float salt, const void* ap, const void* bp, int m, int k, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (m, lanes) f32, m a multiple of 8; out: (8 steps, 128) f32.
-int probe_shift(float salt, const float* x, int m, int lanes, int nops,
-                int steps, int mode, float* out, void* stream) {
-  const size_t smem = sizeof(float) * 2 * SHIFT_ROWS * lanes;
+// x: (m, lanes) f32; the plan of probes/probe_megakernel.py::shift_plan
+// (rows x quads items a step, the region's width, x_lanes staged a row,
+// threads and blocks a step, smem_rows rows staged at most a block); out:
+// (8 steps, 128) f32.
+int probe_shift(float salt, const float* x, int lanes, int nops, int steps,
+                int mode, int rows, int quads, int width, int x_lanes,
+                int threads, int blocks, int smem_rows, float* out,
+                void* stream) {
+  const auto kernel = mode == SHIFT1  ? shift_probe_kernel<SHIFT1>
+                      : mode == ROLL  ? shift_probe_kernel<ROLL>
+                      : mode == POOL3 ? shift_probe_kernel<POOL3>
+                                      : shift_probe_kernel<COPYBLK>;
+  const int smem =
+      static_cast<int>(sizeof(float)) * smem_rows * (x_lanes + 4 * quads);
   cudaError_t err = cudaFuncSetAttribute(
-      shift_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(m / SHIFT_ROWS, steps);
-  shift_probe_kernel<<<grid, SHIFT_THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      salt, x, lanes, nops, mode, out);
+  kernel<<<dim3(blocks, steps), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(salt, x, lanes, nops, rows,
+                                                quads, width, x_lanes, out);
   return static_cast<int>(cudaGetLastError());
 }
 

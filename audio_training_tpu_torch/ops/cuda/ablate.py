@@ -1,6 +1,9 @@
-"""Where K1's mel kernels spend their time, on a CUDA card.
+"""Where K1's mel kernels, its PCEN epilogue and the probe's K4 spend their
+time, on a CUDA card.
 
     python3 -m audio_training_tpu_torch.ops.cuda.ablate [--tier TIER ...]
+    python3 -m audio_training_tpu_torch.ops.cuda.ablate --probe
+    python3 -m audio_training_tpu_torch.ops.cuda.ablate --pcen
 
 Builds variants of ``csrc/fused_featurizer.cu`` in which one part of a mel
 kernel is cut out or changed (the source text replaced), and times each
@@ -44,6 +47,25 @@ tier times its own kernel):
 - ``cluster_scope``: the ring's mbarrier waits and arrives with
   ``.acquire`` / ``.release`` at ``.cluster`` scope, not their default
   ``.cta`` semantics.
+
+``--probe`` builds ``csrc/probe_megakernel.cu`` twice instead and times the
+megakernel probe's K4 (``shift_probe_kernel``) in shift1 and roll at the
+probe's shape (64 x 640, 2048 ops, grid 8): ``base`` takes the fourth
+operand of each quad from the next lane by ``__shfl_down_sync``,
+``shift_scalar`` all four operands by scalar loads.  Both compute the
+probe's function, and both are checked bitwise against its plain version.
+
+``--pcen`` times K1's PCEN epilogue (``pcen_kernel``, bf16 out) at B=256 and
+B=512 on the "default" tier's mel, twice in turns: ``base`` built from this
+checkout (checked bitwise against the built library) and three variants
+of it.  Each prints its largest error against the built library after
+PCEN's global min-max.  The variants:
+
+- ``fast_math``: the pointwise part with ``__expf`` / ``__logf`` /
+  ``__fdividef`` instead of the precise functions and the IEEE division;
+- ``ema_only``: no pointwise part (each frame stores its EMA);
+- ``copy_only``: no scan of the frames either (each chunk staged and
+  stored back).
 """
 
 from __future__ import annotations
@@ -123,6 +145,36 @@ _TC = {
         ("mbarrier.arrive.shared::cluster.b64 _, [ra];",
          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];")],
 }
+_SHIFT = {
+    "base": [],
+    "shift_scalar": [(
+        "      if (live) w = lds4(xa + 16 * q);\n"
+        "      float nb = __shfl_down_sync(0xffffffffu, w.x, 1);\n"
+        "      if (live && alone) nb = lds1(xa + 4 * next);\n",
+        "      float nb = 0.f;\n"
+        "      if (live) {\n"
+        "        w.y = lds1(xa + 16 * q + 4);\n"
+        "        w.z = lds1(xa + 16 * q + 8);\n"
+        "        w.w = lds1(xa + 16 * q + 12);\n"
+        "        nb = lds1(xa + 4 * next);\n"
+        "      }\n")],
+}
+_PCEN_POINTWISE = (
+    "        const float smooth_pow = expf(gn * logf(eps + m));\n"
+    "        x[a + k] =\n"
+    "            expf(one_over_root * logf(v / smooth_pow + bias)) - bias_root;")
+_PCEN = {
+    "base": [],
+    "fast_math": [(_PCEN_POINTWISE,
+                   "        const float smooth_pow = __expf(gn * __logf(eps + m));\n"
+                   "        x[a + k] = __expf(one_over_root * __logf(\n"
+                   "            __fdividef(v, smooth_pow) + bias)) - bias_root;")],
+    "ema_only": [(_PCEN_POINTWISE, "        x[a + k] = m;")],
+    "copy_only": [("const int run = max(0, min(PCEN_RUN, len - a));",
+                   "const int run = 0;")],
+}
+
+
 class Tier(NamedTuple):
     """A tier, the batch and output type it is timed at."""
     precision: str
@@ -137,36 +189,41 @@ TIERS = {
 }
 
 
-def build_variants(out_dir: Path, variants: dict) -> dict[str, ctypes.CDLL]:
-    """Compile every variant (all nvcc processes at once) and load it."""
+def build_variants(out_dir: Path, variants: dict, name: str = "fused_featurizer",
+                   real=None) -> dict[str, ctypes.CDLL]:
+    """Compile every variant of ``csrc/<name>.cu`` (all nvcc processes at
+    once) and load it, its entry points typed as ``real``'s (the built
+    library's loader; default K1's)."""
     # the shared header inlined, so that a variant may replace its text too
-    source = (build.CSRC_DIR / "fused_featurizer.cu").read_text().replace(
+    source = (build.CSRC_DIR / f"{name}.cu").read_text().replace(
         '#include "hopper_ptx.cuh"',
         (build.CSRC_DIR / "hopper_ptx.cuh").read_text().replace(
             "#pragma once\n", ""))
     procs = {}
-    for name, subs in variants.items():
+    for variant, subs in variants.items():
         text = source
         for old, new in subs:
             if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in source")
+                raise RuntimeError(f"variant {variant}: {old!r} not in source")
             text = text.replace(old, new)
-        (out_dir / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
+        (out_dir / f"{variant}.cu").write_text(text)
+        procs[variant] = subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-             str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")],
+             str(out_dir / f"{variant}.so"), str(out_dir / f"{variant}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    real = ffz._library()
+    real = (real or ffz._library)()
     libs = {}
-    for name, proc in procs.items():
+    for variant, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for entry in ("ff_mel_power", "ff_mel_bf16", "ff_mel_bf16x3"):
-            fn, want = getattr(lib, entry), getattr(real, entry)
-            fn.argtypes, fn.restype = want.argtypes, want.restype
-        libs[name] = lib
+            raise RuntimeError(f"nvcc failed for variant {variant}:\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"{variant}.so"))
+        for entry in ("ff_mel_power", "ff_mel_bf16", "ff_mel_bf16x3",
+                      "ff_pcen", "probe_shift"):
+            if hasattr(real, entry):
+                fn, want = getattr(lib, entry), getattr(real, entry)
+                fn.argtypes, fn.restype = want.argtypes, want.restype
+        libs[variant] = lib
     return libs
 
 
@@ -210,17 +267,91 @@ def ablate(tier: Tier, libs: dict[str, ctypes.CDLL], dev) -> None:
         ffz._library = real
 
 
+def ablate_shift(libs: dict[str, ctypes.CDLL], dev) -> None:
+    """K4's shift1 and roll with each variant, twice in turns."""
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    x = pm.shift_input(64, 640, dev)
+    real = pm._library
+    try:
+        for rnd in range(2):
+            for name, lib in libs.items():
+                pm._library = lambda lib=lib: lib
+                for mode in ("shift1", "roll"):
+                    same = torch.equal(pm.shift_probe(0.25, x, 7, 8, mode),
+                                       pm.shift_probe_plain(0.25, x, 7, 8,
+                                                            mode))
+                    ms = time_ms(lambda: pm.shift_probe(0.0, x, 2048, 8,
+                                                        mode))
+                    print(f"probe {mode} (64x640, 2048 ops, grid 8) round "
+                          f"{rnd} {name:13s} {ms:.4f} ms; bitwise the plain "
+                          f"version: {same}", flush=True)
+    finally:
+        pm._library = real
+
+
+def ablate_pcen(libs: dict[str, ctypes.CDLL], dev) -> None:
+    """K1's PCEN epilogue with each library, at B=256 and 512, twice in
+    turns."""
+    from audio_training_tpu_torch.ops.pcen import normalize_minmax_global
+
+    cfg = FeaturizerConfig()
+    fz = ffz.FusedFeaturizer(build_mel_weights(cfg), precision="default",
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    real = ffz._library
+    for batch in (256, 512):
+        mel = fz(normalize_rows(torch.randn(
+            batch, cfg.samples_per_clip, device=dev, generator=gen)),
+            pcen=False)
+        want = ffz.pcen_rows(mel, fz.pcen_params)
+        try:
+            for rnd in range(2):
+                for name, lib in libs.items():
+                    ffz._library = lambda lib=lib: lib
+                    got = ffz.pcen_rows(mel, fz.pcen_params)
+                    err = (normalize_minmax_global(got)
+                           - normalize_minmax_global(want)).abs().max()
+                    ms = time_ms(lambda: ffz.pcen_rows(
+                        mel, fz.pcen_params, torch.bfloat16))
+                    print(f"pcen B={batch} round {rnd} {name:9s} {ms:.4f} ms; "
+                          f"bitwise the built kernel: {torch.equal(got, want)}"
+                          f", max abs err after the min-max {err.item():.3e}",
+                          flush=True)
+        finally:
+            ffz._library = real
+        del mel, want
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tier", action="append", choices=list(TIERS),
-                        help="a tier to ablate (repeatable; default: all)")
+                        help="a tier to ablate (repeatable; default: all "
+                        "unless --probe or --pcen)")
+    parser.add_argument("--probe", action="store_true",
+                        help="time K4's shift1 / roll operand variants")
+    parser.add_argument("--pcen", action="store_true",
+                        help="time K1's PCEN epilogue at B=256 and 512")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
-    tiers = [TIERS[t] for t in (args.tier or TIERS)]
+    alone = args.probe or args.pcen
+    tiers = [TIERS[t] for t in (args.tier or ([] if alone else TIERS))]
     ffz._library()  # the built library, which also makes the build dir
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as tmp:
+        if args.probe:
+            from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+            out = Path(tmp) / "probe"
+            out.mkdir()
+            ablate_shift(build_variants(out, _SHIFT, "probe_megakernel",
+                                        pm._library), dev)
+        if args.pcen:
+            out = Path(tmp) / "pcen"
+            out.mkdir()
+            ablate_pcen(build_variants(out, _PCEN), dev)
         built = {}  # the tensor-core tiers share their variants
         for tier in tiers:
             variants = _EXACT if tier.precision == "highest" else _TC

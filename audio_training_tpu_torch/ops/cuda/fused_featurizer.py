@@ -932,8 +932,9 @@ def pcen_rows(
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The PCEN epilogue on a (B, M, T) f32 mel power: the un-normalized
-    PCEN image in ``out_dtype``.  On CUDA the kernel runs one thread per
-    (clip, mel) row walking the frames; on the CPU the plain version,
+    PCEN image in ``out_dtype``.  On CUDA the kernel runs the EMA of each
+    (clip, mel) row as a chunked scan over one warp's lanes; on the CPU the
+    plain version,
     ``ops.pcen.pcen(mel, *params, time_axis=2, normalize=False)``."""
     if mel.ndim != 3 or mel.dtype != torch.float32:
         raise ValueError(

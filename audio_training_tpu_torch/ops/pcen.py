@@ -5,8 +5,11 @@
 The EMA smoother ``m_t = w*x_t + (1-w)*m_{t-1}`` is the reference's own
 sequential recurrence, one step per frame.  The JAX package rewrites it as an
 associative scan or a Toeplitz matmul for the TPU; here the recurrence is the
-plain version that the CUDA PCEN kernel is held against, and the kernel runs
-the same recurrence per (clip, mel) row.
+plain version that the CUDA PCEN kernel is held against.  The kernel
+(``csrc/fused_featurizer.cu::pcen_kernel``) reassociates it as a chunked
+scan: each lane of a warp runs the EMA over its own run of frames from a
+zero seed, the runs' affine maps are composed across the lanes, and each
+frame adds its decayed carry (tests/test_torch_pcen_plan.py models it).
 """
 
 from __future__ import annotations

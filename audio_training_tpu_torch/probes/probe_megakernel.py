@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,9 +39,9 @@ DOT_MODES = ("store", "accum", "brot")
 SHIFT_MODES = ("shift1", "roll", "pool3", "copyblk")
 DOT_TILE = 64  # the dot kernel's output tile (64 x 64) and operand tiles
 
-# the lanes each shift mode reads (x[:, 1:513], x[:, 2:509:3], the 128
-# output lanes)
-_SHIFT_MIN_LANES = {"shift1": 513, "roll": OUT_COLS, "pool3": 509,
+# the lanes each shift mode reads (x[:, 1:513], x[:, 2:509:3] up to lane
+# 506, the 128 output lanes)
+_SHIFT_MIN_LANES = {"shift1": 513, "roll": OUT_COLS, "pool3": 507,
                     "copyblk": OUT_COLS}
 
 _LAUNCHES = {**{f"probe_dot_{m}": 0 for m in DOT_MODES},
@@ -63,7 +64,7 @@ def _library() -> ctypes.CDLL:
     lib.probe_dot.argtypes = [f32, ptr, ptr, i32, i32, i32, i32, i32, ptr,
                               i32, ptr, ptr, ptr]
     lib.probe_dot.restype = i32
-    lib.probe_shift.argtypes = [f32, ptr, i32, i32, i32, i32, i32, ptr, ptr]
+    lib.probe_shift.argtypes = [f32, ptr, *[i32] * 11, ptr, ptr]
     lib.probe_shift.restype = i32
     return lib
 
@@ -259,6 +260,48 @@ def _shift_shapes(x: torch.Tensor, nops: int, grid: int,
     return m, lanes
 
 
+class ShiftPlan(NamedTuple):
+    """K4's partition of one step's region: ``rows`` x ``quads`` items,
+    each 4 adjacent output lanes of one row (``width`` lanes a row, the
+    last quad partial where width % 4), item b x threads + t to thread t
+    of block b; a block stages ``x_lanes`` lanes of each row its items
+    touch (at most ``smem_rows``) and keeps 4 quads scratch lanes a row."""
+    rows: int
+    quads: int
+    width: int
+    x_lanes: int
+    threads: int
+    blocks: int
+    smem_rows: int
+
+
+# block sizes shift_plan tries, largest first
+SHIFT_THREADS = (128, 64, 32)
+
+
+@functools.lru_cache(maxsize=64)
+def shift_plan(mode: str, m: int, lanes: int, grid: int,
+               sms: int) -> ShiftPlan:
+    """The kernel's partition: the largest block of SHIFT_THREADS that
+    still gives the launch at least two blocks an SM (else 32 threads).
+    shift1 reads x[:, :513] (staged 516), roll all lanes, pool3 the 3
+    quads of each output quad (12 lanes an item), copyblk x[:192, :128]."""
+    rows = min(m, 192) if mode == "copyblk" else m
+    width = {"shift1": 512, "roll": lanes, "pool3": 169,
+             "copyblk": OUT_COLS}[mode]
+    quads = -(-width // 4)
+    x_lanes = {"shift1": 4 * quads + 4, "roll": 4 * quads,
+               "pool3": 12 * quads, "copyblk": OUT_COLS}[mode]
+    items = rows * quads
+    for threads in SHIFT_THREADS:
+        if -(-items // threads) * grid >= 2 * sms:
+            break
+    blocks = -(-items // threads)
+    smem_rows = max(min(rows - 1, ((b + 1) * threads - 1) // quads)
+                    - b * threads // quads + 1 for b in range(blocks))
+    return ShiftPlan(rows, quads, width, x_lanes, threads, blocks, smem_rows)
+
+
 def shift_probe_plain(salt: float, x: torch.Tensor, nops: int, grid: int,
                       mode: str) -> torch.Tensor:
     """The plain version of K4: each of the ``nops`` iterations in f32 (the
@@ -285,22 +328,23 @@ def shift_probe(salt: float, x: torch.Tensor, nops: int, grid: int = 8,
                 mode: str = "shift1") -> torch.Tensor:
     """K4: ``grid`` steps of ``nops`` iterations of ``mode`` on x, as
     ``docs/probes/probe_megakernel.py::shift_kernel`` computes them; returns
-    the (8 grid, 128) f32 output.  On CUDA the kernel (m a multiple of 8),
-    on the CPU :func:`shift_probe_plain`."""
+    the (8 grid, 128) f32 output.  On CUDA the kernel, on the CPU
+    :func:`shift_probe_plain`."""
     m, lanes = _shift_shapes(x, nops, grid, mode)
     if x.device.type == "cpu":
         return shift_probe_plain(salt, x, nops, grid, mode)
     if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError(f"no kernel for a {x.device} / non-contiguous x")
-    if m % OUT_ROWS:
-        raise ValueError(f"the kernel takes m a multiple of {OUT_ROWS}, "
-                         f"got {m}")
+    plan = shift_plan(mode, m, lanes, grid, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     out = torch.empty((OUT_ROWS * grid, OUT_COLS), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         _check(_library().probe_shift(
-            float(np.float32(salt)), x.data_ptr(), m, lanes, nops, grid,
-            SHIFT_MODES.index(mode), out.data_ptr(), _stream()),
+            float(np.float32(salt)), x.data_ptr(), lanes, nops, grid,
+            SHIFT_MODES.index(mode), plan.rows, plan.quads, plan.width,
+            plan.x_lanes, plan.threads, plan.blocks, plan.smem_rows,
+            out.data_ptr(), _stream()),
             f"shift probe ({mode})")
     _LAUNCHES[f"probe_shift_{mode}"] += 1
     return out

@@ -14,7 +14,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    each path's own batch: mel power f32 in tf framing (B=256) and centered
    framing (B=64, and a 28,100-sample clip where the two frame counts
    differ), global relative error < 1e-5; bf16 output bitwise the cast of
-   the f32 output; PCEN (absolute error < 1e-4); the power-mel kernel at
+   the f32 output; PCEN (absolute error < 1e-4 after its global min-max;
+   also at smooth 0, 0.04 and 1, at 1, 33, 513 and 7,300 frames on 15
+   rows, its
+   bf16 output bitwise the f32 cast); the power-mel kernel at
    the Predictor's n_fft=2048 shape (B=64 x 513 frames x 1025 bins x 160
    mels; a band walk over the bank's support), global relative error
    < 1e-5;
@@ -65,6 +68,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    path against the plain featurizer (1e-4), of "bf16_3x" against
    "highest" (1e-4) and of the folded 1-channel stem against the
    3-channel repeat (1e-5); timing of the bf16_3x kernel (plain, library,
+   bound), of the PCEN kernel alone on the "default" tier's mel (plain,
    bound), of the chain per tier (ms, audio-s/s, peak memory), its split
    into featurizer and CNN, a profile with the idle share, and the CNN in
    channels-last and NCHW layouts;
@@ -88,14 +92,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    K4 (``shift_probe_kernel``) in its four against their plain versions
    (K3 within ``DOT_REL`` of max |out|, in the output and in every element
    of its scratch, at small ndots, at the probe's first shape and at k past
-   one fill; K4 bitwise at small nops); the
+   one fill; K4 bitwise at small nops, at the probe's shapes and at rows
+   and lanes that split unevenly, m 8 and 72, lanes 513, 507 and 130, 1 and 3
+   steps); the
    SASS of K3 (its HGMMA instructions and no HMMA, by ``cuobjdump -sass``;
    ptxas' wgmma remarks); the probe's
-   ``main`` (the TPU probe's list) with launch counts, then ``pool3``; per
+   ``main`` (the TPU probe's list) with launch counts, then ``pool3``; K4
+   in each mode at nops 2048 and 8192 (3.6-4.4x the time: every iteration
+   is issued), the card's clocks sampled around main and that check; per
    shape the rate, the wgmma count, the bound and ``torch.matmul`` of the
    same bf16
-   products; per K4 mode one PyTorch call doing a launch's ops on views of
-   the input (``torch.roll``, the slice copies, a 3-lane ``amax``).
+   products; per K4 mode its bound (adds and maxima at the FP32 pipe's
+   rate, the region's stores at the SMs' shared-memory store rate) and one
+   PyTorch call doing a launch's ops on views of the input
+   (``torch.roll``, the slice copies, a 3-lane ``amax``).
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -174,6 +184,21 @@ UPDATE_OFF_FRAC = 5e-2
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# Per-SM rates (the CUDA C++ Programming Guide's throughput table for
+# compute capability 9.0) at the clock that the fp32 peak implies: 132 SMs
+# x 128 FP32 lanes x 2 flops an FMA.  FP32 adds and maxima issue at 128 a
+# clock an SM, shared-memory stores move 128 bytes a clock an SM, the MUFU
+# unit (ex2, lg2, rcp) returns 16 results a clock an SM.
+SMS = 132
+SM_CLOCK_HZ = PEAK_FP32_FLOPS / (2 * SMS * 128)
+FP32_INSTR_S = SMS * 128 * SM_CLOCK_HZ
+SMEM_STORE_BYTES_S = SMS * 128 * SM_CLOCK_HZ
+MUFU_S = SMS * 16 * SM_CLOCK_HZ
+# PCEN per element: 4 bytes in; four transcendentals (2 logf, 2 expf) at the
+# MUFU rate; the EMA (3 flops) and the pointwise arithmetic around them
+# (about 9) at the fp32 peak
+PCEN_TRANSCENDENTALS = 4
+PCEN_FLOPS = 12
 KERNEL_SOURCE = "audio_training_tpu_torch/csrc/fused_featurizer.cu"
 TPU_KERNEL = "audio_training_tpu/ops/pallas/fused_featurizer.py:286"
 MELSPEC_SOURCE = "audio_training_tpu_torch/csrc/melspec.cu"
@@ -313,6 +338,21 @@ def bound_ms(fp32_flops: float, nbytes: float,
     t_bytes = nbytes / PEAK_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def pcen_bound(elems: int, out_bytes: int) -> tuple[float, str, str]:
+    """PCEN's least time on (rows x frames) = elems elements: the larger of
+    its bytes (4 in, out_bytes out) at the memory rate and its operations
+    (the transcendentals at the MUFU rate, the rest at the fp32 peak, on
+    units that run side by side); in ms, with which, and the parts."""
+    t_bytes = elems * (4 + out_bytes) / PEAK_BYTES_S * 1e3
+    t_mufu = elems * PCEN_TRANSCENDENTALS / MUFU_S * 1e3
+    t_fp32 = elems * PCEN_FLOPS / PEAK_FP32_FLOPS * 1e3
+    parts = (f"bytes {t_bytes:.4f} ms, transcendentals {t_mufu:.4f} ms at "
+             f"the MUFU rate, fp32 {t_fp32:.4f} ms")
+    if t_bytes >= max(t_mufu, t_fp32):
+        return t_bytes, "bytes", parts
+    return max(t_mufu, t_fp32), "operations", parts
 
 
 def kernel_record(name: str, source: str, replaces: str, launches: int,
@@ -706,6 +746,14 @@ def cuobjdump_path() -> str:
     fail(f"no cuobjdump among {candidates}: K3's SASS cannot be checked")
 
 
+def smi_clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
 def probe_phase(dev, card) -> list[dict]:
     """Phase 9: the megakernel probe (K3 dot_probe_kernel, K4
     shift_probe_kernel) against its plain versions, the SASS of K3, the
@@ -760,17 +808,24 @@ def probe_phase(dev, card) -> list[dict]:
             check(rel < DOT_REL[mode] and rel_all < DOT_REL[mode],
                   f"dot probe ({mode}) disagrees")
             dot_err[mode] = max(dot_err[mode], err)
-    shift_err = {}
+    shift_err = dict.fromkeys(pm.SHIFT_MODES, 0.0)
     for mode in pm.SHIFT_MODES:
-        m, lanes = (256, 128) if mode == "copyblk" else (64, 640)
-        x = pm.shift_input(m, lanes, dev)
-        got = pm.shift_probe(0.25, x, 7, 8, mode)
-        want = pm.shift_probe_plain(0.25, x, 7, 8, mode)
-        same = torch.equal(got, want)
-        log(f"check probe shift[{mode}] ({m}x{lanes}, 7 ops, grid 8): "
-            f"bitwise the plain version: {same}")
-        check(same, f"shift probe ({mode}) disagrees")
-        shift_err[mode] = (got - want).abs().max().item()
+        # the probe's shape, then rows and lanes that split unevenly over
+        # warps and blocks (130 lanes: a partial last quad; pool3 takes 507
+        # lanes as JAX does), at 1 and 3 steps
+        wide = {"shift1": 513, "roll": 130, "pool3": 507, "copyblk": 130}[mode]
+        main_shape = (256, 128, 8) if mode == "copyblk" else (64, 640, 8)
+        shapes = [main_shape, (8, wide, 1), (72, wide, 3)]
+        for m, lanes, grid in shapes + [(72, 513, 3)] * (wide != 513):
+            x = pm.shift_input(m, lanes, dev)
+            got = pm.shift_probe(0.25, x, 7, grid, mode)
+            want = pm.shift_probe_plain(0.25, x, 7, grid, mode)
+            same = torch.equal(got, want)
+            log(f"check probe shift[{mode}] ({m}x{lanes}, 7 ops, grid "
+                f"{grid}): bitwise the plain version: {same}")
+            check(same, f"shift probe ({mode}) disagrees")
+            shift_err[mode] = max(shift_err[mode],
+                                  (got - want).abs().max().item())
 
     # the SASS: every product the rate counts is a wgmma (HGMMA) the kernel
     # issues, and none an mma.sync (HMMA), in both instantiations
@@ -822,11 +877,13 @@ def probe_phase(dev, card) -> list[dict]:
 
     # the probe's own main, launch counts zeroed before and read after;
     # then pool3, which main leaves out as the TPU probe does
+    log(f"clocks before the probe's main: {smi_clocks()}")
     torch.cuda.synchronize()
     pm.reset_launch_counts()
     results = pm.main()
     torch.cuda.synchronize()
     main_counts = pm.launch_counts()
+    log(f"clocks after the probe's main: {smi_clocks()}")
     log(f"path probe main: launches {main_counts}")
     check(all(main_counts[f"probe_dot_{m}"] > 0 for m in pm.DOT_MODES)
           and all(main_counts[f"probe_shift_{m}"] > 0
@@ -837,6 +894,21 @@ def probe_phase(dev, card) -> list[dict]:
     pool3 = pm.bench_shift("pool3")
     main_counts["probe_shift_pool3"] = pm.launch_counts()["probe_shift_pool3"]
     check(main_counts["probe_shift_pool3"] > 0, "pool3 did not launch")
+
+    # every iteration is issued: K4's time grows with nops (4x the
+    # iterations, 3.6-4.4x the time; at 2048 and 8192 launch overhead is
+    # a few percent), each mode timed at both counts here, after the dots
+    log(f"clocks before K4's nops scaling: {smi_clocks()}")
+    for r in results["shifts"] + [pool3]:
+        kw = {k: r[k] for k in ("mode", "m", "lanes", "grid")}
+        t2 = pm.bench_shift(**kw, nops=2048)["ms"]
+        t8 = pm.bench_shift(**kw, nops=8192)["ms"]
+        log(f"check probe shift[{r['mode']}] nops 8192 / 2048: {t8:.4f} / "
+            f"{t2:.4f} ms = {t8 / t2:.3f} (limits 3.6-4.4; the probe's main "
+            f"timed {r['ms']:.4f} ms at 2048) {card}")
+        check(3.6 <= t8 / t2 <= 4.4,
+              f"shift probe ({r['mode']}) time does not scale with nops")
+    log(f"clocks after K4's nops scaling: {smi_clocks()}")
 
     records, first = [], {}
     for r in results["dots"]:
@@ -875,16 +947,23 @@ def probe_phase(dev, card) -> list[dict]:
             main_counts[f"probe_dot_{mode}"], dot_err[mode], ms, plain_ms,
             bnd, lib_ms))
 
-    # per op of a grid step: shift1 m x 512 adds, roll m x lanes adds,
-    # pool3 m x 169 x (3 adds + 2 maxima), copyblk min(m, 192) x 128 x 2
-    per_op = {"shift1": lambda m, l: m * 512, "roll": lambda m, l: m * l,
-              "pool3": lambda m, l: m * 169 * 5,
-              "copyblk": lambda m, l: min(m, 192) * 128 * 2}
+    # K4's bound: the larger of its adds and maxima at the FP32 pipe's
+    # instruction rate and its stores of the region to shared memory at the
+    # SMs' store rate (device memory, x once and 4 KB a step out, takes
+    # well under a microsecond).  Per op of a grid step: the region's
+    # elements (shift1 m x 512, roll m x lanes, pool3 m x 169, copyblk
+    # min(m, 192) x 128) and 1 / 1 / 5 / 2 operations an element
+    region = {"shift1": lambda m, l: m * 512, "roll": lambda m, l: m * l,
+              "pool3": lambda m, l: m * 169,
+              "copyblk": lambda m, l: min(m, 192) * 128}
+    ops_per = {"shift1": 1, "roll": 1, "pool3": 5, "copyblk": 2}
     for r in results["shifts"] + [pool3]:
         mode, m, lanes, nops, grid = (r[key] for key in (
             "mode", "m", "lanes", "nops", "grid"))
-        bnd = bound_ms(per_op[mode](m, lanes) * nops * grid,
-                       m * lanes * 4 + 8 * grid * 128 * 4)
+        elems = region[mode](m, lanes) * nops * grid
+        t_ops = elems * ops_per[mode] / FP32_INSTR_S * 1e3
+        t_st = elems * 4 / SMEM_STORE_BYTES_S * 1e3
+        bnd = (max(t_ops, t_st), "operations" if t_ops >= t_st else "bytes")
         x = pm.shift_input(m, lanes, dev)
         plain_ms = time_ms(lambda: pm.shift_probe_plain(
             0.0, x, nops, grid, mode), iters=1, warmup=1)
@@ -902,7 +981,8 @@ def probe_phase(dev, card) -> list[dict]:
         torch.cuda.empty_cache()
         log(f"time probe shift[{mode}] ({m}x{lanes}, {nops} ops, grid "
             f"{grid}): {r['ms']:.4f} ms a launch, {r['ns_per_op']:.2f} ns/op; "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}), roofline share "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}: adds and maxima {t_ops:.4f} "
+            f"ms, stores to shared memory {t_st:.4f} ms), roofline share "
             f"{bnd[0] / r['ms']:.3f}; plain {plain_ms:.4f} ms; library (one "
             f"call over {nops * grid} views) {lib_ms:.4f} ms {card}")
         records.append(kernel_record(
@@ -1016,6 +1096,32 @@ def main() -> None:
     errs = [check_kernels(raw8), check_kernels(normalize_rows(clips(BATCH)))]
     mel_err = max(e[0] for e in errs)
     pcen_err = max(e[1] for e in errs)
+
+    # the PCEN kernel's edge cases on the B=8 mel: smooth 0 (d = 1), 0.04
+    # and 1 (d = 0); 1, 33, 513 and 7,300 frames (a chunk of 32 runs of 17
+    # holds 544; 7,300 frames, the clips' frames repeated, take 14); 15
+    # rows, not a multiple of a block's 8.  Held after PCEN's global
+    # min-max, as above; the bf16 output bitwise the f32 cast
+    mel8 = fz(raw8, pcen=False)[:3, :5].repeat(1, 1, 15)
+    for smooth in (0.0, 0.04, 1.0):
+        params = (*fz.pcen_params[:3], smooth, fz.pcen_params[4])
+        for n_t in (1, 33, 513, 7300):
+            m15 = mel8[..., :n_t].contiguous()
+            got = ffz.pcen_rows(m15, params)
+            want = pcen(m15, *params, time_axis=2, normalize=False)
+            err = (normalize_minmax_global(got)
+                   - normalize_minmax_global(want)).abs().max().item()
+            rel = (got - want).abs().max() / want.abs().max()
+            same = torch.equal(ffz.pcen_rows(m15, params, torch.bfloat16),
+                               got.to(torch.bfloat16))
+            log(f"check pcen kernel smooth={smooth} T={n_t} rows=15: max "
+                f"abs err {err:.3e} after the min-max (limit "
+                f"{PCEN_ABS_TOL}), un-normalized global rel err "
+                f"{rel.item():.3e}; bf16 bitwise the cast: {same}")
+            check(err < PCEN_ABS_TOL, "pcen kernel disagrees at an edge")
+            check(same, "bf16 pcen output differs from the cast f32 output")
+            pcen_err = max(pcen_err, err)
+    del mel8
 
     # centered framing: the Predictor's featurizer at n_fft=4096
     fzc = ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length, center=True,
@@ -1412,13 +1518,11 @@ def main() -> None:
     pcen_plain_ms = time_ms(lambda: pcen(
         mel_f32, *fz.pcen_params, time_axis=2,
         normalize=False).to(torch.bfloat16), iters=3)
-    elems = mel_f32.numel()
-    # per element: EMA 3 flops, PCEN pointwise ~9 (log/exp counted as 1)
-    pcen_bound_ms, pcen_bound_by = bound_ms(12 * elems, elems * (4 + 2))
+    pcen_bound_ms, pcen_bound_by, parts = pcen_bound(mel_f32.numel(), 2)
     log(f"time pcen kernel (bf16 out) B={BATCH}: {pcen_ms:.4f} ms, plain "
         f"{pcen_plain_ms:.4f} ms, bound {pcen_bound_ms:.4f} ms "
-        f"({pcen_bound_by}), roofline share {pcen_bound_ms / pcen_ms:.3f} "
-        f"{card}")
+        f"({pcen_bound_by}; {parts}), roofline share "
+        f"{pcen_bound_ms / pcen_ms:.3f} {card}")
 
     torch.cuda.reset_peak_memory_stats()
     chain_ms = time_ms(lambda: chain(requests[1]), iters=5)
@@ -1718,7 +1822,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     errs.append(check_kernels(normalize_rows(clips(BATCH_PCEN))))
     mel_err = max(e[0] for e in errs)
-    pcen_err = max(e[1] for e in errs)
+    pcen_err = max(pcen_err, max(e[1] for e in errs))
     torch.cuda.empty_cache()
 
     mn = build_model("mobilenet", NUM_LABELS, logits_only=True,
@@ -1829,6 +1933,22 @@ def main() -> None:
         f"ms, plain {d512_plain_ms:.4f} ms, library stft+matmul "
         f"{x3_lib_ms:.4f} ms, bound {d512_bound[0]:.4f} ms ({d512_bound[1]}"
         f"), roofline share {d512_bound[0] / d512_ms:.3f} {card}")
+
+    # the PCEN epilogue alone at the official line's batch, on the
+    # "default" tier's own mel (one launch a request there)
+    mel512 = fz16(raw512, pcen=False)
+    pcen512_ms = time_ms(lambda: ffz.pcen_rows(mel512, fz16.pcen_params,
+                                               torch.bfloat16))
+    pcen512_plain_ms = time_ms(lambda: pcen(
+        mel512, *fz16.pcen_params, time_axis=2,
+        normalize=False).to(torch.bfloat16), iters=2, warmup=1)
+    pcen512_bound = pcen_bound(mel512.numel(), 2)
+    log(f"time pcen kernel (bf16 out) B={BATCH_PCEN}: {pcen512_ms:.4f} ms, "
+        f"plain {pcen512_plain_ms:.4f} ms, bound {pcen512_bound[0]:.4f} ms "
+        f"({pcen512_bound[1]}; {pcen512_bound[2]}), roofline share "
+        f"{pcen512_bound[0] / pcen512_ms:.3f} {card}")
+    del mel512
+    torch.cuda.empty_cache()
 
     # the chain per tier, and its split into featurizer and CNN
     mn_mel = {t: make_mel_fn(cfg, device=dev, pcen=True, precision=t,
@@ -1947,6 +2067,11 @@ def main() -> None:
                       mn_counts["default"]["fused_featurizer_mel_bf16"],
                       bf16_err, d512_ms, d512_plain_ms, d512_bound,
                       x3_lib_ms),
+        kernel_record("fused_featurizer_pcen at B=512", KERNEL_SOURCE,
+                      TPU_KERNEL,
+                      mn_counts["default"]["fused_featurizer_pcen"],
+                      pcen_err, pcen512_ms, pcen512_plain_ms,
+                      pcen512_bound[:2], None),
     ]
     # ---- 8. the folded badwinner2 chain; 9. the megakernel probe --------
     kernels += folded_chain_phase(dev, cfg, mel_np, fz, clips, card)

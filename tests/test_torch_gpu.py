@@ -24,8 +24,11 @@ tier's flip-free impulse check with the frontend fold alone: the normalize
 fold makes every sample in the clip non-zero), the folded badwinner2 chain's
 f32 logits within 1e-4 of max |logit| of the unfused chain's; the probe's
 K3 within 1e-5 of max |out| (5e-5 in "accum", whose units meet through
-atomics) and K4 bitwise.  TF32 is off for the plain versions' einsums and
-the CNN.
+atomics) and K4 bitwise, also where rows and lanes split unevenly over
+its blocks; the PCEN kernel at its edge cases (smooth 0 / 0.04 / 1, 1 to
+7,300 frames, 15 rows) within 1e-4 after the global min-max, and from a
+mel off the 16-byte grid bitwise as from an aligned copy.  TF32 is off
+for the plain versions' einsums and the CNN.
 """
 
 import numpy as np
@@ -808,3 +811,62 @@ def test_shift_probe_kernel_matches_plain(mode, m, lanes):
     got = pm.shift_probe(0.25, x, 7, 3, mode)
     assert pm.launch_counts()[f"probe_shift_{mode}"] == 1
     assert torch.equal(got, pm.shift_probe_plain(0.25, x, 7, 3, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,m,lanes,grid", [
+    ("shift1", 8, 513, 1), ("shift1", 72, 513, 3), ("roll", 8, 130, 1),
+    ("roll", 72, 130, 3), ("roll", 72, 513, 3), ("pool3", 8, 507, 1),
+    ("pool3", 72, 513, 3), ("copyblk", 8, 130, 1), ("copyblk", 72, 130, 3)])
+def test_shift_probe_kernel_splits_rows_unevenly(mode, m, lanes, grid):
+    """K4 where rows and lanes fall unevenly over warps and blocks (130
+    lanes: a partial last quad; 72 rows: a partial last block) and at one
+    and three steps, bitwise its plain version."""
+    from audio_training_tpu_torch.probes import probe_megakernel as pm
+
+    dev = _card()
+    x = pm.shift_input(m, lanes, dev)
+    got = pm.shift_probe(0.25, x, 9, grid, mode)
+    assert torch.equal(got, pm.shift_probe_plain(0.25, x, 9, grid, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("smooth", [0.0, 0.04, 1.0])
+@pytest.mark.parametrize("frames", [1, 33, 513, 1000, 7300])
+def test_pcen_kernel_edge_cases(frames, smooth):
+    """The PCEN kernel on 15 rows (not a multiple of a block's 8) of mel
+    power, at smooth 0 (d = 1) and 1 (d = 0), one frame, one frame past a
+    run, one chunk, two chunks and 14 (7,300 frames: 29 KB a row, more
+    than a block's 8 rows would fit in shared memory at once): within 1e-4
+    of the plain version after PCEN's global min-max, its bf16 output
+    bitwise the f32 cast."""
+    from audio_training_tpu_torch.ops.pcen import normalize_minmax_global
+
+    dev = _card()
+    rng = np.random.default_rng(frames)
+    mel = np.exp(rng.normal(-4.0, 2.0, (3, 5, frames))).astype(np.float32)
+    mel = torch.from_numpy(mel).to(dev)
+    params = (0.98, 2.0, 2.0, smooth, 1e-6)
+    ffz.reset_launch_counts()
+    got = ffz.pcen_rows(mel, params)
+    assert ffz.launch_counts()["fused_featurizer_pcen"] == 1
+    want = pcen(mel, *params, time_axis=2, normalize=False)
+    err = (normalize_minmax_global(got) - normalize_minmax_global(want))
+    assert err.abs().max() < PCEN_ABS
+    assert torch.equal(ffz.pcen_rows(mel, params, torch.bfloat16),
+                       got.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_pcen_kernel_takes_an_unaligned_mel(offset):
+    """A mel view 4, 8 or 12 bytes past a 16-byte boundary: the kernel
+    stages each chunk from its own phase, bitwise as from an aligned copy."""
+    dev = _card()
+    base = torch.rand(160 * 513 + offset, device=dev)
+    mel = base[offset:].view(1, 160, 513)
+    assert mel.data_ptr() % 16 == 4 * offset
+    params = (0.98, 2.0, 2.0, 0.04, 1e-6)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(ffz.pcen_rows(mel, params, dtype),
+                           ffz.pcen_rows(mel.clone(), params, dtype))

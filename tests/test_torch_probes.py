@@ -140,7 +140,7 @@ def test_dot_probe_modes_differ_where_they_should(jax_probe):
 
 @pytest.mark.parametrize("mode,m,lanes", [
     ("shift1", 16, 640), ("roll", 16, 640), ("pool3", 16, 640),
-    ("copyblk", 200, 128)])
+    ("pool3", 16, 507), ("copyblk", 200, 128)])
 def test_shift_probe_matches_jax_shift_kernel_interpret(jax_probe, mode, m,
                                                         lanes):
     x = np.random.default_rng(1).standard_normal((m, lanes)).astype(
@@ -150,6 +150,107 @@ def test_shift_probe_matches_jax_shift_kernel_interpret(jax_probe, mode, m,
     got = pm.shift_probe(SALT, torch.from_numpy(x), nops, grid, mode)
     assert got.shape == want.shape == (8 * grid, 128)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (mode, m, lanes, grid): the probe's shapes, then rows and lanes that split
+# unevenly over warps and blocks (a partial last quad at 130 lanes)
+SHIFT_SHAPES = [("shift1", 64, 640, 8), ("roll", 64, 640, 8),
+                ("pool3", 64, 640, 8), ("copyblk", 256, 128, 8),
+                ("shift1", 8, 513, 1), ("shift1", 72, 513, 3),
+                ("roll", 8, 513, 1), ("roll", 16, 130, 3), ("roll", 72, 130, 3),
+                ("pool3", 8, 507, 1), ("pool3", 72, 513, 3),
+                ("copyblk", 8, 130, 1), ("copyblk", 72, 130, 3)]
+
+
+def _emulate_shift(x, c, mode, grid, plan):
+    """One iteration of shift_probe_kernel (constant c) as its threads
+    index it: the region each step stores, every element once, and the
+    output block read back.  Asserts that each block stages at most
+    smem_rows rows, that every read falls in a staged row and its staged
+    lanes, and that a shuffled operand comes from the next lane's item."""
+    m, lanes = x.shape
+    rows, quads, width, x_lanes, threads = plan[:5]
+    scr = np.full((grid, rows, width), np.nan, np.float32)
+    out = np.full((8 * grid, 128), np.nan, np.float32)
+    t = np.arange(threads)
+    for g in range(grid):
+        for b in range(plan.blocks):
+            first = b * threads
+            r0 = first // quads
+            nrows = min(rows - 1, (first + threads - 1) // quads) - r0 + 1
+            assert 1 <= nrows <= plan.smem_rows
+            xs = np.zeros((nrows, x_lanes), np.float32)
+            xs[:, :min(lanes, x_lanes)] = x[r0:r0 + nrows, :x_lanes]
+            item = first + t
+            live = item < rows * quads
+            row, q = item // quads, item % quads
+            lr = row - r0
+            assert ((lr >= 0) & (lr < nrows))[live].all()
+            n = np.minimum(4, width - 4 * q)
+            lr = np.where(live, lr, 0)
+            if mode in ("shift1", "roll"):
+                wq = xs[lr[:, None], np.minimum(4 * q[:, None] + np.arange(4),
+                                                x_lanes - 1)]
+                nxt = 4 * q + n
+                if mode == "roll":
+                    nxt = np.where(nxt == lanes, 0, nxt)
+                alone = (t % 32 == 31) | (q == quads - 1)
+                assert (nxt[live] < min(lanes, x_lanes)).all()
+                # the shuffle: lane + 1 holds the next quad of the row
+                nb = np.append(wq[1:, 0], np.nan)
+                assert ((item[1:] == item[:-1] + 1)
+                        & (row[1:] == row[:-1]))[(~alone & live)[:-1]].all()
+                nb = np.where(alone, xs[lr, np.minimum(nxt, x_lanes - 1)], nb)
+                v = np.stack([np.where(n == 1, nb, wq[:, 1]),
+                              np.where(n == 2, nb, wq[:, 2]),
+                              np.where(n == 3, nb, wq[:, 3]), nb], 1) + c
+            elif mode == "pool3":
+                assert 12 * quads <= x_lanes
+                src = np.minimum(12 * q[:, None] + np.arange(12), x_lanes - 1)
+                y = (xs[lr[:, None], src] + c).reshape(-1, 4, 3)
+                v = np.maximum(np.maximum(y[..., 0], y[..., 1]), y[..., 2])
+            else:
+                v = (xs[lr[:, None], 4 * q[:, None] + np.arange(4)] + c) + \
+                    np.float32(1.0)
+            for i in np.flatnonzero(live):
+                dst = scr[g, row[i], 4 * q[i]:4 * q[i] + n[i]]
+                assert np.isnan(dst).all()  # stored once an iteration
+                dst[:] = v[i, :n[i]]
+                if row[i] < 8 and q[i] < 32:
+                    out[8 * g + row[i], 4 * q[i]:4 * q[i] + 4] = dst
+    return scr, out
+
+
+@pytest.mark.parametrize("mode,m,lanes,grid", SHIFT_SHAPES)
+def test_shift_plan_covers_each_region_once(mode, m, lanes, grid):
+    """K4's partition (shift_plan) through a model of the kernel's indexing:
+    every (step, row, lane) of the mode's region is stored once an
+    iteration with the plain version's value, bitwise, and the output
+    block is the plain version's; the block size is one the kernel is
+    built for, and the probe's own shapes put at least two blocks on each
+    of 132 SMs."""
+    plan = pm.shift_plan(mode, m, lanes, grid, 132)
+    assert plan.threads <= _kernel_constant("SHIFT_MAX_THREADS")
+    assert plan.threads in pm.SHIFT_THREADS and plan.x_lanes % 4 == 0
+    if grid == 8:  # the probe's shapes
+        assert plan.blocks * grid >= 2 * 132
+    x = np.random.default_rng(1).standard_normal((m, lanes)).astype(
+        np.float32)
+    nops = 3
+    c = np.float32(nops - 1) + np.float32(SALT)
+    scr, out = _emulate_shift(x, c, mode, grid, plan)
+    y = x + c
+    want = {"shift1": lambda: y[:, 1:513],
+            "roll": lambda: np.roll(y, -1, axis=1),
+            "pool3": lambda: np.maximum(np.maximum(y[:, 0:507:3],
+                                                   y[:, 1:508:3]),
+                                        y[:, 2:509:3]),
+            "copyblk": lambda: y[:192, :128] + np.float32(1.0)}[mode]()
+    for g in range(grid):
+        np.testing.assert_array_equal(scr[g], want)
+    np.testing.assert_array_equal(
+        out, pm.shift_probe(SALT, torch.from_numpy(x), nops, grid,
+                            mode).numpy())
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take():
