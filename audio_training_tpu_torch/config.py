@@ -1,15 +1,17 @@
 """Configuration, copied from ``audio_training_tpu/config.py``.
 
 The port keeps its own copy so that it never imports the JAX package.
-Ported so far: the constants, ``FeaturizerConfig``, ``InferenceConfig`` and
-``config_from_dict``; the split, sampling and train configs follow with the
-slices that use them.
+Every config of the JAX module is here, and the JSON forms are the same:
+a JAX ``-c`` file or a ``metadata.txt`` ``featurizer`` entry loads
+unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 # Invariant constants of the reference stack (tfdataset.py:42-57,
@@ -103,6 +105,84 @@ class FeaturizerConfig:
 
 
 @dataclass(frozen=True)
+class SplitConfig:
+    """Train/val/test split parameters (build.py:47-48)."""
+
+    validation_percent: float = 0.15
+    test_percent: float = 0.05
+    min_samples: int = 1
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class SamplingConfig:
+    """Per-track sample extraction parameters (audiodataset.py:39,107-119)."""
+
+    max_track_samples: int = 4
+    tighten_tracks: bool = False
+    filter_rms: bool = True
+    rms_filter_threshold: float = 0.1
+    use_segments: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-harness parameters (audiomodel.py:117-153, 2238-2414)."""
+
+    model_name: str = "badwinner2"
+    batch_size: int = 32
+    learning_rate: float = 0.01
+    epochs: int = 100
+    early_stop_patience: int = 10
+    reduce_lr_patience: int = 5
+    reduce_lr_factor: float = 0.5
+    multi_label: bool = True
+    use_generic_bird: bool = True
+    loss: str = "bce"  # bce | cce | weighted_bce | soft_f1 | focal
+    label_smoothing: float = 0.0
+    mixup_alpha: float = 0.5  # get_dataset passes alpha=0.5 (tfdataset.py:477)
+    mixup_chance: float = 0.25
+    use_weighting: bool = False
+    weight_min: float = 0.25  # class-weight clamp (tfdataset.py:1755-1758)
+    weight_max: float = 4.0
+    # --no-low-samples: exclude oversampled low-count samples
+    # (tfdataset.py:728-733)
+    no_low_samples: bool = False
+    # keep samples tagged ONLY generic "bird"; off = the reference's default
+    # others_filter drops them from multi-label training
+    # (tfdataset.py:735-755, audiomodel --use_bird_tags)
+    use_bird_tags: bool = False
+    # train on band-passed sample variants when records carry them
+    # (tfdataset.py:1066-1078; build with --add-buttered to produce them)
+    filter_freq: bool = False
+    random_butter: float = 0.0  # reference trains with 0.6 when set
+    dropout: float = 0.5
+    seed: int = 0
+    # per-epoch validation confusion artifact (npy+png), the reference's
+    # TensorBoard confusion image (audiomodel.py:1262-1314)
+    epoch_confusion: bool = False
+    # the JAX package's mesh and dtype fields, kept so that its JSON files
+    # load unchanged: compute_dtype picks the model's dtype; num_data_shards
+    # > 1 is refused by train_run until data parallelism is ported;
+    # param_dtype, data_axis and model_axis name mesh parts with no
+    # one-card meaning and are not read
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    data_axis: str = "data"
+    model_axis: str = "model"
+    num_data_shards: int = 1
+    remat: bool = False
+    # host loader processes for train-split decode; None = the
+    # AUDIO_TPU_LOADER_WORKERS environment variable, else 0 (one thread)
+    loader_workers: int | None = None
+    # exact one-pass BatchNorm running-stat re-estimation after fit
+    # (train/step.reestimate_batch_stats): short schedules leave the
+    # momentum-0.99 EMA stale and eval-mode quality collapses while
+    # train-mode metrics look fine.  Beyond-parity robustness feature.
+    bn_reestimate: bool = False
+
+
+@dataclass(frozen=True)
 class InferenceConfig:
     """Sliding-window inference parameters (predict.py:503, preeval.py)."""
 
@@ -126,3 +206,25 @@ def config_from_dict(cls: type, data: dict) -> Any:
             v = tuple(v)
         kwargs[k] = v
     return cls(**kwargs)
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {k: _to_jsonable(v) for k, v in dataclasses.asdict(obj).items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(v) for v in obj]
+    if isinstance(obj, Path):
+        return str(obj)
+    return obj
+
+
+def config_to_dict(cfg: Any) -> dict:
+    return _to_jsonable(cfg)
+
+
+def save_config(cfg: Any, path: str | Path) -> None:
+    Path(path).write_text(json.dumps(config_to_dict(cfg), indent=2))
+
+
+def load_config(cls: type, path: str | Path) -> Any:
+    return config_from_dict(cls, json.loads(Path(path).read_text()))

@@ -21,7 +21,7 @@ from audio_training_tpu_torch.config import FeaturizerConfig
 from audio_training_tpu_torch.ops.features import mix_up, normalize_rows
 from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
 
-_QUEUED = "ROADMAP.md queue item 4 (the rest of training)"
+_QUEUED = 'ROADMAP.md queue 1, "Training from a built corpus"'
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -3,8 +3,8 @@
 Headless, as the JAX package runs them (``include_top=False``): an NCHW
 image in, a (B, C', H', W') feature map out; ``models.registry.
 BackboneClassifier`` adds the frontend, pooling and head.  Only MobileNetV2
-is ported (JAX ``backbones.py:173-219``); the other families are ROADMAP
-queue item 5.
+is ported (JAX ``backbones.py:173-219``); the other families are ROADMAP.md
+queue 1, "Model families".
 
 Module names map one to one onto the Flax tree (``models/convert.py``).
 Convolutions are SAME-padded with XLA's split (``layers.same_pads``).  A

@@ -21,7 +21,7 @@ from audio_training_tpu_torch.models.layers import (
     lecun_normal_,
 )
 
-_FAMILIES_ITEM = "ROADMAP.md queue item 5 (remaining model families)"
+_FAMILIES_ITEM = 'ROADMAP.md queue 1, "Model families"'
 
 
 @dataclass(frozen=True)

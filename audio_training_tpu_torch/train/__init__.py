@@ -1,6 +1,6 @@
 """Training (port of ``audio_training_tpu/train``): state, steps, losses,
-metrics, checkpoints and the ``fit`` loop, and what inference reads of a
-run directory (its metadata and the port's weights file)."""
+metrics, checkpoints, the ``fit`` loop, the run harness that trains from a
+built corpus (``train_run``), and a run directory's metadata."""
 
 from audio_training_tpu_torch.train.checkpoints import (
     BestCheckpointTracker,
@@ -9,6 +9,12 @@ from audio_training_tpu_torch.train.checkpoints import (
     restore_with_new_head,
     save_state,
 )
+from audio_training_tpu_torch.train.harness import (
+    TrainRunResult,
+    cross_fold_train,
+    init_labels,
+    train_run,
+)
 from audio_training_tpu_torch.train.loop import (
     EarlyStopping,
     FitResult,
@@ -16,6 +22,11 @@ from audio_training_tpu_torch.train.loop import (
     fit,
 )
 from audio_training_tpu_torch.train.losses import get_loss
+from audio_training_tpu_torch.train.metadata import (
+    featurizer_from_metadata,
+    load_metadata,
+    save_metadata,
+)
 from audio_training_tpu_torch.train.state import (
     TrainState,
     create_train_state,
@@ -48,4 +59,11 @@ __all__ = [
     "restore_into",
     "restore_with_new_head",
     "BestCheckpointTracker",
+    "load_metadata",
+    "featurizer_from_metadata",
+    "save_metadata",
+    "train_run",
+    "init_labels",
+    "cross_fold_train",
+    "TrainRunResult",
 ]

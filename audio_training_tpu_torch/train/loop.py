@@ -2,12 +2,9 @@
 replaces Keras ``model.fit`` + callback suite (audiomodel.train_model,
 audiomodel.py:405-567): per-epoch train/val passes, best-per-metric
 checkpoints, early stopping (patience 10), reduce-LR-on-plateau, the
-per-epoch ``training-log.csv``, ``history.json``, and the rollback of an
-epoch whose loss is not finite.
-
-Not ported yet (ROADMAP.md queue item 4): the TensorBoard event stream,
-``hist_writer`` and the per-epoch validation confusion
-(``confusion_labels`` raises).
+per-epoch ``training-log.csv``, the TensorBoard event file, the
+``hist_writer`` hook, the per-epoch validation confusion, ``history.json``,
+and the rollback of an epoch whose loss is not finite.
 """
 
 from __future__ import annotations
@@ -22,6 +19,11 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from audio_training_tpu_torch.eval.confusion import (
+    multi_label_confusion,
+    save_confusion,
+    single_label_confusion,
+)
 from audio_training_tpu_torch.train.checkpoints import (
     SUFFIX,
     BestCheckpointTracker,
@@ -29,7 +31,12 @@ from audio_training_tpu_torch.train.checkpoints import (
 )
 from audio_training_tpu_torch.train.metrics import metrics_compute, metrics_init
 from audio_training_tpu_torch.train.state import TrainState
-from audio_training_tpu_torch.train.step import make_eval_step, make_train_step
+from audio_training_tpu_torch.train.step import (
+    make_eval_step,
+    make_predict_fn,
+    make_train_step,
+)
+from audio_training_tpu_torch.utils.tensorboard import TBEventWriter
 
 log = logging.getLogger(__name__)
 
@@ -83,6 +90,22 @@ class ReduceLROnPlateau:
         return state
 
 
+def _write_epoch_confusion(out_dir: Path, epoch: int, y_true, y_pred,
+                           labels: list[str], multi_label: bool) -> Path:
+    """Per-epoch validation confusion artifact (npy + PNG), the equivalent
+    of the reference's TensorBoard confusion image callback
+    (audiomodel.log_confusion_matrix, audiomodel.py:1262-1314).  Returns the
+    artifact base path (suffix-less) so the caller can stream the PNG into
+    the TensorBoard event file too."""
+    if multi_label:
+        cm, _, out_labels = multi_label_confusion(y_true, y_pred, labels)
+    else:
+        cm, out_labels = single_label_confusion(y_true, y_pred, labels)
+    base = out_dir / f"epoch_{epoch:03d}"
+    save_confusion(cm, out_labels, base)
+    return base
+
+
 class ScalarLog:
     """Streaming per-epoch scalar log: one CSV row appended per epoch, so a
     run can be watched mid-fit.  Columns are fixed by the first epoch's
@@ -128,6 +151,8 @@ def fit(
     reduce_lr_factor: float = 0.5,
     seed: int = 0,
     augment: bool = True,
+    hist_writer=None,
+    remat: bool = False,
     bird_index: int | None = None,
     specific_bird_mask=None,
     geo_masks=None,
@@ -139,16 +164,21 @@ def fit(
     y2][, latlng])`` (mixup partner and GPS optional); ``preprocess`` is
     :func:`audio_training_tpu_torch.data.preprocess.make_preprocess_fn`'s
     map.  The mixup and dropout draws come from two generators on the
-    model's device, seeded from ``seed``."""
-    if confusion_labels is not None:
-        raise NotImplementedError(
-            "the per-epoch validation confusion comes with ROADMAP.md queue "
-            "item 4 (the rest of training)")
+    model's device, seeded from ``seed``.
+
+    With ``run_dir`` set, each epoch's scalars also go to an
+    ``events.out.tfevents.*`` file there (``utils/tensorboard.py``), and
+    ``hist_writer(epoch, logs, state, tb)`` runs after each epoch with that
+    writer.  With ``confusion_labels`` set (and a val stream + run_dir), a
+    validation confusion matrix is written per epoch to
+    ``run_dir/epoch-confusion/epoch_NNN.{npy,png}`` — the per-epoch
+    TensorBoard confusion image of the reference
+    (audiomodel.log_confusion_matrix, audiomodel.py:1262-1314)."""
     train_step = make_train_step(
         loss_name=loss_name, multi_label=multi_label,
         label_smoothing=label_smoothing, class_weights=class_weights,
-        bird_index=bird_index, specific_bird_mask=specific_bird_mask,
-        geo_masks=geo_masks,
+        remat=remat, bird_index=bird_index,
+        specific_bird_mask=specific_bird_mask, geo_masks=geo_masks,
     )
     eval_step = make_eval_step(
         loss_name=loss_name, multi_label=multi_label, bird_index=bird_index,
@@ -164,6 +194,11 @@ def fit(
     stopper = EarlyStopping(patience=early_stop_patience)
     reducer = ReduceLROnPlateau(patience=reduce_lr_patience,
                                 factor=reduce_lr_factor)
+    # the standard-dashboard event stream beside training-log.csv
+    # (audiomodel.py:553-558): ``tensorboard --logdir`` watches the run live
+    tb = TBEventWriter(run_dir) if run_dir is not None else None
+    collect_confusion = confusion_labels is not None and run_dir is not None
+    confusion_predict = make_predict_fn(multi_label=multi_label)
     device = state.device
     gen_pre = torch.Generator(device=device).manual_seed(seed)
     gen_drop = torch.Generator(device=device).manual_seed(seed + 1)
@@ -191,13 +226,28 @@ def fit(
         logs = metrics_compute(metrics)
 
         if val_batches is not None:
+            y_true_parts, y_pred_parts = [], []
             vmetrics = metrics_init(device)
             for batch in val_batches():
                 latlng = batch[-1] if len(batch) % 2 == 1 else None
                 mel, yy = val_preprocess(*batch[:2])
                 vmetrics = eval_step(state, vmetrics, mel, yy, latlng=latlng)
+                if collect_confusion:
+                    y_pred_parts.append(
+                        confusion_predict(state, mel).float().cpu().numpy())
+                    y_true_parts.append(yy.float().cpu().numpy())
             for k, v in metrics_compute(vmetrics).items():
                 logs[f"val_{k}"] = v
+            if y_true_parts:
+                base = _write_epoch_confusion(
+                    run_dir / "epoch-confusion", epoch,
+                    np.concatenate(y_true_parts),
+                    np.concatenate(y_pred_parts),
+                    confusion_labels, multi_label,
+                )
+                png = base.with_suffix(".png")
+                if png.exists():
+                    tb.add_image("epoch_confusion", png.read_bytes(), epoch)
 
         logs["lr"] = state.current_lr()
         logs["epoch_time"] = time.time() - t0
@@ -207,6 +257,10 @@ def fit(
                  {k: round(v, 4) for k, v in logs.items()})
         if scalar_log is not None:
             scalar_log.append(epoch, logs)
+        if tb is not None:
+            tb.add_scalars(logs, epoch)
+        if hist_writer is not None:
+            hist_writer(epoch, logs, state, tb)
 
         # failure detection: a non-finite train loss means this epoch's
         # updates are poison — roll back to the last good per-epoch
@@ -237,6 +291,8 @@ def fit(
             log.warning("no training batches; stopping")
             break
 
+    if tb is not None:
+        tb.close()
     if run_dir is not None:
         (run_dir / "history.json").write_text(
             json.dumps(history, indent=2, default=float))

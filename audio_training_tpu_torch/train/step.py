@@ -20,7 +20,7 @@ from audio_training_tpu_torch.train.state import TrainState
 
 # NZ bounding box [lng_min, lat_max, lng_max, lat_min] (tfdataset.py:35)
 NZ_BOX = (166.509144322, -34.4506617165, 178.517093541, -46.641235447)
-_QUEUED = "ROADMAP.md queue item 4 (the rest of training)"
+_QUEUED = 'ROADMAP.md queue 1, "Training from a built corpus"'
 
 
 class GeoMasks(NamedTuple):

@@ -105,7 +105,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    products; per K4 mode its bound (adds and maxima at the FP32 pipe's
    rate, the region's stores at the SMs' shared-memory store rate) and one
    PyTorch call doing a launch's ops on views of the input
-   (``torch.roll``, the slice copies, a 3-lane ``amax``).
+   (``torch.roll``, the slice copies, a 3-lane ``amax``);
+10. training from a built corpus at full width: a synthetic corpus written
+   by the port's own writer (GZIP TFRecord shards of
+   ``schema.encode_sample`` records, 384 / 128 / 128 clips of the
+   production geometry over 4 / 2 / 2 shards, tone bands over noise from a
+   numpy seed, 12 species of the ontology's ``bird_train_labels``, and a
+   ``training-meta.json``), then ``cli/train.main`` (badwinner2, B=128, 2
+   epochs x 4 steps, ``bn_reestimate`` and ``epoch_confusion`` on, bf16)
+   with the launch counts zeroed just before and read just after: one
+   ``mel_bf16`` launch a train step, one exact launch a validation batch
+   an epoch, a test batch and a BN re-estimation batch, no other K1
+   launch; the run directory read back by the port's readers (metadata
+   labels equal to ``init_labels``', history and test metrics, the weights
+   files, the test confusion holding every test positive, the per-epoch
+   confusions, training log, history, weight histograms, the event file's
+   per-epoch scalars), finite losses; the run loaded by
+   ``cli/predict.load_predictor`` and phase 4's recording predicted
+   (finite window probabilities); timing: ``train_run``'s wall time, its
+   steady-state ms a step (batch requests stamped after a synchronize)
+   beside phase 6's step, the device's idle share over the last epoch from
+   a profile, and the host loader alone (uncached
+   ``build_training_stream`` with 0 and 4 workers, samples/s).
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -135,6 +156,10 @@ TRAIN_BATCH = 128  # bench.py's TRAIN_BATCH
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 4
 TRAIN_LR = 1e-3
 BATCH_PCEN = 512  # bench.py's BATCH_PCEN
+# phase 10's corpus: clips and GZIP shards a split, species, the run
+CORPUS_SPLITS = {"train": (384, 4), "validation": (128, 2), "test": (128, 2)}
+CORPUS_SPECIES = 12
+CORPUS_EPOCHS, CORPUS_STEPS = 2, 4
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
 # f32 logits of the kernel path vs the plain-featurizer path, relative to
@@ -990,6 +1015,319 @@ def probe_phase(dev, card) -> list[dict]:
             main_counts[f"probe_shift_{mode}"], shift_err[mode], r["ms"],
             plain_ms, bnd, lib_ms))
     return records
+
+
+def write_corpus(root: Path, cfg, species: list[str]) -> dict:
+    """Phase 10's corpus, written by the port's own writer as the build
+    writes it: GZIP TFRecord shards of ``schema.encode_sample`` records
+    under train/, validation/ and test/, and a ``training-meta.json`` with
+    the labels, the counts and the FeaturizerConfig.  Clip i of a split is
+    tagged with species i mod len(species) and carries a tone at that
+    species' frequency (log-spaced, 200 Hz to 10 kHz) over a noise floor,
+    from a numpy seed per shard.  Shards are written by one thread each
+    (zlib releases the interpreter lock).  Returns the per-split counts."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from audio_training_tpu_torch.config import config_to_dict
+    from audio_training_tpu_torch.data import (
+        SampleRecord, encode_sample, write_tfrecords)
+
+    shutil.rmtree(root, ignore_errors=True)
+    n = cfg.samples_per_clip
+    t = np.arange(n) / cfg.sr
+    freqs = 200.0 * 50.0 ** (np.arange(len(species)) / (len(species) - 1))
+
+    def write_shard(split: str, shard: int, shards: int, total: int) -> int:
+        rng = np.random.default_rng([SEED, shard, len(split)])
+        recs = []
+        for i in range(shard, total, shards):
+            k = i % len(species)
+            raw = (rng.uniform(0.3, 1.0)
+                   * np.sin(2 * np.pi * freqs[k] * t + rng.uniform(0, 6.3))
+                   + 0.3 * rng.standard_normal(n))
+            recs.append(encode_sample(SampleRecord(
+                raw=raw.astype(np.float32), tags=[species[k]],
+                rec_id=f"{split}-{i}", track_ids=[str(i)], sr=cfg.sr)))
+        return write_tfrecords(root / split / f"{split}-{shard:02d}.tfrecord",
+                               recs)
+
+    jobs = [(split, s, shards, total)
+            for split, (total, shards) in CORPUS_SPLITS.items()
+            for s in range(shards)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        written = list(pool.map(lambda j: write_shard(*j), jobs))
+    check(sum(written) == sum(t for t, _ in CORPUS_SPLITS.values()),
+          "the corpus writer lost records")
+    counts = {}
+    for split, (total, _) in CORPUS_SPLITS.items():
+        per = {sp: len(range(j, total, len(species)))
+               for j, sp in enumerate(species)}
+        counts[split] = {"sample_counts": per, "rec_counts": per}
+    meta = {"labels": list(species), "type": "audio", "counts": counts,
+            **config_to_dict(cfg)}
+    (root / "training-meta.json").write_text(json.dumps(meta, indent=4))
+    return {split: total for split, (total, _) in CORPUS_SPLITS.items()}
+
+
+def corpus_train_phase(dev, cfg, card, fit_step_ms: float,
+                       fit_s: float) -> None:
+    """Phase 10: training from a built corpus at full width, through the
+    user's entry point ``cli/train.main``; the run directory's artifacts
+    read back by the port's readers; the trained run loaded by
+    ``cli/predict.load_predictor`` and a recording predicted; the host
+    loader timed alone."""
+    import itertools
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_training_tpu_torch.cli import predict as cli_predict
+    from audio_training_tpu_torch.cli import train as cli_train
+    from audio_training_tpu_torch.data import (
+        RecordStream, build_training_stream, decode_sample, find_shards)
+    from audio_training_tpu_torch.data._native import split_records
+    from audio_training_tpu_torch.data.pipeline import DeviceCopier
+    from audio_training_tpu_torch.data.tfrecord import _read_raw
+    from audio_training_tpu_torch.eval.confusion import load_raw_predictions
+    from audio_training_tpu_torch.infer import extract_track_windows
+    from audio_training_tpu_torch.models import build_model
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.taxonomy import load_ontology
+    from audio_training_tpu_torch.train import (
+        harness, load_metadata, load_state_dict)
+    from audio_training_tpu_torch.utils.tensorboard import read_events
+
+    torch.cuda.empty_cache()
+    species = list(load_ontology().bird_train_labels[:CORPUS_SPECIES])
+    corpus = REPO / "build" / "chip_smoke_corpus"
+    t0 = time.perf_counter()
+    sizes = write_corpus(corpus, cfg, species)
+    write_s = time.perf_counter() - t0
+    space, _, _ = harness.init_labels([corpus])
+    nbytes = sum(p.stat().st_size for p in corpus.rglob("*.tfrecord"))
+    log(f"corpus: {sizes} clips of {cfg.samples_per_clip} samples at "
+        f"{cfg.sr} Hz over {sum(s for _, s in CORPUS_SPLITS.values())} GZIP "
+        f"shards ({nbytes / 1e6:.1f} MB), written in {write_s:.2f} s; "
+        f"{len(species)} species from the ontology's bird_train_labels -> a "
+        f"label space of {space.num_labels}: {list(space.labels)}")
+
+    # the train loop's batch requests, stamped after a synchronize: the
+    # interval between two is one step plus its wait for the loader; the
+    # profile spans the last epoch (train steps, validation, checkpoints)
+    stamps: list[tuple[int, float]] = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+    real_fit = harness.fit
+
+    def timed_fit(state, train_batches, *args, **kwargs):
+        def timed(epoch):
+            if epoch == CORPUS_EPOCHS - 1:
+                torch.cuda.synchronize()
+                prof.start()
+                window["start"] = time.perf_counter()
+            for batch in train_batches(epoch):
+                torch.cuda.synchronize()
+                stamps.append((epoch, time.perf_counter()))
+                yield batch
+
+        result = real_fit(state, timed, *args, **kwargs)
+        torch.cuda.synchronize()
+        window["end"] = time.perf_counter()
+        prof.stop()
+        return result
+
+    ckpt = REPO / "build" / "chip_smoke_train"
+    run_dir = ckpt / "corpus-run"
+    conf = ckpt / "train-config.json"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    conf.write_text(json.dumps({"bn_reestimate": True,
+                                "epoch_confusion": True}))
+    argv = [run_dir.name, "-d", str(corpus), "--checkpoint-dir", str(ckpt),
+            "--model-name", "badwinner2", "--batch-size", str(TRAIN_BATCH),
+            "--epochs", str(CORPUS_EPOCHS), "--steps-per-epoch",
+            str(CORPUS_STEPS), "-c", str(conf), "--device", str(dev)]
+    harness.fit = timed_fit
+    try:
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_train.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = ffz.launch_counts()
+    finally:
+        harness.fit = real_fit
+    check(rc == 0, f"cli/train exited {rc}")
+    batches = lambda n: math.ceil(n / TRAIN_BATCH)  # noqa: E731
+    exact = (CORPUS_EPOCHS * batches(sizes["validation"])
+             + batches(sizes["test"]) + batches(sizes["train"]))
+    want = {k: 0 for k in counts}
+    want["fused_featurizer_mel_bf16"] = CORPUS_EPOCHS * CORPUS_STEPS
+    want["fused_featurizer_mel"] = exact
+    log(f"path cli/train {' '.join(argv)}: badwinner2 bf16, "
+        f"{space.num_labels} labels, B={TRAIN_BATCH}, {CORPUS_EPOCHS} "
+        f"epochs x {CORPUS_STEPS} steps, bn_reestimate and epoch_confusion "
+        f"on; {run_s:.2f} s; launches {counts} (want {want}: one bf16 "
+        f"launch a train step; one exact launch a validation batch an "
+        f"epoch, a test batch and a BN re-estimation batch)")
+    check(counts == want, "phase 10's K1 launch counts are not the path's")
+
+    meta = load_metadata(run_dir)
+    hist = json.loads((run_dir / "history.json").read_text())
+    check(meta["labels"] == list(space.labels), "metadata labels differ "
+          "from init_labels'")
+    check(meta["history"]["loss"] == hist["loss"], "metadata history differs")
+    check(all(np.isfinite(hist[k]).all() for k in ("loss", "val_loss")),
+          "non-finite losses in train_run")
+    check(meta["test_samples"] == sizes["test"],
+          f"test metrics cover {meta.get('test_samples')} samples")
+    model = build_model("badwinner2", space.num_labels, logits_only=True,
+                        n_mels=cfg.n_mels).module
+    for name in ("chkpt", "val-loss", "val-auc", "val-accuracy"):
+        sd = load_state_dict(run_dir / f"{name}.pt")
+        check(sd.keys() == model.state_dict().keys()
+              and all(torch.isfinite(v.float()).all() for v in sd.values()),
+              f"{name}.pt does not load as badwinner2 weights")
+    raw = load_raw_predictions(run_dir / "confusion-raw.npy")
+    cm = np.load(run_dir / "confusion.npy")
+    positives = int(raw["y_true"].sum())
+    check(raw["y_pred"].shape == (sizes["test"], space.num_labels),
+          "the raw test predictions miss test samples")
+    # the multi-label confusion puts each positive (sample, label) pair on
+    # the diagonal or in the "nothing" column; false positives go elsewhere
+    check(int(np.trace(cm) + cm[:-1, -1].sum()) == positives,
+          "confusion.npy does not hold every test positive")
+    for e in range(CORPUS_EPOCHS):
+        check((run_dir / "epoch-confusion" / f"epoch_{e:03d}.npy").exists(),
+              f"no epoch-confusion/epoch_{e:03d}.npy")
+    rows = (run_dir / "training-log.csv").read_text().splitlines()
+    hists = (run_dir / "weight-hists.jsonl").read_text().splitlines()
+    check(len(rows) == CORPUS_EPOCHS + 1 and len(hists) == CORPUS_EPOCHS,
+          "training-log.csv / weight-hists.jsonl miss epochs")
+    (events,) = run_dir.glob("events.out.tfevents.*")
+    scalars = [e for e in read_events(events)
+               if "scalars" in e and "loss" in e["scalars"]]
+    check([e["step"] for e in scalars] == list(range(CORPUS_EPOCHS))
+          and all(abs(e["scalars"]["loss"] - l) <= 1e-6 * abs(l)
+                  for e, l in zip(scalars, hist["loss"])),
+          "the event file does not hold each epoch's scalars")
+    log(f"check corpus run artifacts: metadata labels = init_labels', "
+        f"history and test metrics (test_samples {meta['test_samples']}, "
+        f"f1 {meta['test_f1']:.4f}); chkpt / val-loss / val-auc / "
+        f"val-accuracy .pt load; confusion.npy holds the {positives} test "
+        f"positives of {sizes['test']} samples (mass {int(cm.sum())}); "
+        f"epoch-confusion, training-log.csv, history.json, "
+        f"weight-hists.jsonl, {events.name} ({len(scalars)} epochs of "
+        f"scalars); train loss {hist['loss']}, val loss {hist['val_loss']}")
+
+    steps = [b - a for (e0, a), (e1, b) in zip(stamps, stamps[1:])
+             if e0 == e1 == CORPUS_EPOCHS - 1]
+    step_s = float(np.median(steps))
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    wall_ms = (window["end"] - window["start"]) * 1e3
+    log(f"time train_run (cli/train) B={TRAIN_BATCH}: {run_s:.2f} s wall for "
+        f"{CORPUS_EPOCHS} x {CORPUS_STEPS} steps (phase 6's fit on in-memory "
+        f"batches: {fit_s:.2f} s); steady state {step_s * 1e3:.3f} ms a step "
+        f"(median of epoch {CORPUS_EPOCHS - 1}'s {len(steps)} intervals, "
+        f"loader included), {TRAIN_BATCH / step_s:.1f} samples/s (phase 6's "
+        f"step on an in-memory batch: {fit_step_ms:.3f} ms, "
+        f"{TRAIN_BATCH / (fit_step_ms / 1e3):.1f} samples/s); profile of the "
+        f"last epoch (train, validation, checkpoints): device kernels "
+        f"{busy_ms:.1f} ms of {wall_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f} {card}")
+
+    # close the loop: the trained run serves phase 4's recording
+    predictor, _ = cli_predict.load_predictor(run_dir, "chkpt", device=dev)
+    recording = synthetic_recording(RECORDING_S, cfg.sr, SEED)
+    t0 = time.perf_counter()
+    tracks, results = predictor.predict_recording(recording, cfg.sr)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    windows = extract_track_windows(
+        recording, cfg.sr, tracks, segment_length=cfg.segment_length,
+        stride=cfg.segment_stride, fmin=cfg.fmin, fmax=cfg.fmax,
+        rng=np.random.default_rng(SEED)).windows
+    probs = predictor.predict_windows(windows)
+    check(len(tracks) > 0
+          and probs.shape == (len(windows), space.num_labels)
+          and bool(np.isfinite(probs).all())
+          and 0.0 <= probs.min() and probs.max() <= 1.0,
+          "the trained run's predictions are not finite probabilities")
+    log(f"path load_predictor(corpus run, 'chkpt') -> predict_recording "
+        f"{RECORDING_S:.0f} s: {len(tracks)} tracks, {len(windows)} windows "
+        f"in {pred_s:.2f} s; window probabilities finite in [0, 1], first "
+        f"track {results[0].get_meta() if results[0] else None}")
+
+    # the host loader alone: uncached train streams (each step decodes B
+    # clips and B mixup partners), as many batches as two passes
+    train_shards = find_shards(corpus, "train")
+    n_batches = 2 * sizes["train"] // TRAIN_BATCH
+    for workers in (0, 4):
+        t0 = time.perf_counter()
+        loader = build_training_stream(
+            [corpus], "train", space, cfg.samples_per_clip, TRAIN_BATCH,
+            seed=SEED, augment=True, cache=False, workers=workers, device=dev)
+        it = iter(loader)
+        try:
+            next(it)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in itertools.islice(it, n_batches):
+                pass
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            it.close()
+        rate = n_batches * TRAIN_BATCH / (t2 - t1)
+        log(f"time host loader, uncached build_training_stream over "
+            f"{len(train_shards)} train shards, workers {workers} "
+            f"({type(loader).__name__}), B={TRAIN_BATCH} with mixup "
+            f"partners, to the card: first batch {t1 - t0:.2f} s, then "
+            f"{n_batches} batches in {t2 - t1:.2f} s: {rate:.1f} train "
+            f"samples/s ({2 * rate:.1f} clips decoded/s, "
+            f"{2 * rate * cfg.samples_per_clip * 4 / 1e6:.1f} MB/s of "
+            f"clips); the step takes {TRAIN_BATCH / (fit_step_ms / 1e3):.1f} "
+            f"samples/s {card}")
+
+    # where one thread's time goes, per clip of one train shard: the file
+    # read, zlib's inflate, the record split, the proto parse, the
+    # stream's checks and one-hot, a batch's assembly, and its pinned copy
+    # to the card
+    shard = train_shards[0]
+    split_ms = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        split_ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    stage("read", shard.read_bytes)
+    body = stage("read + inflate", lambda: _read_raw(shard, "GZIP"))
+    recs = stage("split", lambda: split_records(body, verify_crc=False))
+    stage("parse", lambda: [decode_sample(r) for r in recs])
+    stream = RecordStream([shard], space, cfg.samples_per_clip)
+    items = stage("parse + checks + one-hot",
+                  lambda: [stream._decode_one(r) for r in recs])
+    raws = stage("assemble", lambda: (
+        np.stack([it[0] for it in items]), np.stack([it[1] for it in items])))
+    copier = DeviceCopier(dev)
+    for name in ("pin + copy (first)", "pin + copy"):
+        stage(name, lambda: (copier.ready(copier.put(raws)),
+                             torch.cuda.synchronize()))
+    log(f"time host loader split, one thread, per clip of {len(recs)} "
+        f"({len(body)} bytes inflated from {shard.stat().st_size}): "
+        + ", ".join(
+            f"{k} {v / len(recs):.3f} ms" for k, v in split_ms.items())
+        + f" {card}")
 
 
 def main() -> None:
@@ -2076,6 +2414,8 @@ def main() -> None:
     # ---- 8. the folded badwinner2 chain; 9. the megakernel probe --------
     kernels += folded_chain_phase(dev, cfg, mel_np, fz, clips, card)
     kernels += probe_phase(dev, card)
+    # ---- 10. training from a built corpus --------------------------------
+    corpus_train_phase(dev, cfg, card, step_ms, fit_s)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -258,5 +258,5 @@ def test_build_model_guards_and_modes():
                           dtype=torch.bfloat16).module.eval()
     out = model16(torch.rand(1, 32, 64, 3) * 2 - 1)
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="queue item 5"):
+    with pytest.raises(NotImplementedError, match="Model families"):
         build_model("efficientnetv2b3", NUM_LABELS)

@@ -140,5 +140,6 @@ def test_fit_rolls_back_a_non_finite_epoch(tmp_path):
 
 
 def test_unported_fit_options_raise():
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        fit(_state(), _batches, None, confusion_labels=LABELS)
+    with pytest.raises(NotImplementedError,
+                       match="Training from a built corpus"):
+        fit(_state(), _batches, None, remat=True)

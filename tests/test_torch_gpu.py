@@ -870,3 +870,45 @@ def test_pcen_kernel_takes_an_unaligned_mel(offset):
     for dtype in (torch.float32, torch.bfloat16):
         assert torch.equal(ffz.pcen_rows(mel, params, dtype),
                            ffz.pcen_rows(mel.clone(), params, dtype))
+
+
+@pytest.mark.gpu
+def test_batch_loader_device_batches_equal_the_host_arrays():
+    """The BatchLoader's producer thread pins each batch and copies it on a
+    side stream; the consumer's stream waits on the copy and keeps the
+    batch's memory from reuse until its reads are done.  Over 50 batches
+    (mixup partner and lat/lng included), each read by a device copy
+    queued behind a step's worth of work on the consumer's stream, every
+    batch equals its host arrays byte for byte."""
+    from audio_training_tpu_torch.data.pipeline import BatchLoader
+
+    dev = _card()
+    batches, b, n, labels = 50, 16, 144000, 62
+    rng = np.random.default_rng(0)
+    items = [(rng.standard_normal(n, dtype=np.float32),
+              rng.random(labels, dtype=np.float32),
+              rng.random(2, dtype=np.float32))
+             for _ in range(2 * b * batches)]
+    main, partner = items[::2], items[1::2]
+    loader = BatchLoader(iter(main), b, labels, n, mix_stream=iter(partner),
+                         device=dev)
+    w = torch.randn(4096, 4096, device=dev)
+    x = torch.randn(4096, 4096, device=dev)
+    reads = []
+    for batch in loader:
+        for _ in range(8):  # a step's worth of work ahead of the reads
+            x = torch.tanh(x @ w)
+        reads.append(tuple(t.clone() for t in batch))
+        del batch
+    torch.cuda.synchronize()
+    assert len(reads) == batches
+    for i, (raw, y, raw2, y2, latlng) in enumerate(reads):
+        rows = slice(i * b, (i + 1) * b)
+        want = (np.stack([m[0] for m in main[rows]]),
+                np.stack([m[1] for m in main[rows]]),
+                np.stack([m[0] for m in partner[rows]]),
+                np.stack([m[1] for m in partner[rows]]),
+                np.stack([m[2] for m in main[rows]]))
+        for got, host in zip((raw, y, raw2, y2, latlng), want):
+            assert got.device.type == "cuda"
+            assert np.array_equal(got.cpu().numpy(), host), i

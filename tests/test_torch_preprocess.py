@@ -133,7 +133,7 @@ def test_image_options_match_jax():
 def test_unported_options_raise():
     cfg = FeaturizerConfig()
     for kw in ({"dual": True}, {"augment": True, "use_spec_augment": True}):
-        with pytest.raises(NotImplementedError, match="queue item 4"):
+        with pytest.raises(NotImplementedError, match="Training from a built corpus"):
             pre.make_preprocess_fn(cfg, device="cpu", **kw)
 
 

@@ -376,5 +376,5 @@ def test_state_seed_param_count_lr_and_remat(setup):
     assert param_count(state) == jcount
     assert state.current_lr() == pytest.approx(0.01)
     assert state.with_lr(0.005).current_lr() == pytest.approx(0.005)
-    with pytest.raises(NotImplementedError, match="queue item 4"):
+    with pytest.raises(NotImplementedError, match="Training from a built corpus"):
         step.make_train_step(remat=True)
