@@ -3,13 +3,15 @@ x.wav <run_dir>`` (port of ``audio_training_tpu/cli/predict.py``;
 reference: ``python predict.py --file x.wav <model>``, predict.py:726-1019).
 
 The run directory holds ``metadata.txt`` and the port's weights file
-``<weights>.pt`` (``train/checkpoints.py``).  The Predictor runs on the
-CUDA card unless given ``--device cpu``.
+``<weights>.pt`` (``train/checkpoints.py``); a frozen deployment
+(``cli/freeze``) holds ``audioModel.pt``.  The Predictor runs on the CUDA
+card unless given ``--device cpu``.
 
-Ported flags: ``--file``, ``--dir``, ``--weights``, ``--threshold``,
-``--aggregation``, ``--thresholds-json``, ``--json-out``.  The JAX CLI's
-other flags are accepted by the parser only to exit with an error naming
-the ROADMAP item that ports them; none is ignored.
+Every flag of the JAX CLI is known.  Three groups are not ported and exit
+2 with their reason: ``--test-split`` / ``--data-dir`` /
+``--confusion-out`` (they need the corpus dataset and split), and
+``--embedding-model`` / ``--embedding-kind`` / ``--yamnet-model`` (they
+load TensorFlow saved models).
 """
 
 from __future__ import annotations
@@ -23,18 +25,20 @@ import numpy as np
 
 from audio_training_tpu_torch.utils import init_logging
 
-_QUEUED = "ROADMAP.md queue item 3 (the rest of long-recording inference)"
-# flag -> what ports it
+_ITEM = ('ROADMAP.md queue 1, "Evaluation, deployment and the rest of '
+         'long-recording inference"')
+_CORPUS = ("needs corpus/dataset.AudioDataset and corpus/split.split_by_file, "
+           'which come with ROADMAP.md queue 1, "Host corpus tooling"')
+_TENSORFLOW = ("loads a TensorFlow saved model (infer/embeddings.py), and the "
+               "port does not depend on TensorFlow")
+# flag -> why it exits 2
 _UNPORTED = {
-    "--denoise": "ops/denoise.py::spectral_gate",
-    "--grid": "infer/ebirdgrid.py",
-    "--lat": "infer/ebirdgrid.py",
-    "--lng": "infer/ebirdgrid.py",
-    "--month": "infer/ebirdgrid.py",
-    "--embedding-model": "infer/embeddings.py",
-    "--yamnet-model": "infer/embeddings.py",
-    "--folder-eval": "infer/folder.py",
-    "--test-split": "infer/folder.py",
+    "--test-split": _CORPUS,
+    "--data-dir": _CORPUS,
+    "--confusion-out": _CORPUS,
+    "--embedding-model": _TENSORFLOW,
+    "--embedding-kind": _TENSORFLOW,
+    "--yamnet-model": _TENSORFLOW,
 }
 AUDIO_SUFFIXES = (".wav", ".mp3", ".m4a", ".flac")
 
@@ -50,21 +54,32 @@ def parse_args(argv=None):
     parser.add_argument("--threshold", type=float, default=0.7)
     parser.add_argument("--aggregation", default="mean",
                         choices=["mean", "max", "votes"])
+    parser.add_argument("--grid", default=None,
+                        help="species_per_square.json for geo masking")
+    parser.add_argument("--lat", type=float, default=None)
+    parser.add_argument("--lng", type=float, default=None)
+    parser.add_argument("--month", type=int, default=None)
     parser.add_argument("--json-out", default=None,
                         help="Write track predictions JSON here")
+    parser.add_argument("--denoise", action="count",
+                        help="Spectral-gate denoise before detection "
+                             "(predict.denoise_spec parity)")
     parser.add_argument("--thresholds-json", default=None,
                         help="Per-class thresholds JSON (label -> threshold)"
                              " (preeval.py:143-221 + predict.py:503 parity)")
+    parser.add_argument("--folder-eval", default=None,
+                        help="Score best_track-annotated recordings under "
+                             "this dir (predict.predict_on_folder parity)")
+    parser.add_argument("--workers", type=int, default=1,
+                        help="Preprocessing processes for --folder-eval")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the Predictor (cuda or cpu)")
     for flag in _UNPORTED:
-        parser.add_argument(flag, help=argparse.SUPPRESS,
-                            action="count" if flag == "--denoise" else "store")
+        parser.add_argument(flag, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    for flag, module in _UNPORTED.items():
+    for flag, reason in _UNPORTED.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
-            parser.error(f"{flag} is not ported yet: it comes with {module}, "
-                         f"{_QUEUED}")
+            parser.error(f"{flag} is not ported: it {reason}")
     return args
 
 
@@ -81,7 +96,7 @@ def weights_path(model_dir: Path, weights: str) -> Path:
         raise FileNotFoundError(
             f"{model_dir / weights} is an orbax checkpoint of the JAX "
             f"package; the port reads its own {SUFFIX} files only (reading "
-            f"orbax checkpoints is queued in {_QUEUED})"
+            f"orbax checkpoints stays open in {_ITEM})"
         )
     raise FileNotFoundError(f"no {weights}{SUFFIX} weights file in {model_dir}")
 
@@ -124,12 +139,40 @@ def load_predictor(model_dir: Path, weights: str, aggregation: str = "mean",
     ), meta
 
 
-def predict_file(predictor, path: Path, threshold=0.7) -> list[dict]:
-    """Per-track meta dicts of one recording, predictions included."""
+def predict_file(predictor, path: Path, grid_meta=None, lat=None, lng=None,
+                 month=None, threshold=0.7, denoise=False) -> list[dict]:
+    """Per-track meta dicts of one recording, predictions included.
+    ``denoise`` runs ``ops/denoise.spectral_gate`` on the Predictor's device
+    before detection; with ``grid_meta`` and ``lat`` each track's labels are
+    masked to the species seen around (lat, lng) in ``month``
+    (``infer/ebirdgrid.apply_species_mask``)."""
+    import torch
+
     from audio_training_tpu_torch.corpus.audioio import load_recording
+    from audio_training_tpu_torch.infer.ebirdgrid import apply_species_mask
 
     frames, sr = load_recording(path, target_sr=predictor.cfg.sr)
-    tracks, _ = predictor.predict_recording(frames, sr, threshold=threshold)
+    if denoise:
+        from audio_training_tpu_torch.ops.denoise import spectral_gate
+
+        x = torch.as_tensor(frames[None], dtype=torch.float32,
+                            device=predictor.device)
+        frames = spectral_gate(x)[0].cpu().numpy()
+    tracks, results = predictor.predict_recording(frames, sr,
+                                                  threshold=threshold)
+    for r in results:
+        if r is not None and grid_meta is not None and lat is not None:
+            # re-apply the geo mask to the aggregated confidences
+            probs = np.zeros(len(predictor.labels), np.float32)
+            for l, c in zip(r.labels, r.confidences):
+                probs[predictor.labels.index(l)] = c / 100
+            masked = apply_species_mask(probs, predictor.labels, grid_meta,
+                                        lat, lng, month)
+            kept = np.flatnonzero(masked > 0)
+            r.labels = [predictor.labels[i] for i in kept]
+            r.confidences = [round(float(masked[i]) * 100) for i in kept]
+    # the metas are read after the mask (the JAX CLI reads them before it,
+    # so its output keeps the unmasked labels)
     return [t.get_meta() for t in tracks]
 
 
@@ -139,6 +182,9 @@ def main(argv=None) -> int:
     predictor, _ = load_predictor(Path(args.model), args.weights,
                                   args.aggregation, args.threshold,
                                   device=args.device)
+    grid_meta = None
+    if args.grid:
+        grid_meta = json.loads(Path(args.grid).read_text())
 
     # scalar default, overridden per class by a thresholds JSON
     threshold = args.threshold
@@ -149,18 +195,34 @@ def main(argv=None) -> int:
             np.float32,
         )
 
+    if args.folder_eval:
+        from audio_training_tpu_torch.infer.folder import predict_on_folder
+
+        result = predict_on_folder(predictor, args.folder_eval,
+                                   threshold=threshold,
+                                   workers=args.workers)
+        if args.json_out:
+            Path(args.json_out).write_text(json.dumps(
+                {"accuracy": result.accuracy,
+                 "total_files": result.total_files,
+                 "total_correct": result.total_correct,
+                 "per_file": result.per_file}, indent=2))
+        return 0
+
     if args.file:
         files = [Path(args.file)]
     elif args.dir:
         files = sorted(f for f in Path(args.dir).iterdir()
                        if f.suffix.lower() in AUDIO_SUFFIXES)
     else:
-        logging.error("Need --file or --dir")
+        logging.error("Need --file, --dir or --folder-eval")
         return 1
 
     all_results = {}
     for f in files:
-        track_meta = predict_file(predictor, f, threshold)
+        track_meta = predict_file(
+            predictor, f, grid_meta, args.lat, args.lng, args.month,
+            threshold, denoise=bool(args.denoise))
         for tm in track_meta:
             for p in tm["predictions"]:
                 logging.info(

@@ -18,7 +18,7 @@ The featurizer is chosen from the geometry, before anything launches:
 On a CUDA device both wrappers launch their kernels or raise; on the CPU
 they compute their plain versions, so the CPU runs the same two paths.  The
 JAX class's ``mesh`` argument (data-parallel inference) is not ported yet
-(ROADMAP.md queue item 5).
+(ROADMAP.md queue 1, "Data parallel").
 """
 
 from __future__ import annotations

@@ -58,3 +58,37 @@ def stft_centered(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     framed = F.pad(x, (half, half)).unfold(-1, n_fft, hop)
     framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
     return torch.fft.rfft(framed, n=n_fft, dim=-1).transpose(-1, -2)
+
+
+def istft_centered(spec: torch.Tensor, n_fft: int, hop: int,
+                   length: int) -> torch.Tensor:
+    """Inverse of :func:`stft_centered` with Hann overlap-add (port of JAX
+    ``ops/stft.py:102-122``, the spectral-gating denoise's resynthesis,
+    predict.py:125-184).  spec: (..., n_fft//2+1, frames) complex.  Each
+    frame's ``irfft`` is windowed and added at ``t*hop``; the sum is divided
+    by the overlapping windows' squares where they exceed 1e-10 and cropped
+    to ``[n_fft//2, n_fft//2 + length)``.  Returns (..., length) real."""
+    frames = spec.shape[-1]
+    window = torch.as_tensor(hann_window(n_fft), device=spec.device)
+    chunks = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
+    total = (frames - 1) * hop + n_fft
+    lead = chunks.shape[:-2]
+    # fold sums the (n_fft, frames) columns at stride hop: the overlap-add
+    out = F.fold(chunks.reshape(-1, frames, n_fft).transpose(1, 2),
+                 output_size=(1, total), kernel_size=(1, n_fft),
+                 stride=(1, hop)).reshape(*lead, total)
+    # the window-square sum in float64, one vectorized add per hop-wide
+    # piece j of the window (row r of the (frames + k, hop) view gets piece
+    # j of frame r - j); j descending adds each sample's frames in JAX's
+    # increasing-frame order
+    k = -(-n_fft // hop)
+    w = np.zeros(k * hop)
+    w[:n_fft] = hann_window(n_fft).astype(np.float64) ** 2
+    rows = np.zeros((frames + k, hop))
+    for j in reversed(range(k)):
+        rows[j : j + frames] += w[j * hop : (j + 1) * hop]
+    win_sum = rows.reshape(-1)[:total]
+    win_sum = np.where(win_sum > 1e-10, win_sum, 1.0)
+    out = out / torch.as_tensor(win_sum, dtype=out.dtype, device=out.device)
+    half = n_fft // 2
+    return out[..., half : half + length]

@@ -128,6 +128,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    a profile, and the host loader alone (uncached
    ``build_training_stream`` with 0 and 4 workers, samples/s).
 
+11. evaluation and deployment of phase 10's run: ``cli/freeze`` (-w
+   chkpt; the deployment's metadata ``frozen`` with display labels and
+   ``ebird_ids``, its window probabilities on phase 4's recording bitwise
+   the run's); 12 recordings of 20 s at 48 kHz (tone bursts of one
+   species each over noise, one sidecar track each) through ``cli/evaluate
+   strong`` and, as ``<label>/<audio>``, ``weak`` (8 spawned workers, host
+   detection), each with the launch counts zeroed just before and read
+   just after: one centered K1 ``mel_power`` launch a window batch (the
+   batches counted where ``Predictor.predict_windows`` takes them), no
+   other K1 or K2 launch; the strong mean confusion holding every track,
+   and its three confusions equal to ``--device cpu``'s but for tracks
+   with a probability within 1e-4 of the 0.7 threshold (counted); the weak
+   mean confusion holding every file; ``cli/evaluate thresholds`` on phase
+   10's test dump driving ``cli/predict --thresholds-json``;
+   ``cli/ebirdgrid`` on a two-square KML and an observations file, then
+   ``cli/predict --grid --lat --lng --month --threshold 0`` listing only the
+   square's species and the kept non-species labels (all labels without
+   the grid); ``cli/predict --denoise`` giving finite tracks; timing: each
+   evaluation's recording-s/s and host share (the wall time outside
+   ``predict_windows``), ``spectral_gate`` on the 60 s recording on the
+   card and on the host CPU, the freeze's wall time.
+
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``.  There is no CPU mode: without a CUDA
@@ -159,6 +181,9 @@ BATCH_PCEN = 512  # bench.py's BATCH_PCEN
 # phase 10's corpus: clips and GZIP shards a split, species, the run
 CORPUS_SPLITS = {"train": (384, 4), "validation": (128, 2), "test": (128, 2)}
 CORPUS_SPECIES = 12
+# phase 11's annotated recordings: one a species of phase 10's corpus
+EVAL_RECORDINGS = 12
+EVAL_SECONDS = 20.0
 CORPUS_EPOCHS, CORPUS_STEPS = 2, 4
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
@@ -1073,12 +1098,12 @@ def write_corpus(root: Path, cfg, species: list[str]) -> dict:
 
 
 def corpus_train_phase(dev, cfg, card, fit_step_ms: float,
-                       fit_s: float) -> None:
+                       fit_s: float) -> Path:
     """Phase 10: training from a built corpus at full width, through the
     user's entry point ``cli/train.main``; the run directory's artifacts
     read back by the port's readers; the trained run loaded by
     ``cli/predict.load_predictor`` and a recording predicted; the host
-    loader timed alone."""
+    loader timed alone.  Returns the run directory."""
     import itertools
     import math
     import shutil
@@ -1328,6 +1353,307 @@ def corpus_train_phase(dev, cfg, card, fit_step_ms: float,
         + ", ".join(
             f"{k} {v / len(recs):.3f} ms" for k, v in split_ms.items())
         + f" {card}")
+    return run_dir
+
+
+def write_eval_dirs(root: Path, sr: int, species: list[str],
+                    labels: list[str]) -> tuple:
+    """Phase 11's annotated recordings: EVAL_RECORDINGS of EVAL_SECONDS at
+    ``sr``, recording k a noise floor with tone bursts (1.2 s on, 0.8 s
+    off, from 0.5 s to the last 2 s) at species k's frequency of phase
+    10's corpus (log-spaced, 200 Hz to 10 kHz), from a numpy seed.  Writes
+    ``strong/<k>-rec.{wav,txt}`` (one track of species k, [1, end - 5) s,
+    inside the bursts and clear of the recording's end) and
+    ``weak/<labels[k]>/<k>-rec.wav``, species k's output label.  Returns
+    (strong dir, weak dir)."""
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    shutil.rmtree(root, ignore_errors=True)
+    strong, weak = root / "strong", root / "weak"
+    strong.mkdir(parents=True)
+    freqs = 200.0 * 50.0 ** (np.arange(len(species)) / (len(species) - 1))
+    t = np.arange(int(EVAL_SECONDS * sr)) / sr
+    bursts = (t % 2.0 < 1.2) & (t > 0.5) & (t < EVAL_SECONDS - 2.0)
+    for k in range(EVAL_RECORDINGS):
+        rng = np.random.default_rng([SEED, 11, k])
+        sp = species[k % len(species)]
+        x = (0.05 * rng.standard_normal(t.size)
+             + 0.5 * bursts * np.sin(2 * np.pi * freqs[k % len(species)] * t
+                                     + rng.uniform(0, 6.3))).astype(np.float32)
+        wavfile.write(strong / f"{k}-rec.wav", sr, x)
+        (strong / f"{k}-rec.txt").write_text(json.dumps({
+            "id": k, "duration": EVAL_SECONDS, "Tracks": [{
+                "id": 100 + k, "start": 1.0, "end": EVAL_SECONDS - 5.0,
+                "tags": [{"what": sp}]}]}))
+        label = weak / labels[k % len(species)]
+        label.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(strong / f"{k}-rec.wav", label / f"{k}-rec.wav")
+    return strong, weak
+
+
+def evaluate_deploy_phase(dev, cfg, card, run_dir: Path) -> None:
+    """Phase 11: evaluation and deployment of phase 10's trained run
+    through the user's entry points: ``cli/freeze``, ``cli/evaluate
+    strong`` / ``weak`` / ``thresholds``, ``cli/ebirdgrid`` and
+    ``cli/predict`` with ``--thresholds-json``, ``--grid`` and
+    ``--denoise``; each evaluation's K1 launches counted and its
+    confusions held to the same evaluation on the CPU."""
+    import math
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from audio_training_tpu_torch.cli import ebirdgrid as cli_ebirdgrid
+    from audio_training_tpu_torch.cli import evaluate as cli_evaluate
+    from audio_training_tpu_torch.cli import freeze as cli_freeze
+    from audio_training_tpu_torch.cli import predict as cli_predict
+    from audio_training_tpu_torch.config import InferenceConfig
+    from audio_training_tpu_torch.infer import (
+        Predictor, bucket_pad, extract_track_windows)
+    from audio_training_tpu_torch.infer.ebirdgrid import species_at
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.ops.cuda import melspec
+    from audio_training_tpu_torch.ops.denoise import spectral_gate
+    from audio_training_tpu_torch.taxonomy import (
+        get_ebird_ids_to_labels, load_ontology)
+    from audio_training_tpu_torch.train import load_metadata
+
+    torch.cuda.empty_cache()
+    root = REPO / "build" / "chip_smoke_eval"
+    ontology = load_ontology()
+    species = list(ontology.bird_train_labels[:CORPUS_SPECIES])
+    labels = load_metadata(run_dir)["labels"]
+
+    # 1. freeze: the deployment predicts as the run does, bitwise
+    deploy = root / "deploy"
+    shutil.rmtree(deploy, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = cli_freeze.main([str(run_dir), str(deploy), "-w", "chkpt"])
+    freeze_s = time.perf_counter() - t0
+    check(rc == 0, f"cli/freeze exited {rc}")
+    meta = json.loads((deploy / "metadata.txt").read_text())
+    check(meta.get("frozen") is True and len(meta["labels"]) == len(labels)
+          and len(meta["ebird_ids"]) == len(labels)
+          and (deploy / "audioModel.pt").exists(),
+          "the deployment's metadata.txt or audioModel.pt is wrong")
+    recording = synthetic_recording(RECORDING_S, cfg.sr, SEED)
+    run_pred, _ = cli_predict.load_predictor(run_dir, "chkpt", device=dev)
+    deployed, _ = cli_predict.load_predictor(deploy, "audioModel",
+                                             device=dev)
+    tracks, _ = run_pred.predict_recording(recording, cfg.sr)
+    windows = extract_track_windows(
+        recording, cfg.sr, tracks, segment_length=cfg.segment_length,
+        stride=cfg.segment_stride, fmin=cfg.fmin, fmax=cfg.fmax,
+        rng=np.random.default_rng(SEED)).windows
+    same = np.array_equal(deployed.predict_windows(windows),
+                          run_pred.predict_windows(windows))
+    log(f"path cli/freeze {run_dir.name} -> {deploy.name} -w chkpt: "
+        f"{freeze_s * 1e3:.1f} ms; metadata frozen, {len(meta['labels'])} "
+        f"display labels ({meta['labels'][:3]}...), ebird_ids "
+        f"({sum(map(len, meta['ebird_ids']))} ids); the deployment's "
+        f"probabilities on phase 4's {len(windows)} windows bitwise the "
+        f"run's: {same}")
+    check(same, "the frozen deployment's probabilities differ from the run's")
+    del run_pred, deployed
+
+    # the evaluations' window batches, counted where the Predictor takes
+    # them: each batch is one centered K1 launch
+    calls: list[tuple[int, float]] = []
+    infer_cfg = InferenceConfig()
+    real_predict = Predictor.predict_windows
+
+    def counted(self, win):
+        t0 = time.perf_counter()
+        out = real_predict(self, win)
+        calls.append((len(win), time.perf_counter() - t0))
+        return out
+
+    def evaluate(mode: str, out: Path, device: str, extra=()):
+        calls.clear()
+        argv = [mode, str(deploy), str(eval_dirs[mode]), "--out", str(out),
+                "-w", "audioModel", "--device", device, *extra]
+        Predictor.predict_windows = counted
+        try:
+            torch.cuda.synchronize()
+            ffz.reset_launch_counts()
+            melspec.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli_evaluate.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {**ffz.launch_counts(), **melspec.launch_counts()}
+        finally:
+            Predictor.predict_windows = real_predict
+        check(rc == 0, f"cli/evaluate {mode} on {device} exited {rc}")
+        batches = sum(math.ceil(bucket_pad(n, infer_cfg.bucket_sizes)
+                                / infer_cfg.max_window_batch)
+                      for n, _ in calls if n)
+        return wall, counts, batches, sum(n for n, _ in calls), sum(
+            s for _, s in calls)
+
+    # the ontology merges some species into the output named by its
+    # relabel map (redjun -> redjun1)
+    eval_dirs = dict(zip(("strong", "weak"), write_eval_dirs(
+        root / "data", cfg.sr, species,
+        [ontology.relabel_map.get(sp, sp) for sp in species])))
+    check(all(p.name in labels for p in eval_dirs["weak"].iterdir()),
+          "a weak directory is not named by a label of the run")
+    audio_s = EVAL_RECORDINGS * EVAL_SECONDS
+
+    # 2. strong evaluation on the card, its launches, and on the CPU
+    results = {}
+    for mode in ("strong", "weak"):
+        wall, counts, batches, n_win, pred_s = evaluate(
+            mode, root / "card" / mode, str(dev))
+        want = {k: 0 for k in counts}
+        want["fused_featurizer_mel_centered"] = batches
+        log(f"path cli/evaluate {mode} (deployment, {EVAL_RECORDINGS} "
+            f"recordings of {EVAL_SECONDS:.0f} s at {cfg.sr} Hz): {n_win} "
+            f"windows in {batches} batches, launches {counts} (want one "
+            f"centered mel launch a window batch, nothing else)")
+        check(counts == want, f"cli/evaluate {mode}'s K1 launch counts are "
+              "not the path's")
+        log(f"time cli/evaluate {mode}: {wall:.2f} s wall, "
+            f"{audio_s / wall:.1f} recording-s/s; Predictor.predict_windows "
+            f"{pred_s:.3f} s (featurize and classify on the card, copies "
+            f"included), host share {1 - pred_s / wall:.3f} "
+            f"(decode, get_end{', signal_noise' if mode == 'weak' else ''}, "
+            f"windowing{', worker start-up' if mode == 'weak' else ''}) "
+            f"{card}")
+        results[mode] = (wall, pred_s)
+    t0 = time.perf_counter()
+    evaluate("strong", root / "cpu" / "strong", "cpu")
+    cpu_s = time.perf_counter() - t0
+    cms = {d: {n: np.load(root / d / f"strong-{n}.npy")
+               for n in ("mean", "max", "counts")} for d in ("card", "cpu")}
+    tracks_n = int(cms["card"]["mean"].sum())
+    check(tracks_n == EVAL_RECORDINGS,
+          f"the strong mean confusion holds {tracks_n} of "
+          f"{EVAL_RECORDINGS} tracks")
+    probs = {}
+    for d in ("card", "cpu"):
+        with (root / d / "strong-raw-confidences.pkl").open("rb") as f:
+            probs[d] = pickle.load(f)
+    # the three decisions threshold the per-track mean, the per-track max
+    # and each window's top probability at 0.7: a probability within 1e-4
+    # of it may fall either side on the two devices
+    near = sum(
+        bool(min(np.abs(p.mean(0) - 0.7).min(), np.abs(p.max(0) - 0.7).min(),
+                 np.abs(p.max(1) - 0.7).min()) < 1e-4)
+        for p in probs["card"])
+    diff = sum(int(np.abs(cms["card"][n] - cms["cpu"][n]).sum()) // 2
+               for n in cms["card"])
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(probs["card"], probs["cpu"]))
+    card_cm = cms["card"]["mean"]
+    log(f"check cli/evaluate strong, card vs --device cpu ({cpu_s:.1f} s): "
+        f"mean / max / counts confusions equal: {diff == 0} ({diff} tracks "
+        f"moved; {near} tracks with a probability within 1e-4 of the 0.7 "
+        f"threshold); window probabilities max abs diff {err:.3e}; mean "
+        f"confusion diagonal {int(np.trace(card_cm))} of {tracks_n} tracks")
+    check(diff <= near, "the card's strong confusions differ from the CPU's "
+          "beyond the tracks at the threshold")
+    weak_cm = np.load(root / "card" / "weak-mean.npy")
+    check(int(weak_cm.sum()) == EVAL_RECORDINGS,
+          f"the weak mean confusion holds {int(weak_cm.sum())} of "
+          f"{EVAL_RECORDINGS} files")
+    log(f"check cli/evaluate weak: the mean confusion holds the "
+        f"{EVAL_RECORDINGS} files (diagonal {int(np.trace(weak_cm))}), "
+        f"votes diagonal "
+        f"{int(np.trace(np.load(root / 'card' / 'weak-votes.npy')))}")
+
+    # 3. thresholds from phase 10's test dump drive the deployment
+    wav = root / "data" / "recording.wav"
+    wavfile.write(wav, cfg.sr, recording)
+    thr = root / "thresholds.json"
+    check(cli_evaluate.main(["thresholds", str(run_dir / "confusion-raw.npy"),
+                             "--out", str(thr)]) == 0,
+          "cli/evaluate thresholds failed")
+    table = json.loads(thr.read_text())
+    check(sorted(table) == sorted(labels)
+          and all(0.5 <= v <= 0.9 for v in table.values()),
+          "the thresholds table is not one value in [0.5, 0.9] a label")
+
+    def predict(*flags) -> list[dict]:
+        out = root / "predict.json"
+        check(cli_predict.main([str(deploy), "--file", str(wav),
+                                "--json-out", str(out), "--device", str(dev),
+                                *flags]) == 0,
+              f"cli/predict {' '.join(flags)} failed")
+        got = json.loads(out.read_text())[str(wav)]
+        check(len(got) >= 1 and all(
+            math.isfinite(t["start"]) and math.isfinite(t["end"])
+            and len(t["predictions"]) == 1 for t in got),
+            f"cli/predict {' '.join(flags)}: no finite tracks")
+        return got
+
+    tracked = predict("--thresholds-json", str(thr))
+    log(f"path cli/evaluate thresholds (phase 10's test dump) -> "
+        f"cli/predict --thresholds-json: {table}; {len(tracked)} tracks, "
+        f"first {tracked[0]['predictions'][0]}")
+
+    # 4. the eBird grid masks the deployment's labels
+    kml, tsv, grid = root / "atlas.kml", root / "obs.tsv", root / "grid.json"
+    squares = [[174.0, -41.1, 174.1, -41.0], [175.0, -40.1, 175.1, -40.0]]
+    kml.write_text(
+        '<?xml version="1.0"?><kml xmlns="http://www.opengis.net/kml/2.2">'
+        "<Document>" + "".join(
+            "<Placemark><Polygon><outerBoundaryIs><LinearRing><coordinates>"
+            + " ".join(f"{x},{y},0" for x, y in ((b[0], b[1]), (b[2], b[1]),
+                                                  (b[2], b[3]), (b[0], b[3])))
+            + "</coordinates></LinearRing></outerBoundaryIs></Polygon>"
+            "</Placemark>" for b in squares) + "</Document></kml>")
+    names = get_ebird_ids_to_labels()
+    seen = [sp for sp in species[::3] if sp in names]
+    tsv.write_text("\n".join(
+        ["COMMON NAME\tLATITUDE\tLONGITUDE\tOBSERVATION DATE"]
+        + [f"{names[sp][0]}\t-41.05\t174.05\t2024-06-1{i}"
+           for i, sp in enumerate(seen)]
+        + [f"{names[sp][0]}\t-40.05\t175.05\t2024-06-01"
+           for sp in species if sp in names and sp not in seen]))
+    check(cli_ebirdgrid.main([str(tsv), "--kml", str(kml), "--out",
+                              str(grid)]) == 0, "cli/ebirdgrid failed")
+    present = species_at(json.loads(grid.read_text()), -41.05, 174.05, 6)
+    allowed = present | {"bird", "noise", "human", "insect", "frog",
+                         "rooster", "other"}
+    unmasked = predict("--threshold", "0")
+    masked = predict("--threshold", "0", "--grid", str(grid), "--lat",
+                     "-41.05", "--lng", "174.05", "--month", "6")
+    listed = [set(t["predictions"][0]["labels"]) for t in masked]
+    check(present == set(seen) and all(s <= allowed for s in listed)
+          and all(set(t["predictions"][0]["labels"]) == set(labels)
+                  for t in unmasked),
+          "cli/predict --grid kept a label the square lacks")
+    log(f"path cli/ebirdgrid ({len(squares)} KML squares, "
+        f"{len(species)} observations) -> cli/predict --grid --lat -41.05 "
+        f"--lng 174.05 --month 6 --threshold 0: square's species "
+        f"{sorted(present)}; {len(masked)} tracks list "
+        f"{sorted(set().union(*listed))} (unmasked: all {len(labels)} "
+        f"labels); every other label reads 0")
+
+    # 5. denoise before detection
+    denoised = predict("--denoise")
+    log(f"path cli/predict --denoise ({RECORDING_S:.0f} s): "
+        f"{len(denoised)} finite tracks (without: {len(tracked)})")
+    x = torch.as_tensor(recording[None], device=dev)
+    gate_ms = time_ms(lambda: spectral_gate(x))
+    x_cpu = x.cpu()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        spectral_gate(x_cpu)
+    gate_cpu_ms = (time.perf_counter() - t0) / 3 * 1e3
+    check(bool(torch.isfinite(spectral_gate(x)).all()),
+          "spectral_gate gave non-finite samples")
+    log(f"time spectral_gate on a {RECORDING_S:.0f} s recording "
+        f"({recording.size} samples, n_fft 2048, hop 512): {gate_ms:.3f} ms "
+        f"on the card, {gate_cpu_ms:.1f} ms on the host CPU; freeze "
+        f"{freeze_s * 1e3:.1f} ms wall {card}")
 
 
 def main() -> None:
@@ -2415,7 +2741,9 @@ def main() -> None:
     kernels += folded_chain_phase(dev, cfg, mel_np, fz, clips, card)
     kernels += probe_phase(dev, card)
     # ---- 10. training from a built corpus --------------------------------
-    corpus_train_phase(dev, cfg, card, step_ms, fit_s)
+    run_dir = corpus_train_phase(dev, cfg, card, step_ms, fit_s)
+    # ---- 11. evaluation and deployment of the trained run ---------------
+    evaluate_deploy_phase(dev, cfg, card, run_dir)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

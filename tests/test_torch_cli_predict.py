@@ -7,8 +7,8 @@ same Flax variables.  Both read the same WAV (the small 8 kHz, n_fft=512
 geometry of tests/test_infer.py::test_predictor_end_to_end, so the JAX
 Predictor runs K2 in interpret mode).  Tracks must match exactly; labels
 and tags exactly; confidences, rounded percentages of probabilities that
-agree to 1e-4, to within 1.  Each flag of the JAX CLI that the port does not
-take yet must exit non-zero naming its ROADMAP item.  A MobileNetV2 run
+agree to 1e-4, to within 1.  Each flag of the JAX CLI that the port leaves
+out must exit 2 with its reason.  A MobileNetV2 run
 (PCEN frontend, 3 channels) loads through both packages' ``load_predictor``
 (the JAX side from an orbax checkpoint of the same Flax variables) and its
 per-track mean probabilities agree to 1e-4 of max |p|, the f32 tolerance of
@@ -131,17 +131,31 @@ def test_dir_with_thresholds_json_matches_jax(run, tmp_path):
         _assert_tracks_match(got[str(path)], _jax_tracks(run, path, vector))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--denoise"], ["--grid", "g.json"], ["--lat", "-41.0"],
-    ["--lng", "174.0"], ["--month", "6"], ["--embedding-model", "m"],
-    ["--yamnet-model", "m"], ["--folder-eval", "d"], ["--test-split", "s"],
+@pytest.mark.parametrize("flags,reason", [
+    (["--test-split", "s"], "Host corpus tooling"),
+    (["--data-dir", "d"], "Host corpus tooling"),
+    (["--confusion-out", "c"], "Host corpus tooling"),
+    (["--embedding-model", "m"], "TensorFlow saved model"),
+    (["--embedding-kind", "yamnet"], "TensorFlow saved model"),
+    (["--yamnet-model", "m"], "TensorFlow saved model"),
 ])
-def test_unported_flags_exit_non_zero(run, capsys, flags):
+def test_unported_flags_exit_non_zero(run, capsys, flags, reason):
+    """The JAX CLI's flags that the port leaves out exit 2 with their
+    reason; the parser knows every JAX flag (none is unrecognized)."""
     with pytest.raises(SystemExit) as exc:
         predict.parse_args([str(run[0]), "--file", "x.wav", *flags])
-    assert exc.value.code != 0
+    assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert flags[0] in err and "ROADMAP.md queue item 3" in err
+    assert flags[0] in err and reason in err
+    assert "unrecognized" not in err
+
+
+def test_parser_knows_every_jax_flag():
+    from audio_training_tpu.cli.predict import parse_args as jax_parse_args
+
+    jax_flags = set(vars(jax_parse_args(["m"])))
+    port_flags = set(vars(predict.parse_args(["m"])))
+    assert jax_flags <= port_flags and port_flags - jax_flags == {"device"}
 
 
 def test_loader_reads_the_port_weights_only(run, tmp_path):

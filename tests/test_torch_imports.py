@@ -1,4 +1,6 @@
-"""The PyTorch port imports nothing of JAX, Flax or the JAX package."""
+"""The PyTorch port imports nothing of JAX, Flax or the JAX package, nor
+scikit-learn, TensorFlow or orbax; matplotlib only inside the functions
+that plot."""
 
 import ast
 import json
@@ -12,6 +14,8 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "audio_training_tpu")
+# packages the card's image lacks: never imported; matplotlib only lazily
+ABSENT = ("sklearn", "tensorflow", "orbax", "matplotlib")
 
 
 def _forbidden(name: str) -> bool:
@@ -19,8 +23,9 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_modules_import_without_jax():
-    """In a fresh interpreter, importing every port module leaves jax, flax
-    and every audio_training_tpu.* module out of sys.modules."""
+    """In a fresh interpreter, importing every port module leaves jax, flax,
+    every audio_training_tpu.* module, scikit-learn, TensorFlow, orbax and
+    matplotlib out of sys.modules."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import audio_training_tpu_torch as p\n"
@@ -46,9 +51,14 @@ def test_port_modules_import_without_jax():
                  "data.tfrecord", "data.schema", "data.pipeline",
                  "data.parallel_loader", "eval.confusion",
                  "utils.tensorboard", "train.metadata", "train.harness",
-                 "cli.train"):
+                 "cli.train", "ops.denoise", "corpus.dataset", "eval.prep",
+                 "eval.strong", "eval.weak", "eval.thresholds",
+                 "eval.compare", "eval.plots", "infer.freeze",
+                 "infer.ebirdgrid", "infer.folder", "cli.evaluate",
+                 "cli.freeze", "cli.ebirdgrid"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
-    leaked = [m for m in result["modules"] if _forbidden(m)]
+    leaked = [m for m in result["modules"]
+              if _forbidden(m) or m.split(".")[0] in ABSENT]
     assert not leaked, leaked
 
 
@@ -68,4 +78,28 @@ def test_port_sources_and_chip_smoke_name_no_jax_import():
                 continue
             bad += [(path.name, n) for n in names if _forbidden(n)]
     assert len(files) > 10
+    assert not bad, bad
+
+
+def test_port_names_absent_packages_only_inside_functions():
+    """No import of scikit-learn, TensorFlow or orbax anywhere in the port;
+    matplotlib only inside a function body."""
+    bad = []
+    for path in sorted((REPO / "audio_training_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        inside = {id(n) for f in ast.walk(tree)
+                  if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for n in ast.walk(f)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                if top in ABSENT and (top != "matplotlib"
+                                      or id(node) not in inside):
+                    bad.append((path.name, n))
     assert not bad, bad

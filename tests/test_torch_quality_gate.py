@@ -3,8 +3,13 @@ a fixed synthetic corpus of separable classes, the port's ``train_run``
 trains badwinner2 on it (on the CPU), and the held-out test confusion must
 clear the bars of ``tests/test_quality_gate.py:120-150``: 0.7 overall, 0.8
 on the specific-species rows, every populated row's maximum on the
-diagonal.  Slow (outside tier-1): a full small training.
+diagonal.  The trained run is then frozen by the port's ``cli/freeze`` and
+its deployment scored on fresh clips by the port's ``evaluate_strong_dir``
+against the bar of ``tests/test_quality_gate.py:150-190`` (0.8 on the
+species rows).  Slow (outside tier-1): a full small training.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -12,7 +17,15 @@ import torch
 
 from audio_training_tpu_torch.config import FeaturizerConfig, TrainConfig
 from audio_training_tpu_torch.train.harness import train_run
-from tests.test_quality_gate import SR, _write_corpus
+from tests.test_quality_gate import (
+    EBIRD,
+    LABELS,
+    SR,
+    TONE_END,
+    TONE_START,
+    _tone_clip,
+    _write_corpus,
+)
 
 pytestmark = pytest.mark.slow
 
@@ -75,3 +88,39 @@ def test_test_split_confusion_quality(gate_run):
     for i in range(min(cm.shape)):
         if cm[i].sum() > 0:
             assert cm[i, i] == cm[i].max(), cm
+
+
+def test_strong_eval_deployment_quality(gate_run, tmp_path):
+    """Deployment-path accuracy on fresh clips (the JAX gate's
+    test_strong_eval_deployment_quality with the port's cli/freeze,
+    load_predictor and evaluate_strong_dir): every species row of the mean
+    confusion puts 0.8 of its mass on the diagonal."""
+    from scipy.io import wavfile
+
+    from audio_training_tpu_torch.cli import freeze
+    from audio_training_tpu_torch.cli.predict import load_predictor
+    from audio_training_tpu_torch.eval.strong import evaluate_strong_dir
+
+    rng = np.random.default_rng(99)
+    eval_dir = tmp_path / "strong"
+    eval_dir.mkdir()
+    for i, what in enumerate(LABELS * 2):
+        wavfile.write(eval_dir / f"fresh{i}.wav", SR, _tone_clip(rng, what))
+        (eval_dir / f"fresh{i}.txt").write_text(json.dumps({
+            "id": f"fresh{i}", "duration": 8.0,
+            "Tracks": [{
+                "id": f"ft{i}", "start": TONE_START, "end": TONE_END,
+                "tags": [{"what": EBIRD[what], "automatic": False}],
+            }],
+        }))
+    deploy = tmp_path / "deploy"
+    assert freeze.main([str(gate_run.run_dir), str(deploy), "-w",
+                        "chkpt"]) == 0
+    predictor, meta = load_predictor(deploy, "audioModel", device="cpu")
+    assert meta["frozen"]
+    res = evaluate_strong_dir(predictor, eval_dir, workers=1)
+    cm = res.mean_cm
+    idx = [res.labels.index(EBIRD[w]) for w in LABELS]
+    sp_total = cm[idx].sum()
+    assert sp_total >= len(LABELS) * 2  # every track evaluated
+    assert sum(cm[i, i] for i in idx) / sp_total >= 0.8, (res.labels, cm)

@@ -6,7 +6,8 @@ randomized BN statistics and affine, converted with
 batch (2, 96, 110, 1) from a numpy seed, with ``dropout=0.0`` (JAX keys and
 torch generators give different dropout bits) and fresh Adam moments.
 Tolerances, all f32 on the CPU where only summation order differs:
-loss 1e-5 relative; each gradient tensor 5e-3 of its max |value|: through
+the step's metrics 1e-5 relative of a float64 run of the port's model
+(JAX's jitted step 5e-5 of it, see PORT_METRIC_TOL); each gradient tensor 5e-3 of its max |value|: through
 eight train-mode BatchNorms (Flax's fast variance E[x^2] - E[x]^2) an f32
 gradient of this model is itself only good to about 1e-3 of a float64 one
 (test_f32_gradient_noise_sets_the_gradient_tolerance measures the port's),
@@ -102,13 +103,45 @@ def stepped(setup):
     return jnew, jm, grads, state, m
 
 
-def test_train_step_loss_and_metrics_match_jax(stepped):
+# Metric tolerances of the train step, each against the port's model run in
+# float64 on the same batch and weights (relative, floor 1 in the divisor):
+# the port's f32 step sits within 2.6e-6 of it; JAX's jitted value_and_grad
+# step, whose fused XLA:CPU f32 reductions reorder the sums, was measured
+# 1.7e-5 away on the loss (1.0143548 against 1.0143723; JAX's eager forward
+# gives 1.0143766), so it is held to 5e-5, and the two f32 steps to the sum.
+PORT_METRIC_TOL = 1e-5
+JAX_JIT_METRIC_TOL = 5e-5
+
+
+def _metric_err(got, want):
+    return abs(got - want) / max(abs(want), 1.0)
+
+
+@pytest.fixture(scope="module")
+def float64_metrics(setup):
+    """``metrics_compute`` of the port's model in float64, train mode, on
+    the step's batch: the exact evaluation both f32 steps are held to."""
+    _, v, mel, y = setup
+    model = _port_state(v).model.double().train()
+    y64 = torch.from_numpy(y).double()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(mel).double())
+        m = metrics.metrics_update(step.fresh_metrics(),
+                                   losses.bce_from_logits(logits, y64),
+                                   torch.sigmoid(logits), y64, True)
+    return metrics.metrics_compute(m)
+
+
+def test_train_step_loss_and_metrics_match_jax(stepped, float64_metrics):
     _, jm, _, state, m = stepped
     assert state.step == 1
     got, want = metrics.metrics_compute(m), jmetrics.metrics_compute(jm)
-    assert got.keys() == want.keys()
-    for k in got:
-        assert abs(got[k] - want[k]) <= 1e-5 * max(abs(want[k]), 1.0), k
+    assert got.keys() == want.keys() == float64_metrics.keys()
+    for k, exact in float64_metrics.items():
+        assert _metric_err(got[k], exact) <= PORT_METRIC_TOL, k
+        assert _metric_err(want[k], exact) <= JAX_JIT_METRIC_TOL, k
+        assert (_metric_err(got[k], want[k])
+                <= PORT_METRIC_TOL + JAX_JIT_METRIC_TOL), k
 
 
 def test_train_step_gradients_match_jax(stepped, setup):
