@@ -120,12 +120,10 @@ def load_predictor(model_dir: Path, weights: str, aggregation: str = "mean",
     model_name = meta.get("name", "badwinner2")
     multi_label = meta.get("multi_label", True)
     channels = int(meta.get("channels", 1))
-    # only badwinner2 takes the mel height; a backbone reads any image
-    extra = ({"n_mels": cfg.n_mels} if model_name.lower() == "badwinner2"
-             else {})
     module = build_model(model_name, num_labels=len(labels), logits_only=True,
-                         multi_label=multi_label, in_channels=channels,
-                         **extra).module
+                         multi_label=multi_label, n_mels=cfg.n_mels,
+                         mel_frames=cfg.mel_frames,
+                         in_channels=channels).module
     module.load_state_dict(load_state_dict(weights_path(model_dir, weights)))
     infer_cfg = InferenceConfig(threshold=threshold, aggregation=aggregation)
     return Predictor(

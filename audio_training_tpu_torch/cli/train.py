@@ -3,10 +3,11 @@
 ``python audiomodel.py <run-name> -d <data>``, audiomodel.py:1985-2414).
 
 The flags and defaults are the JAX CLI's, plus ``--device`` (the CUDA card
-unless given ``--device cpu``).  A run that needs what the port has not
-ported yet (``--backbone-weights``, ``--data-shards`` > 1, a model family
-other than badwinner2 and the ported backbones, ``rf-features``) exits 2
-with a message naming the ROADMAP.md item that ports it.
+unless given ``--device cpu``).  Every model family with a mel input
+trains.  A run that needs what the port has not ported yet
+(``--backbone-weights``, ``--data-shards`` > 1, the ``dual-badwinner2``,
+``merge``, ``cnn-features``, ``embeddings`` and ``rf-features`` runs) exits
+2 with a message naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations

@@ -10,10 +10,16 @@ layout.
 
 A compute ``dtype`` (e.g. ``torch.bfloat16``) casts activations and weights
 at each conv while the parameters stay f32, as Flax's ``dtype`` does.
+
 ``_condense_conv``'s custom backward (JAX ``layers.py:39-89``) exists for
 the TPU's dgrad emitter and is the same function as the plain conv's
 gradient; here autograd (cuDNN on the card) computes it, held against the
 JAX custom VJP by tests/test_torch_train_step.py.
+
+Each layer that holds Flax variables names its Flax kind (``flax_kind``,
+the Flax class name that numbers its scope) and its leaves
+(``flax_leaves``: collection, path below the scope, torch tensor, layout
+change); ``models/convert.py`` walks a model by these.
 """
 
 from __future__ import annotations
@@ -39,6 +45,28 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return F.relu6(x)
+
+
+def hwio_to_oihw(a: torch.Tensor) -> torch.Tensor:
+    """A Flax conv kernel (H, W, I, O) as a torch conv weight (O, I, H, W)."""
+    return a.permute(3, 2, 0, 1)
+
+
+def _identity(a: torch.Tensor) -> torch.Tensor:
+    return a
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with probability 1 - rate, scaled by
+    1 / (1 - rate), the mask drawn from ``generator``; the identity in eval
+    or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -67,17 +95,31 @@ class KerasBatchNorm(nn.Module):
     moments are computed in f32 (Flax reduces bf16 inputs in f32), the
     variance is the biased one, ``E[x^2] - E[x]^2`` clamped at 0 (Flax's
     fast variance; ``F.batch_norm`` stores the unbiased variance), and
-    ``running = 0.99 running + 0.01 batch``.
+    ``running = 0.99 running + 0.01 batch``.  ``eps`` is Keras' 1e-3 unless
+    given (keras.applications' ResNets and DenseNet pass 1.001e-5).
     """
 
+    flax_kind = "KerasBatchNorm"
+
     def __init__(self, num_features: int, feature_dim: int = 1,
-                 use_scale: bool = True, use_bias: bool = True):
+                 use_scale: bool = True, use_bias: bool = True,
+                 eps: float = BN_EPS):
         super().__init__()
         self.feature_dim = feature_dim
+        self.eps = eps
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.weight = nn.Parameter(torch.ones(num_features)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(num_features)) if use_bias else None
+
+    def flax_leaves(self):
+        leaves = [("batch_stats", ("BatchNorm_0", "mean"), "running_mean"),
+                  ("batch_stats", ("BatchNorm_0", "var"), "running_var")]
+        if self.weight is not None:
+            leaves.append(("params", ("BatchNorm_0", "scale"), "weight"))
+        if self.bias is not None:
+            leaves.append(("params", ("BatchNorm_0", "bias"), "bias"))
+        return [(c, p, t, _identity) for c, p, t in leaves]
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         with torch.no_grad():
@@ -89,7 +131,7 @@ class KerasBatchNorm(nn.Module):
                 self.bias.zero_()
 
     def _affine(self, x, mean, var, shape):
-        mul = torch.rsqrt(var + BN_EPS)
+        mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
         y = (x - mean.view(shape)) * mul.view(shape)
@@ -113,7 +155,7 @@ class KerasBatchNorm(nn.Module):
             return self._affine(xf, mean, var, shape).to(x.dtype)
         if self.feature_dim == 1:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, BN_EPS)
+                                self.weight, self.bias, False, 0.0, self.eps)
         return self._affine(x, self.running_mean, self.running_var, shape)
 
 
@@ -121,10 +163,15 @@ class MagTransform(nn.Module):
     """Trainable magnitude compression ``x**sigmoid(a)`` with ``a`` clipped
     to [-2, 1] (badwinner2.MagTransform, badwinner2.py:32-49)."""
 
+    flax_kind = "MagTransform"
+
     def __init__(self, init_value: float = -1.0):
         super().__init__()
         self.init_value = init_value
         self.a_power = nn.Parameter(torch.full((1,), init_value))
+
+    def flax_leaves(self):
+        return [("params", ("a_power",), "a_power", _identity)]
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         with torch.no_grad():
@@ -148,6 +195,8 @@ class PCENLayer(nn.Module):
     frame 0, gain clamped to <= 1, root to >= 1) and the global min-max to
     [-1, 1] over the whole batch."""
 
+    flax_kind = "PCENLayer"
+
     def __init__(self, eps: float = 1e-6, time_axis: int = 1):
         super().__init__()
         self.eps = eps
@@ -156,6 +205,10 @@ class PCENLayer(nn.Module):
         self.bias = nn.Parameter(torch.full((1,), 2.0))
         self.root = nn.Parameter(torch.full((1,), 2.0))
         self.smooth = nn.Parameter(torch.full((1,), 0.04))
+
+    def flax_leaves(self):
+        return [("params", (n,), n, _identity)
+                for n in ("gain", "bias", "root", "smooth")]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return pcen(x, self.gain, self.bias, self.root, self.smooth,
@@ -190,15 +243,21 @@ class Conv(nn.Module):
     split, :func:`same_pads`, padded explicitly) and ``groups`` (a depthwise
     conv: ``groups = in_channels``) as Flax's ``nn.Conv`` takes them.
     ``init`` is ``"glorot"``, ``"orthogonal"`` or ``"lecun_normal"`` (Flax's
-    ``nn.Conv`` default).  ``weight`` is OIHW."""
+    ``nn.Conv`` default).  ``weight`` is OIHW.  The Flax ``Conv`` wrapper
+    keeps its variables at ``Conv_k/Conv_0/{kernel,bias}``; ``raw=True`` is
+    a Flax ``nn.Conv`` called directly (the depthwise convs), at
+    ``Conv_k/{kernel,bias}``.  Both count as ``Conv``."""
+
+    flax_kind = "Conv"
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel: Sequence[int], init: str = "glorot",
                  dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None, *,
                  stride: Sequence[int] = (1, 1), padding: str = "VALID",
-                 groups: int = 1):
+                 groups: int = 1, raw: bool = False):
         super().__init__()
+        self.raw = raw
         if init not in ("glorot", "orthogonal", "lecun_normal"):
             raise ValueError(f"unknown init {init!r}")
         if padding not in ("VALID", "SAME"):
@@ -213,6 +272,11 @@ class Conv(nn.Module):
             torch.empty(out_channels, in_channels // groups, *kernel))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.reset_parameters(generator)
+
+    def flax_leaves(self):
+        scope = () if self.raw else ("Conv_0",)
+        return [("params", (*scope, "kernel"), "weight", hwio_to_oihw),
+                ("params", (*scope, "bias"), "bias", _identity)]
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         if self.init == "glorot":
@@ -243,9 +307,64 @@ class Conv(nn.Module):
                         groups=self.groups)
 
 
+class Dense(nn.Module):
+    """Flax ``nn.Dense`` on the last axis (a pointwise layer on a 4-D NHWC
+    map, as Keras' Dense): lecun-normal kernel, zero bias, computed in
+    ``dtype`` when given.  ``weight`` is (out, in); Flax's kernel is
+    (in, out)."""
+
+    flax_kind = "Dense"
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        with torch.no_grad():
+            lecun_normal_(self.weight, generator=generator)
+
+    def flax_leaves(self):
+        return [("params", ("kernel",), "weight", lambda a: a.T),
+                ("params", ("bias",), "bias", _identity)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+        return F.linear(x, w, b)
+
+
 def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
     """Keras MaxPool2D semantics: stride = window, valid padding."""
     return F.max_pool2d(x, tuple(window), tuple(window))
+
+
+def zero_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``jnp.pad`` of the two spatial dims by ``pad`` zeros a side (Keras'
+    ZeroPadding2D; a max pool after it sees the zeros, not -inf)."""
+    return F.pad(x, (pad, pad, pad, pad))
+
+
+def avg_pool(x: torch.Tensor, window: Sequence[int],
+             padding: str = "VALID") -> torch.Tensor:
+    """Flax ``nn.avg_pool`` with stride = window; ``"SAME"`` pads XLA's
+    split with zeros that count in the denominator (Flax's
+    ``count_include_pad=True``)."""
+    window = tuple(window)
+    if padding == "SAME":
+        (h0, h1), (w0, w1) = (same_pads(n, k, k)
+                              for n, k in zip(x.shape[2:], window))
+        x = F.pad(x, (w0, w1, h0, h1))
+    return F.avg_pool2d(x, window, window)
+
+
+def same_avg_pool3(x: torch.Tensor) -> torch.Tensor:
+    """Keras ``AveragePooling2D((3, 3), strides=1, padding="same")`` with
+    TF's denominator, the count of valid cells (JAX
+    ``backbones._same_avg_pool3``)."""
+    return F.avg_pool2d(x, 3, 1, padding=1, count_include_pad=False)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ second/extra/human dataset dirs), count-based label admission, dataset
 streams, model build, class weights, fit with the callback suite, BN
 re-estimation, test-set confusion, metadata.
 
-Ported: runs of the models with ``("mel",)`` inputs (badwinner2 and the
-backbone classifier) on one device.  What needs a family or module that
-is not ported yet raises ``NotImplementedError`` naming its ROADMAP.md item
+Ported: runs of every model family with ``("mel",)`` inputs on one
+device.  What needs a module that is not ported yet (the dual and merge
+preprocessing, the vector-input loaders, the random forest, the backbone
+transplant) raises ``NotImplementedError`` naming its ROADMAP.md item
 (:func:`unported_reason`); nothing is silently dropped.
 """
 
@@ -41,7 +42,6 @@ from audio_training_tpu_torch.eval.confusion import (
     single_label_confusion,
 )
 from audio_training_tpu_torch.models import build_model
-from audio_training_tpu_torch.models.backbones import BACKBONES
 from audio_training_tpu_torch.taxonomy.ebird import get_ebird_id
 from audio_training_tpu_torch.taxonomy.labels import (
     LabelSpace,
@@ -70,6 +70,8 @@ log = logging.getLogger(__name__)
 _TRAINING_ITEM = 'ROADMAP.md queue 1, "Training from a built corpus"'
 _FAMILIES_ITEM = 'ROADMAP.md queue 1, "Model families"'
 _DATA_PARALLEL_ITEM = 'ROADMAP.md queue 1, "Data parallel"'
+_EVALUATION_ITEM = ('ROADMAP.md queue 1, "Evaluation, deployment and the '
+                    'rest of long-recording inference"')
 # the JAX package's run kinds that train other inputs than one mel image
 _VECTOR_MODELS = ("embeddings", "cnn-features")
 
@@ -85,16 +87,18 @@ def unported_reason(train_cfg: TrainConfig,
     if name == "rf-features":
         return f"rf-features (train_random_forest) comes with {_TRAINING_ITEM}"
     if name == "dual-badwinner2":
-        return (f"dual-input training comes with {_TRAINING_ITEM} (the dual "
-                f"preprocess) and {_FAMILIES_ITEM} (DualBadWinner2)")
-    if name in _VECTOR_MODELS:
-        return f"vector-input runs ({name}) come with {_FAMILIES_ITEM}"
+        return (f"dual-input training (make_preprocess_fn(dual=True)) comes "
+                f"with {_TRAINING_ITEM}")
     if name == "merge":
-        return f"merge runs come with {_FAMILIES_ITEM}"
-    if name != "badwinner2" and name not in BACKBONES:
-        return f"model {train_cfg.model_name!r} comes with {_FAMILIES_ITEM}"
+        return (f"merge runs (make_merge_preprocess_fn) come with "
+                f"{_TRAINING_ITEM}")
+    if name in _VECTOR_MODELS:
+        return (f"vector-input runs ({name}) read data/embeddings.py, which "
+                f"loads TensorFlow saved models; it comes with "
+                f"{_EVALUATION_ITEM}")
     if backbone_weights is not None:
-        return (f"backbone weights (models/transplant.py) come with "
+        return (f"backbone weights (models/transplant.py) load a Keras model, "
+                f"and the port does not depend on TensorFlow; they come with "
                 f"{_FAMILIES_ITEM}")
     return None
 
@@ -419,12 +423,10 @@ def train_run(
     # depend on the device)
     dtype = (torch.bfloat16 if train_cfg.compute_dtype == "bfloat16"
              else None)
-    extra_kwargs = ({"n_mels": cfg.n_mels}
-                    if train_cfg.model_name.lower() == "badwinner2" else {})
     spec = build_model(
         train_cfg.model_name, num_labels=len(labels),
         multi_label=train_cfg.multi_label, logits_only=True, dtype=dtype,
-        in_channels=channels, **extra_kwargs,
+        n_mels=cfg.n_mels, mel_frames=cfg.mel_frames, in_channels=channels,
     )
     state = create_train_state(
         spec.module, learning_rate=train_cfg.learning_rate,

@@ -148,7 +148,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the grid); ``cli/predict --denoise`` giving finite tracks; timing: each
    evaluation's recording-s/s and host share (the wall time outside
    ``predict_windows``), ``spectral_gate`` on the 60 s recording on the
-   card and on the host CPU, the freeze's wall time.
+   card and on the host CPU, the freeze's wall time;
+12. the model families: the reference's default backbone on the PCEN chain
+   at full width (waveform -> K1's "default" tier with its PCEN epilogue,
+   bf16 image -> 3-channel repeat ->
+   ``BackboneClassifier(efficientnetv2b3, external_frontend=True)`` bf16,
+   62 labels, B=512, seeded weights) answering 3 requests through
+   ``make_fused_infer_fn``, one "default" and one PCEN launch each and no
+   other K1 or K2 launch; f32 logits at B=8 of the kernel path against the
+   plain featurizer (1e-4); ``fold_gray_stem`` refusing the model with its
+   baked preprocessing and, built with ``preprocess=False``, the folded
+   1-channel stem against the 3-channel repeat (1e-5); timing of the chain
+   (ms, audio-s/s, peak memory, featurizer / CNN split, a profile with the
+   idle share) beside phase 7's MobileNetV2 chain; a sweep of every other
+   backbone (behind K1's "default" tier and PCEN) and of badwinner2-res,
+   badwinner, wr-resnet and wr-resnet-bird (behind K1's exact tier, their
+   own frontends) once each at B=64 in bf16 with its launch counts, finite
+   logits and ms a batch (two readings of ``SWEEP_ITERS`` calls, each with
+   its host issue time); the sweep's K1 kernels at B=64 against their plain
+   versions on its clips (the "default" tier and PCEN at phase 6's and 3's
+   limits, the exact tier at phase 3's) and one mel family's f32 logits
+   against the plain featurizer (1e-4); the training tiers at B=32 on
+   normalized tone clips the same way; ``cli/train --model-name
+   efficientnetv2b3`` on phase 10's corpus (1 epoch x 4 steps, B=32, its
+   own PCEN layer; one bf16 launch a train step, one exact launch a
+   validation and test batch; finite, falling step losses) and
+   ``cli/predict.load_predictor`` on the run, predicting phase 4's
+   recording.  The B3 chain's launches are added to phase 7's B=512 records
+   of the two kernels, one record a kernel shape.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -178,6 +205,10 @@ TRAIN_BATCH = 128  # bench.py's TRAIN_BATCH
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 4
 TRAIN_LR = 1e-3
 BATCH_PCEN = 512  # bench.py's BATCH_PCEN
+FAMILY_BATCH = 64  # phase 12's sweep of the other families
+SWEEP_ITERS = 10  # calls in each of the sweep's two timed readings
+B3_TRAIN_BATCH = 32  # the JAX TrainConfig's default batch
+B3_TRAIN_STEPS = 4
 # phase 10's corpus: clips and GZIP shards a split, species, the run
 CORPUS_SPLITS = {"train": (384, 4), "validation": (128, 2), "test": (128, 2)}
 CORPUS_SPECIES = 12
@@ -275,6 +306,43 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def profile_pcen_chain(run, dev):
+    """A profile of one ``run()`` of a PCEN chain: (key averages, then
+    grouped by input shape; its device kernels; the K1 "default" and PCEN
+    kernels among them).  A warm-up step first, and a one-element fill
+    ahead of the chain in each step: the profiler can lose the first kernel
+    of its window, and the chain's first kernel is K1's.  A profile that
+    still lost a featurizer kernel is taken again, at most twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        averages = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True,
+                     schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                      active=1),
+                     on_trace_ready=lambda p: averages.extend([
+                         p.key_averages(),
+                         p.key_averages(group_by_input_shape=True)])) as prof:
+            for _ in range(2):
+                torch.zeros(1, device=dev)
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in averages[0]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        feat = [e for e in events
+                if "mel_bf16_kernel" in e.key or "pcen_kernel" in e.key]
+        if len(feat) == 2:
+            break
+        log(f"profile attempt {attempt + 1} lost a featurizer kernel: it "
+            f"holds {[e.key[:40] for e in feat]}")
+    check(len(feat) == 2, "the profile misses a featurizer kernel")
+    return averages, events, feat
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1656,6 +1724,351 @@ def evaluate_deploy_phase(dev, cfg, card, run_dir: Path) -> None:
         f"{freeze_s * 1e3:.1f} ms wall {card}")
 
 
+def model_families_phase(dev, cfg, card, mn_ms: float) -> dict[str, int]:
+    """Phase 12: the model families.  The reference's default backbone,
+    EfficientNetV2-B3, on the PCEN chain at full width (K1's "default" tier
+    with its PCEN epilogue, bf16 image, 3-channel repeat, B=512, three
+    requests), its f32 checks and the gray-stem fold; a sweep of every
+    other family at B=64, with K1 held against its plain versions at that
+    batch; ``cli/train --model-name efficientnetv2b3`` on phase 10's corpus,
+    with K1's training tiers held at its batch, and ``cli/predict`` on the
+    run.  Returns the B3 chain's launch counts."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audio_training_tpu_torch.cli import predict as cli_predict
+    from audio_training_tpu_torch.cli import train as cli_train
+    from audio_training_tpu_torch.infer.fused import make_fused_infer_fn
+    from audio_training_tpu_torch.models import (
+        MODEL_NAMES, build_model, fold_gray_stem)
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.ops.cuda import melspec
+    from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
+    from audio_training_tpu_torch.ops.features import (
+        build_mel_weights, normalize_rows)
+    from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
+    from audio_training_tpu_torch.train import harness, load_metadata
+    from audio_training_tpu_torch.train import loop
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def clips(batch: int) -> torch.Tensor:
+        return torch.randn(batch, cfg.samples_per_clip, generator=gen,
+                           device=dev)
+
+    def reset() -> None:
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        melspec.reset_launch_counts()
+
+    def counts() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {**ffz.launch_counts(), **melspec.launch_counts()}
+
+    def seeded(name: str, dtype=torch.bfloat16, **kw):
+        return build_model(name, NUM_LABELS, logits_only=True, dtype=dtype,
+                           n_mels=cfg.n_mels, mel_frames=cfg.mel_frames,
+                           generator=torch.Generator().manual_seed(SEED),
+                           **kw).module.to(dev).eval()
+
+    def logit_rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    mel_np = build_mel_weights(cfg)
+    mel_w = torch.as_tensor(mel_np, device=dev)
+    fz_tier = {t: ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length,
+                                      precision=t, device=dev)
+               for t in ("default", "highest")}
+
+    def check_k1(raw: torch.Tensor, tier: str, what: str,
+                 with_pcen: bool = False, impulses: bool = False) -> None:
+        """K1's ``tier`` mel kernel at this path's batch against its plain
+        version, at phase 3's (exact) and phase 6's ("default") limits;
+        with ``with_pcen`` the PCEN epilogue on the kernel's own mel
+        against plain PCEN (phase 3's limit)."""
+        fzt, b = fz_tier[tier], raw.shape[0]
+        mel_k = fzt(raw, pcen=False)
+        mel_p = ffz.fused_featurizer_plain(raw, mel_w, cfg.hop_length,
+                                           precision=tier)
+        rel = logit_rel(mel_k, mel_p)
+        if tier == "highest" or impulses:
+            limit = MEL_REL_TOL if tier == "highest" else BF16_FLIP_FREE_REL
+            log(f"check B={b} {what}, K1 {tier} tier vs plain: global rel "
+                f"err {rel:.3e} (limit {limit})")
+            check(rel < limit, f"K1 {tier} disagrees with plain on {what}")
+        else:
+            rms = (torch.linalg.norm(mel_k - mel_p)
+                   / torch.linalg.norm(mel_p)).item()
+            log(f"check B={b} {what}, K1 default tier vs plain: relative RMS "
+                f"{rms:.3e} (limit {BF16_RMS_REL}), global rel err "
+                f"{rel:.3e} (limit {BF16_STEP:.3e}, one bf16 step)")
+            check(rms < BF16_RMS_REL and rel < BF16_STEP,
+                  f"K1 default disagrees with plain on {what}")
+        if with_pcen:
+            want = normalize_minmax_global(pcen(
+                mel_k, *fzt.pcen_params, time_axis=2, normalize=False))
+            err = (fzt(raw, pcen=True) - want).abs().max().item()
+            log(f"check B={b} {what}, PCEN on the {tier} tier's mel vs "
+                f"plain: max abs err {err:.3e} (limit {PCEN_ABS_TOL})")
+            check(err < PCEN_ABS_TOL, f"PCEN disagrees with plain on {what}")
+
+    # ---- the EfficientNetV2-B3 chain, B=512 ------------------------------
+    b3 = seeded("efficientnetv2b3", external_frontend=True)
+    infer = make_fused_infer_fn(b3, cfg, use_pcen=True, channels=3,
+                                precision="default", device=dev,
+                                out_dtype=torch.bfloat16)
+    requests = [clips(BATCH_PCEN) for _ in range(REQUESTS)]
+    reset()
+    answers = [infer(r) for r in requests]
+    b3_counts = counts()
+    want = {k: 0 for k in b3_counts}
+    want["fused_featurizer_mel_bf16"] = want["fused_featurizer_pcen"] = (
+        REQUESTS)
+    log(f"path PCEN -> EfficientNetV2-B3 chain (K1 default tier + PCEN, bf16 "
+        f"image, 3-channel repeat, BackboneClassifier(efficientnetv2b3, "
+        f"external_frontend=True) bf16, {NUM_LABELS} labels): {REQUESTS} "
+        f"requests of B={BATCH_PCEN}, launches {b3_counts}")
+    check(b3_counts == want, "the B3 chain did not launch K1's default tier "
+          "and the PCEN kernel once per request, and nothing else")
+    for logits in answers:
+        check(tuple(logits.shape) == (BATCH_PCEN, NUM_LABELS)
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"B3 logits {tuple(logits.shape)} {logits.dtype} not finite")
+    del answers
+
+    # f32 at B=8: the kernel path against the plain featurizer; the fold
+    b3_32 = seeded("efficientnetv2b3", dtype=None, external_frontend=True)
+    b3_32.load_state_dict(b3.state_dict())
+    raw8 = clips(CHECK_BATCH)
+
+    def logits32(model, use_kernel=True, channels=3):
+        return make_fused_infer_fn(model, cfg, use_pcen=True,
+                                   channels=channels, use_kernel=use_kernel,
+                                   device=dev)(raw8)
+
+    lg_k, lg_p = logits32(b3_32), logits32(b3_32, use_kernel=False)
+    rel_plain = logit_rel(lg_k, lg_p)
+    try:
+        fold_gray_stem(b3_32)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("EfficientNetV2" in refused,
+          "fold_gray_stem took EfficientNetV2-B3 with its preprocessing")
+    b3_np = seeded("efficientnetv2b3", dtype=None, external_frontend=True,
+                   backbone_args=(("preprocess", False),))
+    b3_np.load_state_dict(b3.state_dict())
+    lg_3 = logits32(b3_np)
+    rel_fold = logit_rel(logits32(fold_gray_stem(b3_np), channels=1), lg_3)
+    log(f"check EfficientNetV2-B3 f32 logits B={CHECK_BATCH} (max |logit| "
+        f"{lg_k.abs().max().item():.4e}, two clips' logits "
+        f"{logit_rel(lg_k[0], lg_k[1]):.3e} apart): kernel path vs plain "
+        f"featurizer rel err {rel_plain:.3e} (limit {LOGIT_REL_TOL}); "
+        f"fold_gray_stem refuses preprocess=True ({refused[:60]}...); with "
+        f"preprocess=False the folded 1-channel stem vs the 3-channel repeat "
+        f"{rel_fold:.3e} (limit {FOLD_REL})")
+    check(rel_plain < LOGIT_REL_TOL, "B3 kernel-path logits disagree")
+    check(rel_fold < FOLD_REL, "B3 folded-stem logits disagree")
+    del b3_32, b3_np
+
+    # timing: the chain, its split, peak memory, a profile
+    mel_fn = make_mel_fn(cfg, device=dev, pcen=True, precision="default",
+                         out_dtype=torch.bfloat16)
+    img3 = mel_fn(requests[2])[..., None].repeat_interleave(3, dim=-1)
+    with torch.no_grad():
+        cnn_ms = time_ms(lambda: b3(img3), iters=3)
+    feat_ms = time_ms(lambda: mel_fn(requests[1]), iters=5)
+    torch.cuda.reset_peak_memory_stats()
+    chain_ms = time_ms(lambda: infer(requests[1]), iters=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"time PCEN -> EfficientNetV2-B3 chain, default tier, B={BATCH_PCEN}: "
+        f"{chain_ms:.3f} ms/batch, "
+        f"{BATCH_PCEN * cfg.segment_length / (chain_ms / 1e3):.1f} audio-s/s, "
+        f"peak memory {peak:.2f} GB; featurizer (mel + PCEN + min-max, bf16 "
+        f"image) {feat_ms:.3f} ms, EfficientNetV2-B3 bf16 on the 3-channel "
+        f"image {cnn_ms:.3f} ms; the PCEN -> MobileNetV2 chain of phase 7 "
+        f"{mn_ms:.3f} ms {card}")
+    _, events, feat = profile_pcen_chain(lambda: infer(requests[2]), dev)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    feat_busy = sum(e.self_device_time_total for e in feat) / 1e3
+    conv_busy = sum(e.self_device_time_total for e in events
+                    if "conv" in e.key.lower() or "xmma" in e.key
+                    or "sm90" in e.key or "sm80" in e.key) / 1e3
+    log(f"profile PCEN -> EfficientNetV2-B3 chain, B={BATCH_PCEN}: device "
+        f"kernels {busy_ms:.3f} ms of {chain_ms:.3f} ms (idle share "
+        f"{1 - busy_ms / chain_ms:.3f}); K1 bf16 + PCEN {feat_busy:.3f} ms, "
+        f"kernels named as convolutions {conv_busy:.3f} ms, the rest "
+        f"{busy_ms - feat_busy - conv_busy:.3f} ms {card}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  kernel {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
+            f"{e.key[:80]}")
+    del b3, infer, requests, img3
+    torch.cuda.empty_cache()
+
+    # ---- the sweep: every other family once at B=64 ----------------------
+    mel_models = ("badwinner2-res", "badwinner", "wr-resnet", "wr-resnet-bird")
+    backbones = [n for n in MODEL_NAMES[10:] if n != "efficientnetv2b3"]
+    raw64 = clips(FAMILY_BATCH)
+    check_k1(raw64, "default", "the sweep's clips", with_pcen=True)
+    check_k1(torch.as_tensor(impulse_batch(
+        FAMILY_BATCH, cfg.samples_per_clip, SEED + FAMILY_BATCH),
+        device=dev), "default", "impulses (no rounding can flip)",
+        impulses=True)
+    check_k1(raw64, "highest", "the sweep's clips")
+    # one mel family's f32 logits on the sweep's path, kernel vs plain
+    bw32 = seeded("badwinner", dtype=None)
+    lg_k, lg_p = (make_fused_infer_fn(bw32, cfg, use_kernel=k,
+                                      device=dev)(raw64)
+                  for k in (True, False))
+    rel = logit_rel(lg_k, lg_p)
+    log(f"check badwinner f32 logits B={FAMILY_BATCH} (max |logit| "
+        f"{lg_p.abs().max().item():.4e}): K1 exact path vs plain featurizer "
+        f"rel err {rel:.3e} (limit {LOGIT_REL_TOL})")
+    check(rel < LOGIT_REL_TOL, "badwinner kernel-path logits disagree")
+    del bw32, lg_k, lg_p
+
+    def readings(run) -> list[tuple[float, float]]:
+        """Two readings of ``SWEEP_ITERS`` calls after two warm-up calls:
+        (device ms a call by CUDA events, host ms a call to issue it)."""
+        for _ in range(2):
+            run(raw64)
+        out = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(SWEEP_ITERS):
+                run(raw64)
+            issue = (time.perf_counter() - t0) * 1e3 / SWEEP_ITERS
+            end.record()
+            end.synchronize()
+            out.append((start.elapsed_time(end) / SWEEP_ITERS, issue))
+        return out
+
+    for name in backbones + list(mel_models):
+        mel = name in mel_models
+        model = (seeded(name) if mel
+                 else seeded(name, external_frontend=True))
+        run = make_fused_infer_fn(
+            model, cfg, use_pcen=not mel, channels=1 if mel else 3,
+            precision="highest" if mel else "default", device=dev,
+            out_dtype=torch.float32 if mel else torch.bfloat16)
+        reset()
+        out = run(raw64)
+        got = counts()
+        want = {k: 0 for k in got}
+        if mel:
+            want[ffz.mel_counter("highest")] = 1
+        else:
+            want["fused_featurizer_mel_bf16"] = 1
+            want["fused_featurizer_pcen"] = 1
+        (ms, issue), (ms2, issue2) = readings(run)
+        params = sum(p.numel() for p in model.parameters()) / 1e6
+        log(f"path sweep {name} ({params:.1f} M parameters) behind "
+            f"{'K1 exact, its own frontend' if mel else 'K1 default + PCEN'}"
+            f", bf16, B={FAMILY_BATCH}: {ms:.3f} / {ms2:.3f} ms/batch "
+            f"(two readings of {SWEEP_ITERS}; host issue {issue:.3f} / "
+            f"{issue2:.3f} ms a call), "
+            f"{FAMILY_BATCH * cfg.segment_length / (ms / 1e3):.1f} audio-s/s, "
+            f"logits finite {bool(torch.isfinite(out).all())}, launches "
+            f"{ {k: v for k, v in got.items() if v} } {card}")
+        check(got == want, f"the {name} sweep launched {got}, not {want}")
+        check(tuple(out.shape) == (FAMILY_BATCH, NUM_LABELS)
+              and bool(torch.isfinite(out).all()),
+              f"{name} logits {tuple(out.shape)} not finite")
+        del model, run, out
+        torch.cuda.empty_cache()
+
+    # ---- cli/train --model-name efficientnetv2b3 on phase 10's corpus ----
+    # K1's two training tiers at the run's batch, on normalized tone clips
+    # as the corpus holds them: "default" on the train steps, exact on the
+    # validation and test batches
+    x32, _ = tone_band_batch(B3_TRAIN_BATCH, NUM_LABELS, cfg.samples_per_clip,
+                             cfg.sr, SEED + B3_TRAIN_BATCH)
+    raw32 = normalize_rows(torch.as_tensor(x32, device=dev))
+    check_k1(raw32, "default", "normalized tone clips")
+    check_k1(torch.as_tensor(impulse_batch(
+        B3_TRAIN_BATCH, cfg.samples_per_clip, SEED + B3_TRAIN_BATCH),
+        device=dev), "default", "impulses (no rounding can flip)",
+        impulses=True)
+    check_k1(raw32, "highest", "normalized tone clips")
+    del raw32, fz_tier
+    corpus = REPO / "build" / "chip_smoke_corpus"
+    ckpt = REPO / "build" / "chip_smoke_b3"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    step_losses: list[float] = []
+    real_step = loop.make_train_step
+
+    def recording_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def run(state, metrics, *a, **kw):
+            before = (metrics["loss_sum"].item(), metrics["count"].item())
+            state, metrics = step(state, metrics, *a, **kw)
+            step_losses.append((metrics["loss_sum"].item() - before[0])
+                               / (metrics["count"].item() - before[1]))
+            return state, metrics
+
+        return run
+
+    argv = ["b3-run", "-d", str(corpus), "--checkpoint-dir", str(ckpt),
+            "--model-name", "efficientnetv2b3", "--batch-size",
+            str(B3_TRAIN_BATCH), "--epochs", "1", "--steps-per-epoch",
+            str(B3_TRAIN_STEPS), "--device", str(dev)]
+    loop.make_train_step = recording_step
+    try:
+        reset()
+        t0 = time.perf_counter()
+        rc = cli_train.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        got = counts()
+    finally:
+        loop.make_train_step = real_step
+    check(rc == 0, f"cli/train of efficientnetv2b3 exited {rc}")
+    space, _, _ = harness.init_labels([corpus])
+    sizes = {s: n for s, (n, _) in CORPUS_SPLITS.items()}
+    want = {k: 0 for k in got}
+    want["fused_featurizer_mel_bf16"] = B3_TRAIN_STEPS
+    want["fused_featurizer_mel"] = (
+        math.ceil(sizes["validation"] / B3_TRAIN_BATCH)
+        + math.ceil(sizes["test"] / B3_TRAIN_BATCH))
+    meta = load_metadata(ckpt / "b3-run")
+    log(f"path cli/train {' '.join(argv)}: EfficientNetV2-B3 bf16 with its "
+        f"own PCEN layer, 1-channel mel (the x / 128 - 1 branch), "
+        f"{space.num_labels} labels, B={B3_TRAIN_BATCH}; {train_s:.2f} s; "
+        f"launches {got} (want {want}: one bf16 launch a train step, one "
+        f"exact launch a validation and a test batch); step losses "
+        f"{[round(l, 4) for l in step_losses]}, epoch loss "
+        f"{meta['history']['loss']}, val loss {meta['history']['val_loss']}"
+        f" {card}")
+    check(got == want, "the B3 training run's K1 launches are not the path's")
+    check(len(step_losses) == B3_TRAIN_STEPS
+          and bool(np.isfinite(step_losses).all())
+          and step_losses[-1] < step_losses[0],
+          f"B3 train losses {step_losses} are not finite and falling")
+    predictor, _ = cli_predict.load_predictor(ckpt / "b3-run", "chkpt",
+                                              device=dev)
+    recording = synthetic_recording(RECORDING_S, cfg.sr, SEED)
+    tracks, _ = predictor.predict_recording(recording, cfg.sr)
+    probs = predictor.predict_windows(
+        recording[None, :cfg.samples_per_clip].astype(np.float32))
+    check(predictor.module.backbone.out_channels == 1536
+          and len(tracks) > 0 and bool(np.isfinite(probs).all()),
+          "the B3 run does not serve phase 4's recording")
+    log(f"path load_predictor(B3 run, 'chkpt') -> predict_recording "
+        f"{RECORDING_S:.0f} s: {len(tracks)} tracks; first window's "
+        f"probabilities finite in [{probs.min():.3f}, {probs.max():.3f}]")
+    return b3_counts
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2651,38 +3064,8 @@ def main() -> None:
         f"{cl_out}), NCHW-contiguous input {nchw_ms:.3f} ms, channels-last "
         f"weights too {cl_w_ms:.3f} ms {card}")
 
-    # a warm-up step first, and a one-element fill ahead of the chain in
-    # each step: the profiler can lose the first kernel of its window, and
-    # this chain's first kernel is K1's.  A profile that still lost a
-    # featurizer kernel is taken again, at most twice.
-    def profile_chain():
-        averages = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     record_shapes=True,
-                     schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                      active=1),
-                     on_trace_ready=lambda p: averages.extend([
-                         p.key_averages(),
-                         p.key_averages(group_by_input_shape=True)])) as prof:
-            for _ in range(2):
-                torch.zeros(1, device=dev)
-                mn_infer["default"](mn_requests[2])
-                torch.cuda.synchronize()
-                prof.step()
-        events = [e for e in averages[0]
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith("ProfilerStep")]
-        feat = [e for e in events
-                if "mel_bf16_kernel" in e.key or "pcen_kernel" in e.key]
-        return averages, events, feat
-
-    for attempt in range(3):
-        averages, kernel_events, feat_events = profile_chain()
-        if len(feat_events) == 2:
-            break
-        log(f"profile attempt {attempt + 1} lost a featurizer kernel: it "
-            f"holds {[e.key[:40] for e in feat_events]}")
-    check(len(feat_events) == 2, "the profile misses a featurizer kernel")
+    averages, kernel_events, feat_events = profile_pcen_chain(
+        lambda: mn_infer["default"](mn_requests[2]), dev)
     busy_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
     feat_busy = sum(e.self_device_time_total for e in feat_events) / 1e3
     conv_busy = sum(e.self_device_time_total for e in kernel_events
@@ -2744,6 +3127,15 @@ def main() -> None:
     run_dir = corpus_train_phase(dev, cfg, card, step_ms, fit_s)
     # ---- 11. evaluation and deployment of the trained run ---------------
     evaluate_deploy_phase(dev, cfg, card, run_dir)
+    # ---- 12. the model families -------------------------------------------
+    # the B3 chain runs phase 7's two kernels at the same shape: one record
+    # a shape, its launches those of both chains
+    b3_counts = model_families_phase(dev, cfg, card, mn_chain["default"])
+    for k in kernels:
+        if k["name"].endswith(" at B=512"):
+            k["launches"] += b3_counts[k["name"].split(" at ")[0]]
+            log(f"record {k['name']}: {k['launches']} launches, the "
+                f"MobileNetV2 and EfficientNetV2-B3 chains' 3 requests each")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,7 +15,8 @@ featurizer's; the "default" (bf16) tier as stated above its test; the
 kernel, "bf16_3x_manual" bitwise equal to it; the PCEN -> MobileNetV2
 chain's f32 logits within 1e-4 of max |logit| of the plain featurizer's
 (and of the exact tier's, for "bf16_3x"), the folded gray stem's within
-1e-5; the power-mel band walk on the mel banks of n_fft 512 / 1024 / 2048 x
+1e-5, and the same of EfficientNetV2-B3 (whose fold is refused with its
+baked preprocessing); the other families' chains with their launch counts; the power-mel band walk on the mel banks of n_fft 512 / 1024 / 2048 x
 64 / 128 / 160 mels x FMAX 11 kHz / sr/2 as the dense plain version; the
 exact kernel's four fold instances at left_pad 0 and 2048, f32 and bf16,
 as the plain version (its normalize fold bitwise the unfolded kernel on
@@ -453,6 +454,66 @@ def test_mobilenet_kernel_path_matches_plain_featurizer():
     assert _rel(hi, logits(use_kernel=False)) < 1e-4
     assert _rel(logits("bf16_3x"), hi) < 1e-4
     assert _rel(logits(m=fold_gray_stem(model), channels=1), hi) < 1e-5
+
+
+def _family(name, dev, dtype=None, **kw):
+    return build_model(name, 7, logits_only=True, dtype=dtype,
+                       generator=torch.Generator().manual_seed(0),
+                       **kw).module.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw,counters", [
+    ("efficientnetv2b3", {"external_frontend": True},
+     ("fused_featurizer_mel_bf16", "fused_featurizer_pcen")),
+    ("inceptionv3", {"external_frontend": True},
+     ("fused_featurizer_mel_bf16", "fused_featurizer_pcen")),
+    ("wr-resnet-bird", {}, ("fused_featurizer_mel",)),
+    ("badwinner2-res", {}, ("fused_featurizer_mel",)),
+])
+def test_model_family_chain_launches_its_kernels(name, kw, counters):
+    """A backbone behind K1's "default" tier and PCEN epilogue, a mel
+    family behind K1's exact tier with its own frontend; bf16 CNNs."""
+    dev = _card()
+    mel = not kw
+    infer = make_fused_infer_fn(
+        _family(name, dev, torch.bfloat16, **kw), FeaturizerConfig(),
+        use_pcen=not mel, channels=1 if mel else 3,
+        precision="highest" if mel else "default", device=dev,
+        out_dtype=torch.float32 if mel else torch.bfloat16)
+    raw = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 144000)).astype(np.float32)).to(dev)
+    ffz.reset_launch_counts()
+    logits = infer(raw)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in ffz.launch_counts()}
+    want.update({c: 1 for c in counters})
+    assert ffz.launch_counts() == want
+    assert logits.shape == (2, 7) and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_efficientnetv2b3_kernel_path_matches_plain_featurizer():
+    """f32 logits of the kernel path within 1e-4 of the plain featurizer's;
+    the fold refused with the baked preprocessing, and without it the
+    folded 1-channel stem within 1e-5 of the 3-channel repeat."""
+    dev = _card()
+    cfg = FeaturizerConfig()
+    model = _family("efficientnetv2b3", dev, external_frontend=True)
+    raw = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 144000)).astype(np.float32)).to(dev)
+
+    def logits(m, use_kernel=True, channels=3):
+        return make_fused_infer_fn(m, cfg, use_pcen=True, channels=channels,
+                                   use_kernel=use_kernel, device=dev)(raw)
+
+    assert _rel(logits(model), logits(model, use_kernel=False)) < 1e-4
+    with pytest.raises(ValueError, match="EfficientNetV2"):
+        fold_gray_stem(model)
+    plain = _family("efficientnetv2b3", dev, external_frontend=True,
+                    backbone_args=(("preprocess", False),))
+    assert _rel(logits(fold_gray_stem(plain), channels=1),
+                logits(plain)) < 1e-5
 
 
 # ---- K1's folds and centered tensor-core tiers, the folded chain --------

@@ -195,9 +195,9 @@ def test_parse_args_matches_jax(argv):
 @pytest.mark.parametrize("flags,item", [
     (["--backbone-weights", "notop.h5"], "Model families"),
     (["--data-shards", "2"], "Data parallel"),
-    (["--model-name", "efficientnetv2b3"], "Model families"),
-    (["--model-name", "merge"], "Model families"),
-    (["--model-name", "cnn-features"], "Model families"),
+    (["--model-name", "embeddings"], "Evaluation, deployment"),
+    (["--model-name", "merge"], "Training from a built corpus"),
+    (["--model-name", "cnn-features"], "Evaluation, deployment"),
     (["--model-name", "dual-badwinner2"], "Training from a built corpus"),
     (["--model-name", "rf-features"], "Training from a built corpus"),
 ])
@@ -211,7 +211,7 @@ def test_cli_exits_2_naming_the_item(flags, item, capsys, tmp_path):
 def test_train_run_refuses_unported_configs(corpus, tmp_path):
     for cfg, item in ((TrainConfig(num_data_shards=4), "Data parallel"),
                       (TrainConfig(model_name="embeddings"),
-                       "Model families")):
+                       "Evaluation, deployment")):
         with pytest.raises(NotImplementedError, match=item):
             harness.train_run([corpus], "x", checkpoint_root=tmp_path,
                               train_cfg=cfg, device="cpu")
