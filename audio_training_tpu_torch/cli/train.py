@@ -3,11 +3,13 @@
 ``python audiomodel.py <run-name> -d <data>``, audiomodel.py:1985-2414).
 
 The flags and defaults are the JAX CLI's, plus ``--device`` (the CUDA card
-unless given ``--device cpu``).  Every model family with a mel input
-trains.  A run that needs what the port has not ported yet
-(``--backbone-weights``, ``--data-shards`` > 1, the ``dual-badwinner2``,
-``merge``, ``cnn-features``, ``embeddings`` and ``rf-features`` runs) exits
-2 with a message naming the ROADMAP.md item that ports it.
+unless given ``--device cpu``).  Every model name trains: the mel families,
+``dual-badwinner2`` (two band-limited views on K2), ``merge`` (K1's mel
+tower with the stored short / mid features), ``cnn-features`` and
+``embeddings`` (stored vectors, no featurizer) and ``rf-features`` (a
+scikit-learn random forest on the host).  A run that needs what the port
+has not ported yet (``--backbone-weights``, ``--data-shards`` > 1) exits 2
+with a message naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -145,6 +147,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     from audio_training_tpu_torch.train.harness import (
         cross_fold_train,
+        train_random_forest,
         train_run,
         unported_reason,
     )
@@ -188,6 +191,14 @@ def main(argv=None) -> int:
         weights=args.weights,
         device=args.device,
     )
+    if train_cfg.model_name == "rf-features":
+        result = train_random_forest(
+            data_dirs, args.name, checkpoint_root=args.checkpoint_dir,
+            train_cfg=train_cfg,
+        )
+        logging.info("Random forest complete: %s %s", result.run_dir,
+                     result.history)
+        return 0
     if args.cross:
         results = cross_fold_train(run_name=args.name, **common)
         for r in results:

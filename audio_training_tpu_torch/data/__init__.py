@@ -1,10 +1,19 @@
 """Training data (port of ``audio_training_tpu/data``): the record format
 (the TFRecord codec and the sample schema), the host loaders that stream
 records into device batches, and the batch preprocess and class weighting
-on the device.  The JAX package's ``augmented`` and ``embeddings`` modules
-come with ROADMAP.md queue 1, "Host corpus tooling" and "Evaluation,
-deployment and the rest of long-recording inference"."""
+on the device, and the vector-input streams (``embeddings``).  The JAX
+package's ``augmented`` module comes with ROADMAP.md queue 1, "Host corpus
+tooling"."""
 
+from audio_training_tpu_torch.data.embeddings import (
+    EMBEDDING_DIM,
+    MID_FEATURES_SHAPE,
+    SHORT_FEATURES_SHAPE,
+    EmbeddingStream,
+    FeatureStream,
+    load_znorm,
+    resample_per_label,
+)
 from audio_training_tpu_torch.data.example import decode_example, encode_example
 from audio_training_tpu_torch.data.pipeline import (
     BatchLoader,
@@ -16,6 +25,7 @@ from audio_training_tpu_torch.data.pipeline import (
 from audio_training_tpu_torch.data.preprocess import (
     get_distribution,
     get_weighting,
+    make_merge_preprocess_fn,
     make_preprocess_fn,
     weights_to_array,
 )
@@ -47,6 +57,14 @@ __all__ = [
     "find_shards",
     "load_meta",
     "make_preprocess_fn",
+    "make_merge_preprocess_fn",
+    "EMBEDDING_DIM",
+    "SHORT_FEATURES_SHAPE",
+    "MID_FEATURES_SHAPE",
+    "EmbeddingStream",
+    "FeatureStream",
+    "load_znorm",
+    "resample_per_label",
     "get_distribution",
     "get_weighting",
     "weights_to_array",

@@ -1,13 +1,15 @@
 """Batch preprocessing on the device, raw waveform to model input (port of
-``audio_training_tpu/data/preprocess.py:25-142, 209-251``): what the
-reference spreads over five tf.data maps (mixup -> normalize -> stft ->
-mel -> channel repeat, tfdataset.py:461-505).
+``audio_training_tpu/data/preprocess.py:25-201``): what the reference
+spreads over five tf.data maps (mixup -> normalize -> stft -> mel ->
+channel repeat, tfdataset.py:461-505), the dual-badwinner2 views and the
+merge model's three-input batches.
 
 Training batches are featurized by K1's ``"default"`` tier (bf16 DFT
 products, the CUDA tensor-core kernel on the card), eval batches by the
 exact ``"highest"`` tier, as in the JAX package.  ``backend="auto"`` on the
 CPU takes the exact rfft path for both, as the JAX package's CPU path
 computes f32; ``backend="fused"`` reaches the kernels' plain versions there.
+The dual views run K2 (``ops/features.DualMel``) for train and eval batches.
 """
 
 from __future__ import annotations
@@ -18,14 +20,49 @@ import numpy as np
 import torch
 
 from audio_training_tpu_torch.config import FeaturizerConfig
-from audio_training_tpu_torch.ops.features import mix_up, normalize_rows
+from audio_training_tpu_torch.ops.features import (
+    DualMel,
+    apply_mix,
+    build_mel_weights,
+    mix_labels,
+    mix_up,
+    normalize_rows,
+    sample_mix_weights,
+    spec_augment,
+)
 from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
-
-_QUEUED = 'ROADMAP.md queue 1, "Training from a built corpus"'
 
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def dual_configs(cfg: FeaturizerConfig
+                 ) -> tuple[FeaturizerConfig, FeaturizerConfig]:
+    """dual-badwinner2's two view geometries as the JAX package builds them
+    from ``cfg`` (tfdataset.raw_to_mel_dual): 2048/278 up to
+    ``min(fmax, 3000)``, and 1024/280 from ``max(fmin, 500)``."""
+    common = dict(sr=cfg.sr, segment_length=cfg.segment_length,
+                  segment_stride=cfg.segment_stride, n_mels=cfg.n_mels,
+                  break_freq=cfg.break_freq)
+    return (FeaturizerConfig(n_fft=2048, hop_length=278, fmin=cfg.fmin,
+                             fmax=min(cfg.fmax, 3000.0), **common),
+            FeaturizerConfig(n_fft=1024, hop_length=280,
+                             fmin=max(cfg.fmin, 500.0), fmax=cfg.fmax,
+                             **common))
+
+
+def make_dual_mel(cfg: FeaturizerConfig,
+                  device: str | torch.device = "cuda") -> DualMel:
+    """The two band-limited views of :func:`dual_configs`, each band the
+    config's own ``[fmin, fmax]``."""
+    cfg_a, cfg_b = dual_configs(cfg)
+    return DualMel(
+        build_mel_weights(cfg_a), build_mel_weights(cfg_b), sr=cfg.sr,
+        params_a=(cfg_a.n_fft, cfg_a.hop_length),
+        params_b=(cfg_b.n_fft, cfg_b.hop_length),
+        band_a=(cfg_a.fmin, cfg_a.fmax), band_b=(cfg_b.fmin, cfg_b.fmax),
+        device=device)
 
 
 def make_preprocess_fn(
@@ -46,17 +83,24 @@ def make_preprocess_fn(
     f32.
 
     Augmented path order matches get_dataset (tfdataset.py:466-505):
-    mixup(alpha=0.5) -> per-sample waveform min-max normalize -> raw->mel.
-    Eval batches are normalized too, as the JAX package does (the model
-    trains on normalized images and deployment normalizes every window)."""
-    if dual:
-        raise NotImplementedError(f"dual preprocess comes with {_QUEUED}")
-    if use_spec_augment:
-        raise NotImplementedError(f"spec_augment comes with {_QUEUED}")
-    mel_fn = make_mel_fn(cfg, backend=backend, device=device,
-                         precision="default" if augment else "highest")
+    mixup(alpha=0.5) -> per-sample waveform min-max normalize -> raw->mel,
+    then with ``use_spec_augment`` SpecAugment masks on the image, drawn
+    from the same generator after the mixup weights.  Eval batches are
+    normalized too, as the JAX package does (the model trains on
+    normalized images and deployment normalizes every window).
 
-    def to_image(raw: torch.Tensor) -> torch.Tensor:
+    ``dual=True`` emits the dual-badwinner2 pair of views (:func:`make_dual_mel`)
+    instead of one image, with no dB, mean subtraction, channel repeat or
+    SpecAugment, as in the JAX package."""
+    if dual:
+        mel_fn = make_dual_mel(cfg, device=device)
+    else:
+        mel_fn = make_mel_fn(cfg, backend=backend, device=device,
+                             precision="default" if augment else "highest")
+
+    def to_image(raw: torch.Tensor):
+        if dual:
+            return mel_fn(raw)  # (view_a, view_b) images
         mel = mel_fn(raw)  # (B, M, T)
         if cfg.db_scale:
             # per-sample dB (matches the inference featurizer)
@@ -82,13 +126,65 @@ def make_preprocess_fn(
                 alpha=mixup_alpha, chance=mixup_chance,
                 single_label=single_label_mix,
             )
-            return to_image(normalize_rows(mixed)), y
+            mel = to_image(normalize_rows(mixed))
+            if use_spec_augment and not dual:
+                mel = spec_augment(generator, mel)
+            return mel, y
 
         return preprocess
 
     def preprocess_eval(raw, y):
         return (to_image(normalize_rows(_tensor(raw, device))),
                 _tensor(y, device))
+
+    return preprocess_eval
+
+
+def make_merge_preprocess_fn(
+    cfg: FeaturizerConfig,
+    augment: bool = False,
+    mixup_alpha: float = 0.5,
+    mixup_chance: float = 0.25,
+    single_label_mix: bool = True,
+    device: str | torch.device = "cuda",
+) -> Callable:
+    """Preprocess for the ``merge`` model's three-input tuple ``(mel,
+    short_f, mid_f)`` (audiomodel.py:674-708; the features parse at
+    tfdataset.py:1103-1119 and pass normalize / raw_to_mel untouched).
+
+    Batches are ``((raw, short_f, mid_f), y[, (raw2, short2, mid2), y2,
+    generator])``.  Under augmentation one mixup lambda per sample mixes
+    the waveform, both feature tensors and the label (the JAX package's
+    joint-training extension of the reference's waveform mixup); the mixed
+    waveform is normalized and featurized by :func:`make_mel_fn`, K1's
+    ``"default"`` tier for train batches and its exact tier for eval
+    batches on the card.  The image is ``(B, n_mels, frames, 1)``."""
+    mel_fn = make_mel_fn(cfg, device=device,
+                         precision="default" if augment else "highest")
+
+    def to_image(raw: torch.Tensor) -> torch.Tensor:
+        return mel_fn(normalize_rows(raw))[..., None]
+
+    if augment:
+
+        def preprocess(xs, y, xs2, y2, generator: torch.Generator):
+            raw1, short1, mid1 = (_tensor(a, device) for a in xs)
+            raw2, short2, mid2 = (_tensor(a, device) for a in xs2)
+            l = sample_mix_weights(generator, raw1.shape[0],
+                                   alpha=mixup_alpha, chance=mixup_chance)
+            y = mix_labels(l, _tensor(y, device), _tensor(y2, device),
+                           single_label=single_label_mix)
+            return (to_image(apply_mix(l, raw1, raw2)),
+                    apply_mix(l, short1, short2),
+                    apply_mix(l, mid1, mid2)), y
+
+        return preprocess
+
+    def preprocess_eval(xs, y):
+        raw, short, mid = (_tensor(a, device) for a in xs)
+        # eval waveforms normalized like train and deployment, as in
+        # make_preprocess_fn's eval path
+        return (to_image(raw), short, mid), _tensor(y, device)
 
     return preprocess_eval
 

@@ -310,8 +310,9 @@ class Conv(nn.Module):
 class Dense(nn.Module):
     """Flax ``nn.Dense`` on the last axis (a pointwise layer on a 4-D NHWC
     map, as Keras' Dense): lecun-normal kernel, zero bias, computed in
-    ``dtype`` when given.  ``weight`` is (out, in); Flax's kernel is
-    (in, out)."""
+    ``dtype`` when given, else, as Flax promotes them, in the common type of
+    the input and the parameters (a bf16 input to an f32 Dense computes in
+    f32).  ``weight`` is (out, in); Flax's kernel is (in, out)."""
 
     flax_kind = "Dense"
 
@@ -330,10 +331,8 @@ class Dense(nn.Module):
                 ("params", ("bias",), "bias", _identity)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self.weight, self.bias
-        if self.dtype is not None:
-            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
-        return F.linear(x, w, b)
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:

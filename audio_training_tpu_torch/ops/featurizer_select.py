@@ -6,7 +6,10 @@ Two implementations of waveform -> (B, M, T) mel power, tf-stft framing:
 * ``fused`` — the CUDA kernel (``ops/cuda/fused_featurizer.py``); needs
   n_fft=4096 and filterbank support within bins 0..1023.
 * ``rfft`` — plain torch: tf framing + ``torch.fft.rfft`` + power + mel
-  ``einsum``; any geometry, any device.
+  ``einsum``; any geometry, any device.  ``matmul`` names the JAX
+  package's radix-64 matmul-FFT (an XLA formulation for the TPU's matrix
+  unit) and is accepted for its callers: it computes the same function,
+  here by the ``rfft`` path.
 
 ``auto`` picks ``fused`` for a CUDA device when the geometry allows it and
 ``rfft`` otherwise.  The choice is made from the geometry and the device,
@@ -53,7 +56,7 @@ def make_mel_fn(
         fz = FusedFeaturizer(w, cfg.n_fft, cfg.hop_length,
                              precision=precision, device=device)
         return lambda raw: fz(raw, pcen=pcen, out_dtype=out_dtype)
-    if backend == "rfft":
+    if backend in ("rfft", "matmul"):
         w_dev = torch.as_tensor(w, device=device)
 
         def rfft_mel(raw: torch.Tensor) -> torch.Tensor:

@@ -37,27 +37,53 @@ def num_frames_centered(n_samples: int, hop: int) -> int:
     return 1 + n_samples // hop
 
 
-def stft_tf_style(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """Hann-windowed.  x: (..., n_samples) real.  Returns (..., frames,
-    n_fft//2+1) complex."""
+def stft_tf_style(x: torch.Tensor, n_fft: int, hop: int,
+                  window: bool = True) -> torch.Tensor:
+    """Hann-windowed unless ``window=False`` (a rectangular window).
+    x: (..., n_samples) real.  Returns (..., frames, n_fft//2+1) complex."""
     n = x.shape[-1]
     frames = num_frames_tf(n, hop)
     pad = (frames - 1) * hop + n_fft - n
     framed = F.pad(x, (0, max(pad, 0))).unfold(-1, n_fft, hop)
-    framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
+    if window:
+        framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
     return torch.fft.rfft(framed, n=n_fft, dim=-1)
 
 
-def stft_centered(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """librosa-style centered STFT, Hann-windowed, constant (zero) pad.
-    x: (..., n_samples) real.  Returns (..., n_fft//2+1, frames) complex —
-    the librosa (freq, time) axis order, as a transposed view of the
-    time-major spectrum."""
+def stft_centered(x: torch.Tensor, n_fft: int, hop: int, window: bool = True,
+                  pad_mode: str = "constant") -> torch.Tensor:
+    """librosa-style centered STFT, Hann-windowed unless ``window=False``,
+    the ``n_fft//2`` edges padded by ``pad_mode`` (numpy's names, as
+    ``jnp.pad`` takes them: ``"constant"`` zeros, ``"reflect"``, ``"edge"``
+    or ``"wrap"``).  x: (..., n_samples) real.  Returns (..., n_fft//2+1,
+    frames) complex — the librosa (freq, time) axis order, as a transposed
+    view of the time-major spectrum."""
     half = n_fft // 2
     # unfold gives (n + n_fft - n_fft) // hop + 1 = num_frames_centered
-    framed = F.pad(x, (half, half)).unfold(-1, n_fft, hop)
-    framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
+    framed = _pad_edges(x, half, pad_mode).unfold(-1, n_fft, hop)
+    if window:
+        framed = framed * torch.as_tensor(hann_window(n_fft), device=x.device)
     return torch.fft.rfft(framed, n=n_fft, dim=-1).transpose(-1, -2)
+
+
+# numpy's pad mode -> torch's F.pad mode
+_PAD_MODES = {"constant": "constant", "reflect": "reflect",
+              "edge": "replicate", "wrap": "circular"}
+
+
+def _pad_edges(x: torch.Tensor, half: int, pad_mode: str) -> torch.Tensor:
+    """``half`` samples on both sides of the last axis, as ``jnp.pad(x,
+    half, mode=pad_mode)`` gives them."""
+    if pad_mode not in _PAD_MODES:
+        raise ValueError(f"unsupported pad_mode {pad_mode!r}; one of "
+                         f"{sorted(_PAD_MODES)}")
+    if pad_mode == "constant":
+        return F.pad(x, (half, half))
+    # torch's non-constant modes take a batched (N, C, L) input
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, 1, x.shape[-1])
+    return F.pad(flat, (half, half), mode=_PAD_MODES[pad_mode]).reshape(
+        *lead, -1)
 
 
 def istft_centered(spec: torch.Tensor, n_fft: int, hop: int,

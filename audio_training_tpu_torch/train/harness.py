@@ -5,18 +5,22 @@ second/extra/human dataset dirs), count-based label admission, dataset
 streams, model build, class weights, fit with the callback suite, BN
 re-estimation, test-set confusion, metadata.
 
-Ported: runs of every model family with ``("mel",)`` inputs on one
-device.  What needs a module that is not ported yet (the dual and merge
-preprocessing, the vector-input loaders, the random forest, the backbone
-transplant) raises ``NotImplementedError`` naming its ROADMAP.md item
+Every run kind of the JAX package on one device: the mel families, the
+dual-badwinner2 views, the joint ``merge`` run (:func:`_train_merge_run`),
+the vector-input ``cnn-features`` / ``embeddings`` runs
+(:func:`_train_vector_run`) and the ``rf-features`` random forest
+(:func:`train_random_forest`).  Data-parallel runs and the backbone
+transplant raise ``NotImplementedError`` naming their ROADMAP.md item
 (:func:`unported_reason`); nothing is silently dropped.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import logging
+import pickle
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -26,11 +30,14 @@ import torch
 from audio_training_tpu_torch.config import FeaturizerConfig, TrainConfig
 from audio_training_tpu_torch.data import (
     BatchLoader,
+    EmbeddingStream,
+    FeatureStream,
     RecordStream,
     build_training_stream,
     find_shards,
     get_weighting,
     load_meta,
+    make_merge_preprocess_fn,
     make_preprocess_fn,
     weights_to_array,
 )
@@ -42,6 +49,7 @@ from audio_training_tpu_torch.eval.confusion import (
     single_label_confusion,
 )
 from audio_training_tpu_torch.models import build_model
+from audio_training_tpu_torch.models.registry import build_random_forest
 from audio_training_tpu_torch.taxonomy.ebird import get_ebird_id
 from audio_training_tpu_torch.taxonomy.labels import (
     LabelSpace,
@@ -67,12 +75,9 @@ from audio_training_tpu_torch.train.step import (
 
 log = logging.getLogger(__name__)
 
-_TRAINING_ITEM = 'ROADMAP.md queue 1, "Training from a built corpus"'
 _FAMILIES_ITEM = 'ROADMAP.md queue 1, "Model families"'
 _DATA_PARALLEL_ITEM = 'ROADMAP.md queue 1, "Data parallel"'
-_EVALUATION_ITEM = ('ROADMAP.md queue 1, "Evaluation, deployment and the '
-                    'rest of long-recording inference"')
-# the JAX package's run kinds that train other inputs than one mel image
+# the run kinds whose models take stored vectors, not a mel image
 _VECTOR_MODELS = ("embeddings", "cnn-features")
 
 
@@ -80,22 +85,9 @@ def unported_reason(train_cfg: TrainConfig,
                     backbone_weights=None) -> str | None:
     """Why :func:`train_run` cannot take this run yet, naming the ROADMAP.md
     item that ports it; None when it can."""
-    name = train_cfg.model_name.lower()
     if train_cfg.num_data_shards > 1:
         return (f"num_data_shards > 1 (data-parallel training) comes with "
                 f"{_DATA_PARALLEL_ITEM}")
-    if name == "rf-features":
-        return f"rf-features (train_random_forest) comes with {_TRAINING_ITEM}"
-    if name == "dual-badwinner2":
-        return (f"dual-input training (make_preprocess_fn(dual=True)) comes "
-                f"with {_TRAINING_ITEM}")
-    if name == "merge":
-        return (f"merge runs (make_merge_preprocess_fn) come with "
-                f"{_TRAINING_ITEM}")
-    if name in _VECTOR_MODELS:
-        return (f"vector-input runs ({name}) read data/embeddings.py, which "
-                f"loads TensorFlow saved models; it comes with "
-                f"{_EVALUATION_ITEM}")
     if backbone_weights is not None:
         return (f"backbone weights (models/transplant.py) load a Keras model, "
                 f"and the port does not depend on TensorFlow; they come with "
@@ -217,6 +209,261 @@ def _host(t) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
+def _split_shards(data_dirs, split_shards, split: str) -> list[Path]:
+    """A split's shard files: ``split_shards``' list when given, else every
+    data dir's ``<split>/`` shards."""
+    if split_shards is not None:
+        return list(split_shards.get(split) or [])
+    return [p for d in data_dirs for p in find_shards(d, split)]
+
+
+def _stack(items, i: int, device) -> torch.Tensor:
+    return torch.as_tensor(np.stack([it[i] for it in items]), device=device)
+
+
+def _train_counts(data_meta: dict) -> dict:
+    return data_meta.get("counts", {}).get("train", {}).get(
+        "sample_counts", {})
+
+
+def _kept_meta(data_meta: dict) -> dict:
+    return {k: v for k, v in data_meta.items() if k in ("counts", "type")}
+
+
+def _train_vector_run(run_dir, data_dirs, split_shards, space, ontology,
+                      labels, train_cfg, cfg, spec, epochs, steps_per_epoch,
+                      data_meta, weights=None, weight_labels=None,
+                      device="cuda") -> "TrainRunResult":
+    """Training of the vector-input families (JAX ``harness.py:156-284``):
+    the ``embeddings`` linear probe over stored Perch vectors
+    (tfdatasetembeddings.py pipeline) and the ``cnn-features`` short / mid
+    feature towers (tfdataset.py:1041-1111 feature parsing).  Batches come
+    straight from the records onto ``device``: no featurizer, so no
+    kernel."""
+    embedding = spec.inputs == ("embedding",)
+
+    def make_stream(split, loop):
+        sh = _split_shards(data_dirs, split_shards, split)
+        if not sh:
+            return None
+        if embedding:
+            # tfdatasetembeddings.py has no decode-time sample filters
+            return EmbeddingStream(sh, space, loop=loop, seed=train_cfg.seed)
+        return FeatureStream(
+            sh, space, loop=loop, seed=train_cfg.seed,
+            exclude_low_samples=train_cfg.no_low_samples,
+            drop_bird_only=train_cfg.multi_label
+            and not train_cfg.use_bird_tags,
+        )
+
+    def batches(stream):
+        it = iter(stream)
+        while True:
+            items = list(itertools.islice(it, train_cfg.batch_size))
+            if len(items) < train_cfg.batch_size:
+                return
+            y = _stack(items, -1, device)
+            if embedding:
+                yield _stack(items, 0, device), y
+            else:
+                yield (_stack(items, 0, device), _stack(items, 1, device)), y
+
+    train_stream = make_stream("train", loop=True)
+    if train_stream is None:
+        raise ValueError("no train shards found")
+    if steps_per_epoch is None:
+        # the builder's metadata counts, else one decode pass
+        n = int(sum(_train_counts(data_meta).values()))
+        if not n:
+            n = sum(1 for _ in make_stream("train", loop=False))
+        if n == 0:
+            raise ValueError(
+                "no usable vector records in the train split — rebuild with "
+                "--embedding-model / --add-features"
+            )
+        steps_per_epoch = max(n // train_cfg.batch_size, 1)
+    train_iter = iter(batches(train_stream))
+
+    def train_batches(epoch):
+        yield from itertools.islice(train_iter, steps_per_epoch)
+
+    def val_batches():
+        stream = make_stream("validation", loop=False)
+        if stream is None:
+            return
+        yield from batches(stream)
+
+    identity = lambda x, y: (x, y)  # noqa: E731
+    state = create_train_state(spec.module,
+                               learning_rate=train_cfg.learning_rate,
+                               seed=train_cfg.seed, device=device)
+    state = _maybe_restore(state, weights, weight_labels, labels)
+    log.info("Model %s (vector inputs %s) has %s params",
+             train_cfg.model_name, spec.inputs, param_count(state))
+    save_metadata(
+        run_dir, train_cfg.model_name, labels, cfg, ontology,
+        loss_fn=train_cfg.loss, multi_label=train_cfg.multi_label,
+        use_generic_bird=train_cfg.use_generic_bird,
+        training_data_meta=_kept_meta(data_meta),
+    )
+    result = fit(
+        state, train_batches, identity,
+        epochs=epochs or train_cfg.epochs,
+        steps_per_epoch=steps_per_epoch,
+        val_batches=val_batches, val_preprocess=identity,
+        loss_name=train_cfg.loss, multi_label=train_cfg.multi_label,
+        run_dir=run_dir,
+        early_stop_patience=train_cfg.early_stop_patience,
+        reduce_lr_patience=train_cfg.reduce_lr_patience,
+        reduce_lr_factor=train_cfg.reduce_lr_factor,
+        seed=train_cfg.seed, augment=False,
+    )
+    return TrainRunResult(run_dir=run_dir, labels=labels,
+                          history=result.history)
+
+
+def _train_merge_run(run_dir, data_dirs, split_shards, space, ontology,
+                     labels, train_cfg, cfg, spec, epochs, steps_per_epoch,
+                     data_meta, weights=None, weight_labels=None,
+                     confusion=True, device="cuda") -> "TrainRunResult":
+    """Joint end-to-end training of the ``merge`` model (JAX
+    ``harness.py:287-495``; audiomodel.py:674-708: badwinner2 mel tower +
+    short_f (68, 60) + mid_f (136, 3) feature towers, concat -> Dense,
+    trained as one model).
+
+    Streams ``(raw, y, short_f, mid_f)`` straight from the feature-bearing
+    records (tfdataset.py:1103-1119); the device preprocess mixes all three
+    input tensors with one shared lambda and featurizes the waveform
+    (:func:`make_merge_preprocess_fn`: K1 on the card).  As in the JAX
+    package, no BN re-estimation; the test split's confusion is written."""
+
+    def make_stream(split, loop, seed_offset=0):
+        sh = _split_shards(data_dirs, split_shards, split)
+        if not sh:
+            return None
+        return RecordStream(
+            sh, space, cfg.samples_per_clip, loop=loop,
+            seed=train_cfg.seed + seed_offset, with_features=True,
+            cache=split != "train",
+            exclude_low_samples=train_cfg.no_low_samples,
+            drop_bird_only=train_cfg.multi_label
+            and not train_cfg.use_bird_tags,
+            filter_freq=train_cfg.filter_freq,
+            random_butter=train_cfg.random_butter,
+        )
+
+    def batches(stream, mix_stream=None):
+        """Yield ``((raw, short, mid), y[, (raw2, short2, mid2), y2])``.
+        Eval streams (no mixup partner) emit the final partial batch, as
+        ``BatchLoader`` does; the mixup zip keeps fixed shapes and drops
+        remainders."""
+        it = iter(stream)
+        mix_it = iter(mix_stream) if mix_stream is not None else None
+
+        def take(source, allow_partial):
+            items = list(itertools.islice(source, train_cfg.batch_size))
+            if not items or (
+                len(items) < train_cfg.batch_size and not allow_partial
+            ):
+                return None
+            return (tuple(_stack(items, i, device) for i in (0, 2, 3)),
+                    _stack(items, 1, device))
+
+        while True:
+            main = take(it, allow_partial=mix_it is None)
+            if main is None:
+                return
+            if mix_it is None:
+                yield main
+                continue
+            partner = take(mix_it, allow_partial=False)
+            if partner is None:
+                return
+            yield (*main, *partner)
+
+    train_stream = make_stream("train", loop=True)
+    if train_stream is None:
+        raise ValueError("no train shards found")
+    mix_stream = make_stream("train", loop=True, seed_offset=7919)
+    if steps_per_epoch is None:
+        n = int(sum(_train_counts(data_meta).values()))
+        if not n:
+            n = sum(1 for _ in make_stream("train", loop=False))
+        if n == 0:
+            raise ValueError(
+                "no feature-bearing records in the train split — rebuild "
+                "with --add-features"
+            )
+        steps_per_epoch = max(n // train_cfg.batch_size, 1)
+    train_iter = iter(batches(train_stream, mix_stream))
+
+    def train_batches(epoch):
+        yield from itertools.islice(train_iter, steps_per_epoch)
+
+    # built once, so that its RAM cache survives across epochs
+    val_stream = make_stream("validation", loop=False)
+
+    def val_batches():
+        if val_stream is None:
+            return
+        yield from batches(val_stream)
+
+    pre_train = make_merge_preprocess_fn(
+        cfg, augment=True, mixup_alpha=train_cfg.mixup_alpha,
+        mixup_chance=train_cfg.mixup_chance, device=device,
+    )
+    pre_eval = make_merge_preprocess_fn(cfg, augment=False, device=device)
+    state = create_train_state(spec.module,
+                               learning_rate=train_cfg.learning_rate,
+                               seed=train_cfg.seed, device=device)
+    state = _maybe_restore(state, weights, weight_labels, labels)
+    log.info("Model %s (merge inputs) has %s params", train_cfg.model_name,
+             param_count(state))
+
+    def write_metadata(history=None, test_results=None):
+        save_metadata(
+            run_dir, train_cfg.model_name, labels, cfg, ontology,
+            loss_fn=train_cfg.loss, multi_label=train_cfg.multi_label,
+            use_generic_bird=train_cfg.use_generic_bird,
+            history=history, test_results=test_results,
+            training_data_meta=_kept_meta(data_meta),
+        )
+
+    write_metadata()
+    result = fit(
+        state, train_batches, pre_train,
+        epochs=epochs or train_cfg.epochs,
+        steps_per_epoch=steps_per_epoch,
+        val_batches=val_batches, val_preprocess=pre_eval,
+        loss_name=train_cfg.loss, multi_label=train_cfg.multi_label,
+        label_smoothing=train_cfg.label_smoothing,
+        run_dir=run_dir,
+        early_stop_patience=train_cfg.early_stop_patience,
+        reduce_lr_patience=train_cfg.reduce_lr_patience,
+        reduce_lr_factor=train_cfg.reduce_lr_factor,
+        seed=train_cfg.seed, augment=True,
+        confusion_labels=labels if train_cfg.epoch_confusion else None,
+    )
+
+    test_metrics: dict = {}
+    test_stream = make_stream("test", loop=False) if confusion else None
+    if test_stream is not None:
+        predict = make_predict_fn(multi_label=train_cfg.multi_label)
+        y_true_all, y_pred_all = [], []
+        for xs, y in batches(test_stream):
+            inputs, yy = pre_eval(xs, y)
+            y_pred_all.append(_host(predict(result.state, inputs)))
+            y_true_all.append(_host(yy))
+        if y_true_all:
+            test_metrics = _save_test_confusion(
+                run_dir, labels, np.concatenate(y_true_all),
+                np.concatenate(y_pred_all), train_cfg.multi_label)
+
+    write_metadata(result.history, test_metrics)
+    return TrainRunResult(run_dir=run_dir, labels=labels,
+                          history=result.history, test_metrics=test_metrics)
+
+
 def train_run(
     data_dirs: list[str | Path],
     run_name: str,
@@ -245,11 +492,20 @@ def train_run(
     ``backbone_weights`` (the backbone transplant) is not ported and
     raises.  The JAX function's ``keep_excluded`` (unused there) and
     ``backbone_imagenet_stats`` (the transplant's) are left out.
+
+    The run kind follows the model's inputs, as in the JAX function:
+    ``("mel", "mel2")`` (dual-badwinner2) takes the two-view preprocess,
+    ``merge`` :func:`_train_merge_run`, the vector models
+    :func:`_train_vector_run`.  ``rf-features``, which JAX's ``cli/train``
+    sends to :func:`train_random_forest`, goes there from here too.
     """
     train_cfg = train_cfg or TrainConfig()
     reason = unported_reason(train_cfg, backbone_weights)
     if reason is not None:
         raise NotImplementedError(reason)
+    if train_cfg.model_name.lower() == "rf-features":
+        return train_random_forest(data_dirs, run_name, checkpoint_root,
+                                   train_cfg=train_cfg, ontology=ontology)
     device = torch.device(device or "cuda")
     cfg = featurizer or FeaturizerConfig()
     data_dirs = [Path(d) for d in data_dirs]
@@ -264,14 +520,35 @@ def train_run(
     labels = list(space.labels)
     log.info("Training %s on %s labels: %s", run_name, len(labels), labels)
 
+    # the model: weights drawn from the run's seed (on the CPU, so they do
+    # not depend on the device); its inputs pick the run kind
     channels = cfg.channels
+    dtype = (torch.bfloat16 if train_cfg.compute_dtype == "bfloat16"
+             else None)
+    vector = train_cfg.model_name.lower() in _VECTOR_MODELS
+    spec = build_model(
+        train_cfg.model_name, num_labels=len(labels),
+        multi_label=train_cfg.multi_label, logits_only=True, dtype=dtype,
+        n_mels=cfg.n_mels, mel_frames=cfg.mel_frames,
+        **({} if vector else {"in_channels": channels}),
+    )
+    run_args = (run_dir, data_dirs, split_shards, space, ontology, labels,
+                train_cfg, cfg, spec, epochs, steps_per_epoch, data_meta)
+    restore = dict(weights=weights, weight_labels=weight_labels,
+                   device=device)
+    if vector:
+        return _train_vector_run(*run_args, **restore)
+    if spec.inputs == ("mel", "short_f", "mid_f"):
+        return _train_merge_run(*run_args, confusion=confusion, **restore)
+    dual = spec.inputs == ("mel", "mel2")
+
     pre_train = make_preprocess_fn(
         cfg, augment=True, mixup_alpha=train_cfg.mixup_alpha,
-        mixup_chance=train_cfg.mixup_chance, channels=channels,
+        mixup_chance=train_cfg.mixup_chance, channels=channels, dual=dual,
         device=device,
     )
     pre_eval = make_preprocess_fn(cfg, augment=False, channels=channels,
-                                  device=device)
+                                  dual=dual, device=device)
 
     # the geo-aware weighted_bce needs per-sample GPS in every batch
     # (tfdataset.py:1188-1212)
@@ -364,9 +641,7 @@ def train_run(
     # the remap + generic-bird extra tables so outputs fed only via remapping
     # (e.g. "bird") get their true counts (the pre-remap counts would give
     # them 0 -> weight 0 -> zero gradient)
-    counts = data_meta.get("counts", {}).get("train", {}).get(
-        "sample_counts", {}
-    )
+    counts = _train_counts(data_meta)
     dist = np.zeros(len(labels), np.float64)
     for i, src_label in enumerate(space.source_labels):
         c = counts.get(src_label, 0)
@@ -419,15 +694,6 @@ def train_run(
         )
         geo_masks = build_geo_masks(labels, ontology.all_birds)
 
-    # model: weights drawn from the run's seed (on the CPU, so they do not
-    # depend on the device)
-    dtype = (torch.bfloat16 if train_cfg.compute_dtype == "bfloat16"
-             else None)
-    spec = build_model(
-        train_cfg.model_name, num_labels=len(labels),
-        multi_label=train_cfg.multi_label, logits_only=True, dtype=dtype,
-        n_mels=cfg.n_mels, mel_frames=cfg.mel_frames, in_channels=channels,
-    )
     state = create_train_state(
         spec.module, learning_rate=train_cfg.learning_rate,
         seed=train_cfg.seed, device=device,
@@ -443,9 +709,7 @@ def train_run(
             use_generic_bird=train_cfg.use_generic_bird,
             mean_sub=cfg.mean_sub,
             history=history, test_results=test_results,
-            training_data_meta={
-                k: v for k, v in data_meta.items() if k in ("counts", "type")
-            },
+            training_data_meta=_kept_meta(data_meta),
             extra={
                 "remapped_labels": {
                     l: int(space.remap[i])
@@ -633,11 +897,19 @@ def run_test_confusion(state, spec, pre_eval, data_dirs, space, cfg,
         return {}
     if not y_true_all:
         return {}
-    y_true = np.concatenate(y_true_all)
-    y_pred = np.concatenate(y_pred_all)
-    labels = list(space.labels)
+    return _save_test_confusion(run_dir, list(space.labels),
+                                np.concatenate(y_true_all),
+                                np.concatenate(y_pred_all),
+                                train_cfg.multi_label)
+
+
+def _save_test_confusion(run_dir: Path, labels: list[str],
+                         y_true: np.ndarray, y_pred: np.ndarray,
+                         multi_label: bool) -> dict:
+    """The test split's raw predictions and confusion(s) in ``run_dir``;
+    returns :func:`test_set_metrics`."""
     save_raw_predictions(run_dir / "confusion", labels, y_pred, y_true)
-    if train_cfg.multi_label:
+    if multi_label:
         cm, none_cm, out_labels = multi_label_confusion(y_true, y_pred,
                                                         labels)
         save_confusion(cm, out_labels, run_dir / "confusion")
@@ -707,3 +979,61 @@ def cross_fold_train(
         ))
         results.append(result)
     return results
+
+
+def train_random_forest(
+    data_dirs: list[str | Path],
+    run_name: str,
+    checkpoint_root: str | Path = "./checkpoints",
+    train_cfg: TrainConfig | None = None,
+    ontology: Ontology | None = None,
+    **rf_kwargs,
+) -> TrainRunResult:
+    """``rf-features`` (JAX ``harness.py:1084-1151``): a random forest on
+    the flattened short + mid hand-crafted features (audiomodel.py:766-769
+    builds a ydf RandomForestLearner; tf_to_ydf flattens the dataset,
+    audiomodel.py:2790-2803), fitted on the host by scikit-learn
+    (:func:`build_random_forest`; ``backend=`` in ``rf_kwargs`` as in JAX,
+    where ``"sklearn"`` is the one the port offers).  The model pickles into
+    the run dir with its accuracies in the metadata."""
+    train_cfg = train_cfg or TrainConfig(model_name="rf-features")
+    run_dir = Path(checkpoint_root) / run_name
+    run_dir.mkdir(parents=True, exist_ok=True)
+    data_dirs = [Path(d) for d in data_dirs]
+    space, ontology, data_meta = init_labels(
+        data_dirs, ontology, use_generic_bird=train_cfg.use_generic_bird,
+    )
+    labels = list(space.labels)
+
+    def xy(split):
+        xs, ys = [], []
+        for short, mid, y in FeatureStream(
+                _split_shards(data_dirs, None, split), space):
+            xs.append(np.concatenate([short.ravel(), mid.ravel()]))
+            ys.append(y)
+        if not xs:
+            return None, None
+        return np.stack(xs), np.stack(ys)
+
+    x_train, y_train = xy("train")
+    if x_train is None:
+        raise ValueError(
+            "no feature records in the train split — rebuild with "
+            "--add-features"
+        )
+    rf = build_random_forest(random_state=train_cfg.seed, **rf_kwargs)
+    rf.fit(x_train, y_train)
+    history: dict = {"train_accuracy": [float(rf.score(x_train, y_train))]}
+    x_val, y_val = xy("validation")
+    if x_val is not None:
+        history["val_accuracy"] = [float(rf.score(x_val, y_val))]
+    with (run_dir / "random_forest.pkl").open("wb") as f:
+        pickle.dump({"model": rf, "labels": labels}, f)
+    save_metadata(
+        run_dir, "rf-features", labels, FeaturizerConfig(), ontology,
+        multi_label=train_cfg.multi_label,
+        training_data_meta=_kept_meta(data_meta),
+        extra={"rf_history": history, "rf_backend": type(rf).__name__},
+    )
+    log.info("random forest trained: %s", history)
+    return TrainRunResult(run_dir=run_dir, labels=labels, history=history)

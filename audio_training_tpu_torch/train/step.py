@@ -9,10 +9,12 @@ statistics and the optimizer in place.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from audio_training_tpu_torch.train.losses import get_loss
 from audio_training_tpu_torch.train.metrics import metrics_init, metrics_update
@@ -20,7 +22,6 @@ from audio_training_tpu_torch.train.state import TrainState
 
 # NZ bounding box [lng_min, lat_max, lng_max, lat_min] (tfdataset.py:35)
 NZ_BOX = (166.509144322, -34.4506617165, 178.517093541, -46.641235447)
-_QUEUED = 'ROADMAP.md queue 1, "Training from a built corpus"'
 
 
 class GeoMasks(NamedTuple):
@@ -115,6 +116,45 @@ def _probs(logits: torch.Tensor, multi_label: bool) -> torch.Tensor:
     return torch.sigmoid(logits) if multi_label else torch.softmax(logits, -1)
 
 
+@contextlib.contextmanager
+def _replaying(model: torch.nn.Module, generator: torch.Generator | None,
+               forward_state: torch.Tensor | None):
+    """The recompute of a checkpointed forward: the model's buffers (the
+    BatchNorm running statistics, which train mode updates in place) and
+    the dropout generator are set back on exit to what the forward left,
+    and the generator starts from the state the forward started from, so
+    that it draws the forward's masks again.  Non-reentrant checkpointing
+    may stop the recompute early; the exit restores all the same."""
+    buffers = [b.clone() for b in model.buffers()]
+    after = generator.get_state() if generator is not None else None
+    if generator is not None:
+        generator.set_state(forward_state)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, saved in zip(model.buffers(), buffers):
+                b.copy_(saved)
+        if generator is not None:
+            generator.set_state(after)
+
+
+def remat_forward(model: torch.nn.Module, inputs: tuple,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """``model(*inputs, generator=generator)`` with its activations
+    rematerialized in the backward pass (JAX wraps the forward in
+    ``jax.checkpoint``, train/step.py:146-147): the forward keeps only its
+    inputs, and the backward runs it again.  The recompute updates no
+    running statistic a second time and replays the forward's dropout
+    masks (:func:`_replaying`)."""
+    start = generator.get_state() if generator is not None else None
+    return checkpoint(
+        lambda *xs: model(*xs, generator=generator), *inputs,
+        use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _replaying(model, generator, start)))
+
+
 def make_train_step(
     loss_name: str = "bce",
     multi_label: bool = True,
@@ -127,17 +167,14 @@ def make_train_step(
 ) -> Callable:
     """Returns ``step(state, metrics, mel, y, generator=None, possible=None,
     latlng=None) -> (state, metrics)``; ``generator`` draws the dropout
-    masks.  The model must return logits (``logits_only=True``).
+    masks.  The model must return logits (``logits_only=True``).  ``remat``
+    rematerializes the forward's activations in the backward pass
+    (:func:`remat_forward`), trading its recompute for activation memory.
 
     With ``geo_masks`` set and a per-sample ``latlng`` batch given, the
     weighted_bce negative mask follows the reference's NZ-bounding-box rule
     (possible_from_geo); otherwise it falls back to the target-only
     approximation (possible_labels_from_targets)."""
-    if remat:
-        # torch.utils.checkpoint would re-run the forward in the backward:
-        # BatchNorm's running statistics would update twice and the dropout
-        # generator would draw new masks
-        raise NotImplementedError(f"remat=True comes with {_QUEUED}")
     loss_of = _make_loss(loss_name, label_smoothing, class_weights,
                          bird_index, specific_bird_mask, geo_masks)
 
@@ -145,7 +182,10 @@ def make_train_step(
              possible=None, latlng=None):
         model = state.model.train()
         inputs = mel if isinstance(mel, tuple) else (mel,)
-        logits = model(*inputs, generator=generator)
+        if remat:
+            logits = remat_forward(model, inputs, generator)
+        else:
+            logits = model(*inputs, generator=generator)
         loss = loss_of(logits, y, possible, latlng)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

@@ -175,7 +175,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    validation and test batch; finite, falling step losses) and
    ``cli/predict.load_predictor`` on the run, predicting phase 4's
    recording.  The B3 chain's launches are added to phase 7's B=512 records
-   of the two kernels, one record a kernel shape.
+   of the two kernels, one record a kernel shape;
+13. the rest of training: K2 at dual-badwinner2's two view shapes (B=8
+   and 128: ``(B, 518, 1025)`` against the band-masked ``(1025, 160)``
+   bank, ``(B, 515, 513)`` against ``(513, 160)``; global relative error
+   < 1e-5) timed with its plain version, ``torch.matmul`` and the STFT
+   that feeds it; ``cli/train --model-name dual-badwinner2`` on phase 10's
+   corpus (bf16, B=128, 1 epoch x 4 steps; two K2 launches a train step
+   and a validation / test batch, no K1; falling step losses), its step
+   on an in-memory batch (ms, samples/s, peak memory, split into
+   featurize / forward / backward / Adam) and one f32 step at B=8 through
+   K2 against the plain views (loss 1e-5 relative, eval logits 1e-4); a
+   corpus written with short / mid features and 1280-d embeddings
+   (``build/chip_smoke_vectors/``) and on it ``cli/train`` of merge (one
+   K1 "default" launch a train step, one exact launch a validation / test
+   batch, falling losses, the test confusion; K1's two tiers held at
+   B=128 first), cnn-features and embeddings (no kernel launch); the
+   badwinner2 step with and without remat (f32 B=8: parameters and BN
+   statistics within 1e-6, the dropout generator's state equal; bf16
+   B=128: ms and peak memory of both); SpecAugment on an augmented batch
+   (its draws inside JAX's limits, the masked image zero there and the
+   unmasked image elsewhere, ms).  rf-features is host code (scikit-learn)
+   and runs in the CPU tests.  K2's records gain the two view shapes.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -206,6 +227,7 @@ TRAIN_EPOCHS, TRAIN_STEPS = 2, 4
 TRAIN_LR = 1e-3
 BATCH_PCEN = 512  # bench.py's BATCH_PCEN
 FAMILY_BATCH = 64  # phase 12's sweep of the other families
+REST_STEPS = 4  # train steps of each phase 13 run (1 epoch)
 SWEEP_ITERS = 10  # calls in each of the sweep's two timed readings
 B3_TRAIN_BATCH = 32  # the JAX TrainConfig's default batch
 B3_TRAIN_STEPS = 4
@@ -258,6 +280,14 @@ FOLD_REL = 1e-5
 # by lr) and fewer than 5% move more than 1e-3 lr apart.
 TRAIN_LOSS_REL = 1e-4
 UPDATED_LOSS_REL = 1e-3
+# Phase 13: one f32 dual-badwinner2 step through K2 against the plain views
+# (K2 is exact f32, off its plain version by summation order alone): the
+# loss to 1e-5 relative, the eval logits to 1e-4 of max |logit|; the remat
+# step against the plain step, every parameter and BN statistic to 1e-6
+# relative of the tensor's max (the recompute replays the same kernels)
+DUAL_LOSS_REL = 1e-5
+DUAL_LOGIT_REL = 1e-4
+REMAT_REL = 1e-6
 UPDATE_TOL = 1e-3
 UPDATE_OFF_FRAC = 5e-2
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, dense
@@ -1110,15 +1140,20 @@ def probe_phase(dev, card) -> list[dict]:
     return records
 
 
-def write_corpus(root: Path, cfg, species: list[str]) -> dict:
+def write_corpus(root: Path, cfg, species: list[str],
+                 vectors: bool = False) -> dict:
     """Phase 10's corpus, written by the port's own writer as the build
     writes it: GZIP TFRecord shards of ``schema.encode_sample`` records
     under train/, validation/ and test/, and a ``training-meta.json`` with
     the labels, the counts and the FeaturizerConfig.  Clip i of a split is
     tagged with species i mod len(species) and carries a tone at that
     species' frequency (log-spaced, 200 Hz to 10 kHz) over a noise floor,
-    from a numpy seed per shard.  Shards are written by one thread each
-    (zlib releases the interpreter lock).  Returns the per-split counts."""
+    from a numpy seed per shard.  With ``vectors`` each record also holds
+    short (68, 60) / mid (136, 3) features and a 1280-d embedding, each
+    noise with a species-k offset (columns 5k.. of short, rows 11k.. of
+    mid, every len(species)-th element from k of the embedding).  Shards
+    are written by one thread each (zlib releases the interpreter lock).
+    Returns the per-split counts."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1126,6 +1161,7 @@ def write_corpus(root: Path, cfg, species: list[str]) -> dict:
 
     from audio_training_tpu_torch.config import config_to_dict
     from audio_training_tpu_torch.data import (
+        EMBEDDING_DIM, MID_FEATURES_SHAPE, SHORT_FEATURES_SHAPE,
         SampleRecord, encode_sample, write_tfrecords)
 
     shutil.rmtree(root, ignore_errors=True)
@@ -1141,9 +1177,21 @@ def write_corpus(root: Path, cfg, species: list[str]) -> dict:
             raw = (rng.uniform(0.3, 1.0)
                    * np.sin(2 * np.pi * freqs[k] * t + rng.uniform(0, 6.3))
                    + 0.3 * rng.standard_normal(n))
+            extra = {}
+            if vectors:
+                short = 0.3 * rng.standard_normal(SHORT_FEATURES_SHAPE)
+                short[:, 5 * k:5 * k + 5] += 1.0
+                mid = np.abs(rng.standard_normal(MID_FEATURES_SHAPE))
+                mid[11 * k:11 * k + 11] += 1.0
+                emb = 0.3 * rng.standard_normal(EMBEDDING_DIM)
+                emb[k::len(species)] += 1.0
+                extra = dict(short_features=short.astype(np.float32),
+                             mid_features=mid.astype(np.float32),
+                             embeddings=emb.astype(np.float32))
             recs.append(encode_sample(SampleRecord(
                 raw=raw.astype(np.float32), tags=[species[k]],
-                rec_id=f"{split}-{i}", track_ids=[str(i)], sr=cfg.sr)))
+                rec_id=f"{split}-{i}", track_ids=[str(i)], sr=cfg.sr,
+                **extra)))
         return write_tfrecords(root / split / f"{split}-{shard:02d}.tfrecord",
                                recs)
 
@@ -2067,6 +2115,404 @@ def model_families_phase(dev, cfg, card, mn_ms: float) -> dict[str, int]:
         f"{RECORDING_S:.0f} s: {len(tracks)} tracks; first window's "
         f"probabilities finite in [{probs.min():.3f}, {probs.max():.3f}]")
     return b3_counts
+
+
+def rest_of_training_phase(dev, cfg, card, fit_step_ms: float,
+                           fit_peak_gb: float) -> list[dict]:
+    """Phase 13: the rest of training.  K2 at dual-badwinner2's two view
+    shapes against its plain version; ``cli/train`` of dual-badwinner2 on
+    phase 10's corpus (two K2 launches a batch, no K1) with its step timed
+    and split and one f32 step through K2 against the plain views; a
+    corpus with stored features and embeddings, and ``cli/train`` of
+    merge (K1 once a batch), cnn-features and embeddings (no kernel) on
+    it; badwinner2's step with and without remat; SpecAugment on an
+    augmented batch.  Returns K2's records at the two view shapes."""
+    import importlib.util
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audio_training_tpu_torch.cli import train as cli_train
+    from audio_training_tpu_torch.data.preprocess import (
+        make_dual_mel, make_preprocess_fn)
+    from audio_training_tpu_torch.models import build_model
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.ops.cuda import melspec
+    from audio_training_tpu_torch.ops.features import (
+        apply_spec_augment, build_mel_weights, mix_up, normalize_rows,
+        sample_mix_weights, sample_spec_augment)
+    from audio_training_tpu_torch.ops.stft import stft_tf_style
+    from audio_training_tpu_torch.taxonomy import load_ontology
+    from audio_training_tpu_torch.train import (
+        create_train_state, fresh_metrics, load_metadata, loop,
+        make_train_step)
+    from audio_training_tpu_torch.train.losses import bce_from_logits
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def clips(batch: int) -> torch.Tensor:
+        return normalize_rows(torch.randn(batch, cfg.samples_per_clip,
+                                          generator=gen, device=dev))
+
+    def reset() -> None:
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        melspec.reset_launch_counts()
+
+    def counts() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {**ffz.launch_counts(), **melspec.launch_counts()}
+
+    def seeded(name: str, dtype=torch.bfloat16):
+        return build_model(name, NUM_LABELS, logits_only=True, dtype=dtype,
+                           n_mels=cfg.n_mels,
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).module
+
+    # ---- K2 at the dual views' shapes -------------------------------------
+    dual = make_dual_mel(cfg, device=dev)
+    views = ("A", "B")
+    k2_err = [0.0, 0.0]
+    for b in (CHECK_BATCH, TRAIN_BATCH):
+        raw = clips(b)
+        for v, (bank_t, n_fft, hop) in enumerate(dual.views):
+            spec = stft_tf_style(raw, n_fft, hop)
+            out_k = melspec.fused_power_mel_complex(spec, bank_t)
+            out_p = melspec.power_mel_plain(spec.real, spec.imag, bank_t)
+            err = (out_k - out_p).abs().max().item()
+            rel = err / out_p.abs().max().item()
+            log(f"check B={b} power mel, dual view {views[v]} "
+                f"({n_fft}/{hop}: {tuple(spec.shape)} against the masked "
+                f"{tuple(bank_t.shape)} bank): global rel err {rel:.3e} "
+                f"(limit {MEL_REL_TOL}), max abs err {err:.3e}")
+            check(out_k.shape == (b, spec.shape[1], cfg.n_mels)
+                  and rel < MEL_REL_TOL,
+                  "the power mel kernel disagrees at a dual view")
+            k2_err[v] = max(k2_err[v], err)
+    raw = clips(TRAIN_BATCH)
+    k2_times = []
+    for v, (bank_t, n_fft, hop) in enumerate(dual.views):
+        spec = stft_tf_style(raw, n_fft, hop)
+        ms = time_ms(lambda: melspec.fused_power_mel_complex(spec, bank_t))
+        plain_ms = time_ms(lambda: melspec.power_mel_plain(
+            spec.real, spec.imag, bank_t), iters=5)
+        lib_ms = time_ms(lambda: torch.matmul(
+            spec.real**2 + spec.imag**2, bank_t), iters=5)
+        stft_ms = time_ms(lambda: stft_tf_style(raw, n_fft, hop), iters=5)
+        # as phase 5 counts K2: the support bins of the complex STFT read,
+        # the f32 mel written, the band tables; |X|^2 and the band products
+        plan = melspec.band_walk_plan(bank_t.cpu().numpy())
+        rows, nnz = TRAIN_BATCH * spec.shape[1], len(plan.weights)
+        flops = rows * (3 * plan.support + 2 * nnz)
+        nbytes = (rows * plan.support * 8 + rows * cfg.n_mels * 4
+                  + (3 * cfg.n_mels + nnz) * 4)
+        bound = bound_ms(flops, nbytes)
+        log(f"time power mel kernel, dual view {views[v]} B={TRAIN_BATCH} "
+            f"({rows} rows x {spec.shape[2]} bins, support {plan.support} "
+            f"bins from bin {plan.lo}, {nnz} non-zeros, {cfg.n_mels} mels): "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library matmul "
+            f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), roofline "
+            f"share {bound[0] / ms:.3f}; stft_tf_style feeding it "
+            f"{stft_ms:.4f} ms {card}")
+        k2_times.append((ms, plain_ms, lib_ms, bound))
+    del raw, spec
+
+    # ---- the runs through cli/train -----------------------------------------
+    ckpt = REPO / "build" / "chip_smoke_rest"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sizes = {s: n for s, (n, _) in CORPUS_SPLITS.items()}
+    eval_batches = (math.ceil(sizes["validation"] / TRAIN_BATCH)
+                    + math.ceil(sizes["test"] / TRAIN_BATCH))
+
+    def train_cli(name: str, corpus: Path):
+        """``cli/train --model-name name`` (bf16, B=TRAIN_BATCH, 1 epoch x
+        REST_STEPS steps) with the launch counts zeroed just before and
+        read just after; each step's loss, and the wall time between step
+        ends (loader, preprocess and step).  Returns (counts, seconds,
+        step losses, median ms a step over the last steps, run dir)."""
+        losses, ends = [], []
+        real_step = loop.make_train_step
+
+        def recording_step(*args, **kwargs):
+            step = real_step(*args, **kwargs)
+
+            def run(state, metrics, *a, **kw):
+                before = (metrics["loss_sum"].item(), metrics["count"].item())
+                state, metrics = step(state, metrics, *a, **kw)
+                losses.append((metrics["loss_sum"].item() - before[0])
+                              / (metrics["count"].item() - before[1]))
+                ends.append(time.perf_counter())
+                return state, metrics
+
+            return run
+
+        argv = [name, "-d", str(corpus), "--checkpoint-dir", str(ckpt),
+                "--model-name", name, "--batch-size", str(TRAIN_BATCH),
+                "--epochs", "1", "--steps-per-epoch", str(REST_STEPS),
+                "--device", str(dev)]
+        loop.make_train_step = recording_step
+        try:
+            reset()
+            t0 = time.perf_counter()
+            rc = cli_train.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = counts()
+        finally:
+            loop.make_train_step = real_step
+        check(rc == 0, f"cli/train --model-name {name} exited {rc}")
+        check(len(losses) == REST_STEPS
+              and bool(np.isfinite(losses).all()),
+              f"{name}: step losses {losses} not finite")
+        step_ms = float(np.median(np.diff(ends))) * 1e3
+        log(f"path cli/train {' '.join(argv)}: {secs:.2f} s; launches "
+            f"{got}; step losses {[round(l, 4) for l in losses]}; "
+            f"{step_ms:.3f} ms a step (median of the last "
+            f"{REST_STEPS - 1} step-to-step intervals, loader included), "
+            f"{TRAIN_BATCH / (step_ms / 1e3):.1f} samples/s {card}")
+        return got, secs, losses, step_ms, ckpt / name
+
+    def want_counts(got: dict, **nonzero) -> dict:
+        return {**{k: 0 for k in got}, **nonzero}
+
+    # ---- dual-badwinner2 on phase 10's corpus ---------------------------------
+    corpus = REPO / "build" / "chip_smoke_corpus"
+    dual_got, _, losses, dual_run_ms, run_dir = train_cli("dual-badwinner2",
+                                                          corpus)
+    want = want_counts(dual_got,
+                       power_mel=2 * (REST_STEPS + eval_batches))
+    log(f"check dual-badwinner2 launches: want {want} (two power mel "
+        f"launches a train step and a validation / test batch, no K1)")
+    check(dual_got == want, "the dual run's launches are not the path's")
+    check(losses[-1] < losses[0], f"the dual train loss {losses} did not "
+          "fall")
+    check((run_dir / "chkpt.pt").exists()
+          and load_metadata(run_dir)["test_samples"] == sizes["test"],
+          "the dual run wrote no checkpoint or test metrics")
+
+    # the dual step on an in-memory batch, as phase 6 times badwinner2's
+    x_np, y_np = tone_band_batch(TRAIN_BATCH, NUM_LABELS,
+                                 cfg.samples_per_clip, cfg.sr, SEED)
+    raw_t = torch.as_tensor(x_np, device=dev)
+    y_t = torch.as_tensor(y_np, device=dev)
+    partner = torch.roll(torch.arange(TRAIN_BATCH, device=dev), 1)
+    batch = (raw_t, y_t, raw_t[partner].contiguous(), y_t[partner])
+    dual_pre = make_preprocess_fn(cfg, augment=True, dual=True, device=dev)
+    state = create_train_state(seeded("dual-badwinner2"),
+                               learning_rate=TRAIN_LR, device=dev)
+    step_fn = make_train_step()
+    gen_pre = torch.Generator(device=dev).manual_seed(SEED)
+    gen_drop = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def dual_iter():
+        mel, yy = dual_pre(*batch, gen_pre)
+        return step_fn(state, fresh_metrics(dev), mel, yy, gen_drop)
+
+    reset()
+    dual_iter()
+    check(counts()["power_mel"] == 2, "the dual step did not launch K2 twice")
+    torch.cuda.reset_peak_memory_stats()
+    dual_ms = time_ms(dual_iter, iters=5)
+    dual_peak = torch.cuda.max_memory_allocated() / 1e9
+    parts = {"featurize (2 x (STFT + K2))": 0.0, "forward": 0.0,
+             "backward": 0.0, "Adam": 0.0}
+    model = state.model.train()
+    reps = 3
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        mel, yy = dual_pre(*batch, gen_pre)
+        ev[1].record()
+        loss = bce_from_logits(model(*mel, generator=gen_drop), yy)
+        ev[2].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        state.optimizer.step()
+        ev[4].record()
+        ev[4].synchronize()
+        if rep:  # the first pass warms up
+            for i, k in enumerate(parts):
+                parts[k] += ev[i].elapsed_time(ev[i + 1]) / reps
+    log(f"time dual-badwinner2 train step (preprocess + fwd/bwd + Adam) "
+        f"B={TRAIN_BATCH}: {dual_ms:.3f} ms, "
+        f"{TRAIN_BATCH / (dual_ms / 1e3):.1f} samples/s, peak memory "
+        f"{dual_peak:.2f} GB (phase 6's badwinner2 step {fit_step_ms:.3f} "
+        f"ms, {fit_peak_gb:.2f} GB: {dual_ms / fit_step_ms:.2f}x, "
+        f"{dual_peak / fit_peak_gb:.2f}x); split: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in parts.items()) + f"; the run's "
+        f"{dual_run_ms:.3f} ms a step with its loader {card}")
+    del state, model, mel, loss
+
+    # one f32 step at B=8 through K2 and through the plain views
+    def plain_pre(raw, y, raw2, y2, g):
+        mixed, y = mix_up(g, raw, y, raw2, y2)
+        mixed = normalize_rows(mixed)
+        out = []
+        for bank_t, n_fft, hop in dual.views:
+            spec = stft_tf_style(mixed, n_fft, hop)
+            out.append(melspec.power_mel_plain(
+                spec.real, spec.imag, bank_t).transpose(1, 2)[..., None])
+        return tuple(out), y
+
+    def f32_dual_step(preprocess):
+        st = create_train_state(seeded("dual-badwinner2", None),
+                                learning_rate=TRAIN_LR, device=dev)
+        mel, yy = preprocess(*(t[:CHECK_BATCH] for t in batch),
+                             torch.Generator(device=dev).manual_seed(SEED))
+        with torch.no_grad():
+            logits = st.model.eval()(*mel)
+        st, m = make_train_step()(
+            st, fresh_metrics(dev), mel, yy,
+            torch.Generator(device=dev).manual_seed(SEED + 1))
+        return float(m["loss_sum"]) / CHECK_BATCH, logits
+
+    torch.backends.cudnn.deterministic = True
+    reset()
+    loss_k, logit_k = f32_dual_step(dual_pre)
+    check(counts()["power_mel"] == 2,
+          "the f32 dual step did not launch K2 twice")
+    loss_p, logit_p = f32_dual_step(plain_pre)
+    torch.backends.cudnn.deterministic = False
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    logit_rel = ((logit_k - logit_p).abs().max()
+                 / logit_p.abs().max()).item()
+    log(f"check f32 dual-badwinner2 step B={CHECK_BATCH}, K2 vs the plain "
+        f"views: loss {loss_k:.7f} vs {loss_p:.7f}, rel {loss_rel:.3e} "
+        f"(limit {DUAL_LOSS_REL}); eval logits rel err {logit_rel:.3e} "
+        f"(limit {DUAL_LOGIT_REL})")
+    check(loss_rel < DUAL_LOSS_REL and logit_rel < DUAL_LOGIT_REL,
+          "the dual K2 path disagrees with the plain views")
+
+    # ---- merge, cnn-features and embeddings on a corpus with vectors ---------
+    species = list(load_ontology().bird_train_labels[:CORPUS_SPECIES])
+    vec_corpus = REPO / "build" / "chip_smoke_vectors"
+    t0 = time.perf_counter()
+    write_corpus(vec_corpus, cfg, species, vectors=True)
+    log(f"corpus with vectors: {sizes} clips, each with short (68, 60) / "
+        f"mid (136, 3) features and a 1280-d embedding, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # K1's two training tiers at the merge run's batch, on normalized tone
+    # clips as the corpus holds them
+    mel_np = build_mel_weights(cfg)
+    mel_w = torch.as_tensor(mel_np, device=dev)
+    tone = normalize_rows(raw_t)
+    for tier in ("default", "highest"):
+        got = ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length,
+                                  precision=tier, device=dev)(tone,
+                                                              pcen=False)
+        want = ffz.fused_featurizer_plain(tone, mel_w, cfg.hop_length,
+                                          precision=tier)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        rms = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+        limit = MEL_REL_TOL if tier == "highest" else BF16_STEP
+        log(f"check B={TRAIN_BATCH} K1 {tier} tier, normalized tone clips: "
+            f"global rel err {rel:.3e} (limit {limit:.3e}), relative RMS "
+            f"{rms:.3e} (limit {BF16_RMS_REL})")
+        check(rel < limit and rms < BF16_RMS_REL,
+              f"K1's {tier} tier disagrees at the merge run's batch")
+    del tone, got, want
+    merge_got, _, losses, merge_ms, run_dir = train_cli("merge", vec_corpus)
+    want = want_counts(merge_got, fused_featurizer_mel_bf16=REST_STEPS,
+                       fused_featurizer_mel=eval_batches)
+    log(f"check merge launches: want {want} (one K1 \"default\" launch a "
+        f"train step, one exact launch a validation / test batch); "
+        f"{merge_ms / fit_step_ms:.2f}x phase 6's in-memory step, which "
+        f"has no loader")
+    check(merge_got == want, "the merge run's K1 launches are not the path's")
+    check(losses[-1] < losses[0], f"the merge train loss {losses} did not "
+          "fall")
+    check((run_dir / "confusion.npy").exists()
+          and load_metadata(run_dir)["test_samples"] == sizes["test"],
+          "the merge run wrote no test confusion")
+    for name in ("cnn-features", "embeddings"):
+        got, _, _, _, _ = train_cli(name, vec_corpus)
+        check(not any(got.values()), f"the {name} run launched a kernel")
+    log("path rf-features: not run here; it fits scikit-learn's random "
+        "forest on the host (scikit-learn importable on this machine: "
+        f"{importlib.util.find_spec('sklearn') is not None}); its tests "
+        "run on the CPU")
+
+    # ---- remat: badwinner2's step with and without it --------------------------
+    pre = make_preprocess_fn(cfg, augment=True, device=dev)
+
+    def remat_step(remat: bool, dtype, b: int):
+        st = create_train_state(seeded("badwinner2", dtype),
+                                learning_rate=TRAIN_LR, device=dev)
+        mel, yy = pre(*(t[:b] for t in batch),
+                      torch.Generator(device=dev).manual_seed(SEED))
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        fn = make_train_step(remat=remat)
+        st, _ = fn(st, fresh_metrics(dev), mel, yy, g)
+        return st, fn, mel, yy, g
+
+    torch.backends.cudnn.deterministic = True
+    plain_st, _, _, _, plain_g = remat_step(False, None, CHECK_BATCH)
+    remat_st, _, _, _, remat_g = remat_step(True, None, CHECK_BATCH)
+    torch.backends.cudnn.deterministic = False
+    want_sd, got_sd = plain_st.model.state_dict(), remat_st.model.state_dict()
+    worst = max(((got_sd[k] - want_sd[k]).abs().max()
+                 / want_sd[k].abs().max().clamp_min(1e-30)).item()
+                for k in want_sd)
+    same_gen = torch.equal(plain_g.get_state(), remat_g.get_state())
+    log(f"check f32 badwinner2 step B={CHECK_BATCH}, remat vs not: every "
+        f"parameter and BN running statistic within {worst:.3e} relative "
+        f"(limit {REMAT_REL}); dropout generator state equal: {same_gen}")
+    check(worst <= REMAT_REL and same_gen,
+          "the remat step disagrees with the plain step")
+    del plain_st, remat_st
+    remat_ms = {}
+    for remat in (False, True):
+        st, fn, mel, yy, g = remat_step(remat, torch.bfloat16, TRAIN_BATCH)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: fn(st, fresh_metrics(dev), mel, yy, g), iters=5)
+        remat_ms[remat] = (ms, torch.cuda.max_memory_allocated() / 1e9)
+        del st, fn, mel, yy
+    log(f"time badwinner2 bf16 train step alone (fwd/bwd + Adam, features "
+        f"made) B={TRAIN_BATCH}: remat=False {remat_ms[False][0]:.3f} ms, "
+        f"peak {remat_ms[False][1]:.2f} GB; remat=True "
+        f"{remat_ms[True][0]:.3f} ms, peak {remat_ms[True][1]:.2f} GB {card}")
+
+    # ---- SpecAugment on the augmented path ----------------------------------
+    sa_pre = make_preprocess_fn(cfg, augment=True, use_spec_augment=True,
+                                device=dev)
+    out, _ = sa_pre(*batch, torch.Generator(device=dev).manual_seed(SEED))
+    ref, _ = pre(*batch, torch.Generator(device=dev).manual_seed(SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sample_mix_weights(g, TRAIN_BATCH)
+    draw = sample_spec_augment(g, TRAIN_BATCH, cfg.n_mels, cfg.mel_frames)
+    inside = all(
+        int(st.min()) >= 0 and int(st.max()) < max(size - width, 1)
+        and int(wd.min()) >= 0 and int(wd.max()) <= width
+        for st, wd, size, width in (
+            (draw.time_starts, draw.time_widths, cfg.mel_frames, 50),
+            (draw.freq_starts, draw.freq_widths, cfg.n_mels, 20)))
+    masked = apply_spec_augment(torch.ones_like(ref), draw) == 0
+    kept_err = ((out[~masked] - ref[~masked]).abs().max()
+                / ref.abs().max()).item()
+    sa_ms = time_ms(lambda: sa_pre(*batch, gen_pre), iters=5)
+    no_sa_ms = time_ms(lambda: pre(*batch, gen_pre), iters=5)
+    log(f"check SpecAugment B={TRAIN_BATCH}: every start and width inside "
+        f"JAX's limits (time [0, {cfg.mel_frames - 50}) x [0, 50], mel "
+        f"[0, {cfg.n_mels - 20}) x [0, 20]): {inside}; "
+        f"{masked.float().mean().item():.3f} of the image masked, zero "
+        f"there: {bool((out[masked] == 0).all())}; elsewhere rel err "
+        f"{kept_err:.3e} against the unmasked batch (limit {BF16_STEP:.3e});"
+        f" time {sa_ms:.3f} ms a batch, without SpecAugment {no_sa_ms:.3f} "
+        f"ms {card}")
+    check(inside and bool((out[masked] == 0).all()) and kept_err < BF16_STEP,
+          "SpecAugment's masks are off")
+
+    per_view = dual_got["power_mel"] // 2
+    return [kernel_record(f"power_mel at dual view {views[v]}",
+                          MELSPEC_SOURCE, MELSPEC_TPU_KERNEL, per_view,
+                          k2_err[v], ms, plain_ms, bound, lib_ms)
+            for v, (ms, plain_ms, lib_ms, bound) in enumerate(k2_times)]
 
 
 def main() -> None:
@@ -3136,6 +3582,8 @@ def main() -> None:
             k["launches"] += b3_counts[k["name"].split(" at ")[0]]
             log(f"record {k['name']}: {k['launches']} launches, the "
                 f"MobileNetV2 and EfficientNetV2-B3 chains' 3 requests each")
+    # ---- 13. the rest of training -----------------------------------------
+    kernels += rest_of_training_phase(dev, cfg, card, step_ms, train_peak_gb)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -223,6 +223,10 @@ def test_make_mel_fn_backends(cfg, mel_w):
     got = make_mel_fn(cfg, backend="fused", device="cpu", pcen=True)(raw)
     assert (got - want).abs().max() < PCEN_ABS
     assert torch.equal(make_mel_fn(cfg, device="cpu", pcen=True)(raw), want)
+    # "matmul" (the JAX package's MXU DFT of the same function) runs the
+    # rfft path; a name neither package knows raises
+    assert torch.equal(make_mel_fn(cfg, backend="matmul", device="cpu")(raw),
+                       rfft)
     with pytest.raises(ValueError, match="unknown featurizer backend"):
-        make_mel_fn(cfg, backend="matmul", device="cpu")
+        make_mel_fn(cfg, backend="nope", device="cpu")
 

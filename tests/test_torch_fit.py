@@ -140,6 +140,13 @@ def test_fit_rolls_back_a_non_finite_epoch(tmp_path):
 
 
 def test_unported_fit_options_raise():
-    with pytest.raises(NotImplementedError,
-                       match="Training from a built corpus"):
-        fit(_state(), _batches, None, remat=True)
+    """``remat=True`` reaches the train step: one epoch with it gives
+    ``remat=False``'s losses and weights (dropout masks replayed, BN
+    statistics updated once)."""
+    preprocess = make_preprocess_fn(FeaturizerConfig(**CFG), augment=True,
+                                    device="cpu")
+    runs = [fit(_state(), _batches, preprocess, epochs=1, remat=remat)
+            for remat in (False, True)]
+    assert runs[0].history["loss"] == runs[1].history["loss"]
+    want, got = (r.state.model.state_dict() for r in runs)
+    assert all(torch.equal(want[k], got[k]) for k in want)

@@ -993,3 +993,48 @@ def test_spectral_gate_on_the_card_matches_the_cpu(n_fft, hop):
     got = spectral_gate(x.to(dev), n_fft, hop)
     assert got.device.type == "cuda"
     assert _rel(got.cpu(), want) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", [0, 1])
+@pytest.mark.parametrize("batch", [2, 8])
+def test_power_mel_kernel_on_the_dual_view_banks(view, batch):
+    """K2 on dual-badwinner2's band-masked banks (2048/278 with (1025, 160),
+    1024/280 with (513, 160), production geometry) as its plain version,
+    each view's launch counted once."""
+    from audio_training_tpu_torch.data.preprocess import make_dual_mel
+    from audio_training_tpu_torch.ops.stft import stft_tf_style
+
+    dev = _card()
+    bank_t, n_fft, hop = make_dual_mel(FeaturizerConfig(), device=dev).views[
+        view]
+    raw = normalize_rows(torch.from_numpy(np.random.default_rng(batch)
+                                          .standard_normal((batch, 144000))
+                                          .astype(np.float32)).to(dev))
+    spec = stft_tf_style(raw, n_fft, hop)
+    melspec.reset_launch_counts()
+    got = melspec.fused_power_mel_complex(spec, bank_t)
+    assert melspec.launch_counts()["power_mel"] == 1
+    want = melspec.power_mel_plain(spec.real, spec.imag, bank_t)
+    assert got.shape == (batch, (518, 515)[view], 160)
+    assert _rel(got, want) < MEL_REL
+
+
+@pytest.mark.gpu
+def test_dual_preprocess_on_the_card_matches_the_cpu():
+    """make_preprocess_fn(dual=True) on the card (STFT + K2 a view) as on
+    the CPU (STFT + the plain version), both views within 1e-5."""
+    from audio_training_tpu_torch.data.preprocess import make_preprocess_fn
+
+    dev = _card()
+    cfg = FeaturizerConfig()
+    raw = np.random.default_rng(3).standard_normal((4, 144000)).astype(
+        np.float32)
+    y = np.eye(4, dtype=np.float32)
+    melspec.reset_launch_counts()
+    got, _ = make_preprocess_fn(cfg, dual=True, device=dev)(raw, y)
+    assert melspec.launch_counts()["power_mel"] == 2
+    want, _ = make_preprocess_fn(cfg, dual=True, device="cpu")(raw, y)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert _rel(g.cpu(), w) < MEL_REL

@@ -1,6 +1,8 @@
 """The port's run harness and training CLI: ``train_run`` from a built
 corpus on the CPU, ``save_metadata`` and ``cli/train.parse_args`` against
-the JAX package's, and the paths that are not ported yet.
+the JAX package's, the CLI's runs of dual-badwinner2, merge, cnn-features,
+embeddings and rf-features (on a 5 s corpus whose records also hold
+features and embeddings), and the paths that are not ported yet.
 
 The corpus is a tiny one written by the port's own writer (GZIP shards and
 a ``training-meta.json``): 8 kHz, 3 s clips, n_fft 512, hop 100, 96 mels
@@ -195,11 +197,6 @@ def test_parse_args_matches_jax(argv):
 @pytest.mark.parametrize("flags,item", [
     (["--backbone-weights", "notop.h5"], "Model families"),
     (["--data-shards", "2"], "Data parallel"),
-    (["--model-name", "embeddings"], "Evaluation, deployment"),
-    (["--model-name", "merge"], "Training from a built corpus"),
-    (["--model-name", "cnn-features"], "Evaluation, deployment"),
-    (["--model-name", "dual-badwinner2"], "Training from a built corpus"),
-    (["--model-name", "rf-features"], "Training from a built corpus"),
 ])
 def test_cli_exits_2_naming_the_item(flags, item, capsys, tmp_path):
     with pytest.raises(SystemExit) as exc:
@@ -208,19 +205,89 @@ def test_cli_exits_2_naming_the_item(flags, item, capsys, tmp_path):
     assert item in capsys.readouterr().err
 
 
+def write_feature_corpus(root, cfg, seed=0):
+    """The harness corpus' tones at 5 s (the dual views' hops of 278 and 280
+    need about 110 frames for badwinner2's 1x9 head, as JAX
+    tests/test_harness.py builds its dual corpus), each record also
+    carrying short / mid features and a 1280-d embedding that tell its
+    species apart (offset +2 / 0 / -2 over noise)."""
+    from audio_training_tpu_torch.data import (
+        EMBEDDING_DIM, MID_FEATURES_SHAPE, SHORT_FEATURES_SHAPE)
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(cfg.samples_per_clip) / cfg.sr
+    counts = {}
+    for split, n in SPLITS.items():
+        recs = []
+        for i in range(n):
+            k = i % len(SPECIES)
+            raw = (0.05 * rng.standard_normal(t.size)
+                   + 0.8 * np.sin(2 * np.pi * FREQS[k] * t))
+            shift = 2.0 * (1 - k)
+            recs.append(encode_sample(SampleRecord(
+                raw=raw.astype(np.float32), tags=[SPECIES[k]],
+                rec_id=f"{split}{i}", sr=cfg.sr,
+                short_features=(0.1 * rng.standard_normal(
+                    SHORT_FEATURES_SHAPE) + shift).astype(np.float32),
+                mid_features=np.abs(rng.standard_normal(
+                    MID_FEATURES_SHAPE) + shift).astype(np.float32),
+                embeddings=(0.1 * rng.standard_normal(EMBEDDING_DIM)
+                            + shift).astype(np.float32))))
+        write_tfrecords(root / split / f"{split}-0.tfrecord", recs)
+        per = {sp: len(range(j, n, len(SPECIES)))
+               for j, sp in enumerate(SPECIES)}
+        counts[split] = {"sample_counts": per, "rec_counts": per}
+    meta = {"labels": SPECIES, "type": "audio", "counts": counts,
+            **config_to_dict(cfg)}
+    (root / "training-meta.json").write_text(json.dumps(meta, indent=4))
+    return root
+
+
+@pytest.fixture(scope="module")
+def feature_corpus(tmp_path_factory):
+    return write_feature_corpus(
+        tmp_path_factory.mktemp("features"),
+        FeaturizerConfig(**GEOMETRY, segment_length=5.0))
+
+
+@pytest.mark.parametrize("name", ["embeddings", "merge", "cnn-features",
+                                  "dual-badwinner2", "rf-features"])
+def test_cli_trains_each_model_name(name, feature_corpus, tmp_path):
+    """The run kinds beside the mel families train through ``cli.main`` at
+    B=4, 1 epoch x 2 steps, f32: exit 0, the run dir's metadata and model
+    file, a finite history (the forest's accuracies)."""
+    conf = tmp_path / "train.json"
+    conf.write_text(json.dumps({"compute_dtype": "float32"}))
+    assert cli.main(["run", "-d", str(feature_corpus), "--checkpoint-dir",
+                     str(tmp_path), "--model-name", name, "--batch-size",
+                     "4", "--epochs", "1", "--steps-per-epoch", "2", "-c",
+                     str(conf), "--device", "cpu"]) == 0
+    d = tmp_path / "run"
+    meta = metadata.load_metadata(d)
+    assert meta["name"] == name
+    if name == "rf-features":
+        assert (d / "random_forest.pkl").exists()
+        acc = meta["rf_history"]
+        assert acc["train_accuracy"][0] == 1.0
+        assert 0.0 <= acc["val_accuracy"][0] <= 1.0
+        return
+    assert (d / "chkpt.pt").exists()
+    hist = json.loads((d / "history.json").read_text())
+    assert len(hist["loss"]) == 1
+    assert np.isfinite(hist["loss"]).all()
+    assert np.isfinite(hist["val_loss"]).all()
+    if name == "merge":
+        assert meta["test_samples"] == SPLITS["test"]
+        assert (d / "confusion.npy").exists()
+
+
 def test_train_run_refuses_unported_configs(corpus, tmp_path):
-    for cfg, item in ((TrainConfig(num_data_shards=4), "Data parallel"),
-                      (TrainConfig(model_name="embeddings"),
-                       "Evaluation, deployment")):
+    for kw, item in (({"train_cfg": TrainConfig(num_data_shards=4)},
+                      "Data parallel"),
+                     ({"backbone_weights": "notop.h5"}, "Model families")):
         with pytest.raises(NotImplementedError, match=item):
             harness.train_run([corpus], "x", checkpoint_root=tmp_path,
-                              train_cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="Training from a built corpus"):
-        harness.train_run([corpus], "x", checkpoint_root=tmp_path,
-                          train_cfg=TrainConfig(**{**TRAIN, "remat": True}),
-                          featurizer=FeaturizerConfig(**GEOMETRY),
-                          device="cpu")
+                              device="cpu", **kw)
 
 
 def test_cli_trains_from_the_corpus(corpus, tmp_path):

@@ -21,11 +21,11 @@ from audio_training_tpu.ops import stft as jstft
 from audio_training_tpu_torch import config as tconfig
 from audio_training_tpu_torch.ops import features as tf_
 from audio_training_tpu_torch.ops import mel as tmel
-from audio_training_tpu_torch.ops import pcen as tpcen
 from audio_training_tpu_torch.ops import stft as tstft
 
-# the JAX ops package exports a function named ``pcen`` over the module
+# both ops packages export a function named ``pcen`` over the module
 jpcen = importlib.import_module("audio_training_tpu.ops.pcen")
+tpcen = importlib.import_module("audio_training_tpu_torch.ops.pcen")
 
 torch.set_num_threads(2)
 

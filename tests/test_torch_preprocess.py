@@ -131,10 +131,21 @@ def test_image_options_match_jax():
 
 
 def test_unported_options_raise():
-    cfg = FeaturizerConfig()
-    for kw in ({"dual": True}, {"augment": True, "use_spec_augment": True}):
-        with pytest.raises(NotImplementedError, match="Training from a built corpus"):
-            pre.make_preprocess_fn(cfg, device="cpu", **kw)
+    """The dual views and SpecAugment build and run (their values are held
+    to JAX in tests/test_torch_dual_merge.py); an unknown featurizer
+    backend raises."""
+    cfg = FeaturizerConfig(segment_length=0.75, n_mels=96)
+    raw, y = _batch(2, 36000, 4, 6)
+    (view_a, view_b), _ = pre.make_preprocess_fn(cfg, dual=True,
+                                                 device="cpu")(raw, y)
+    assert view_a.shape == (2, 96, 130, 1) and view_b.shape == (2, 96, 129, 1)
+    mel, _ = pre.make_preprocess_fn(cfg, augment=True, use_spec_augment=True,
+                                    device="cpu")(
+        raw, y, raw[::-1].copy(), y[::-1].copy(),
+        torch.Generator().manual_seed(0))
+    assert mel.shape == (2, 96, 129, 1) and (mel == 0).any()
+    with pytest.raises(ValueError, match="unknown featurizer backend"):
+        pre.make_preprocess_fn(cfg, backend="nope", device="cpu")
 
 
 def test_class_weighting_matches_jax():

@@ -409,5 +409,9 @@ def test_state_seed_param_count_lr_and_remat(setup):
     assert param_count(state) == jcount
     assert state.current_lr() == pytest.approx(0.01)
     assert state.with_lr(0.005).current_lr() == pytest.approx(0.005)
-    with pytest.raises(NotImplementedError, match="Training from a built corpus"):
-        step.make_train_step(remat=True)
+    # remat builds a step (held to remat=False and to JAX's remat step in
+    # tests/test_torch_remat.py)
+    stepped, _ = step.make_train_step(remat=True)(
+        _port_state(v), step.fresh_metrics(), torch.from_numpy(mel),
+        torch.eye(NUM_LABELS)[[1, 4]])
+    assert stepped.step == 1
