@@ -7,11 +7,9 @@ The run directory holds ``metadata.txt`` and the port's weights file
 (``cli/freeze``) holds ``audioModel.pt``.  The Predictor runs on the CUDA
 card unless given ``--device cpu``.
 
-Every flag of the JAX CLI is known.  Three groups are not ported and exit
-2 with their reason: ``--test-split`` / ``--data-dir`` /
-``--confusion-out`` (they need the corpus dataset and split), and
-``--embedding-model`` / ``--embedding-kind`` / ``--yamnet-model`` (they
-load TensorFlow saved models).
+Every flag of the JAX CLI is known.  ``--embedding-model`` /
+``--embedding-kind`` / ``--yamnet-model`` are not ported and exit 2 with
+their reason (they load TensorFlow saved models).
 """
 
 from __future__ import annotations
@@ -27,15 +25,10 @@ from audio_training_tpu_torch.utils import init_logging
 
 _ITEM = ('ROADMAP.md queue 1, "Evaluation, deployment and the rest of '
          'long-recording inference"')
-_CORPUS = ("needs corpus/dataset.AudioDataset and corpus/split.split_by_file, "
-           'which come with ROADMAP.md queue 1, "Host corpus tooling"')
 _TENSORFLOW = ("loads a TensorFlow saved model (infer/embeddings.py), and the "
                "port does not depend on TensorFlow")
 # flag -> why it exits 2
 _UNPORTED = {
-    "--test-split": _CORPUS,
-    "--data-dir": _CORPUS,
-    "--confusion-out": _CORPUS,
     "--embedding-model": _TENSORFLOW,
     "--embedding-kind": _TENSORFLOW,
     "--yamnet-model": _TENSORFLOW,
@@ -72,6 +65,14 @@ def parse_args(argv=None):
                              "this dir (predict.predict_on_folder parity)")
     parser.add_argument("--workers", type=int, default=1,
                         help="Preprocessing processes for --folder-eval")
+    parser.add_argument("--test-split", default=None,
+                        help="Pinned split JSON: evaluate the held-out test "
+                             "recordings (predict.predict_on_test parity); "
+                             "requires --data-dir")
+    parser.add_argument("--data-dir", default=None,
+                        help="Corpus dir for --test-split")
+    parser.add_argument("--confusion-out", default="./confusions/test-split",
+                        help="Confusion output prefix for --test-split")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the Predictor (cuda or cpu)")
     for flag in _UNPORTED:
@@ -177,7 +178,7 @@ def predict_file(predictor, path: Path, grid_meta=None, lat=None, lng=None,
 def main(argv=None) -> int:
     init_logging()
     args = parse_args(argv)
-    predictor, _ = load_predictor(Path(args.model), args.weights,
+    predictor, meta = load_predictor(Path(args.model), args.weights,
                                   args.aggregation, args.threshold,
                                   device=args.device)
     grid_meta = None
@@ -207,13 +208,29 @@ def main(argv=None) -> int:
                  "per_file": result.per_file}, indent=2))
         return 0
 
+    if args.test_split:
+        if not args.data_dir:
+            logging.error("--test-split requires --data-dir")
+            return 1
+        from audio_training_tpu_torch.infer.folder import predict_on_test
+
+        cm, labels = predict_on_test(
+            predictor, args.test_split, args.data_dir,
+            confusion_file=args.confusion_out,
+            remapped_labels=meta.get("remapped_labels"),
+        )
+        correct = int(cm.trace())
+        total = int(cm.sum())
+        logging.info("test split: %s/%s correct", correct, total)
+        return 0
+
     if args.file:
         files = [Path(args.file)]
     elif args.dir:
         files = sorted(f for f in Path(args.dir).iterdir()
                        if f.suffix.lower() in AUDIO_SUFFIXES)
     else:
-        logging.error("Need --file, --dir or --folder-eval")
+        logging.error("Need --file, --dir, --folder-eval or --test-split")
         return 1
 
     all_results = {}

@@ -1,4 +1,4 @@
-"""Audio decode & resample (host), a copy of the decode half of
+"""Audio decode, resample and write (host), a copy of
 ``audio_training_tpu/corpus/audioio.py``.
 
 The reference decodes via librosa/audioread/ffmpeg subprocesses
@@ -80,3 +80,33 @@ def load_recording(
         sr = target_sr
     return data, sr
 
+
+def probe_duration(path: str | Path) -> float | None:
+    """ffprobe duration cross-check (audiowriter.get_ffmpeg_duration,
+    audiowriter.py:333-347); None when ffprobe is unavailable."""
+    ffprobe = shutil.which("ffprobe")
+    if ffprobe is None:
+        p = Path(path)
+        if p.suffix.lower() == ".wav":
+            try:
+                data, sr = load_wav(p)
+                return len(data) / sr
+            except Exception:
+                return None
+        return None
+    try:
+        out = subprocess.run(
+            [ffprobe, "-v", "error", "-show_entries", "format=duration",
+             "-of", "default=noprint_wrappers=1:nokey=1", str(path)],
+            capture_output=True, check=True,
+        )
+        return float(out.stdout.strip())
+    except Exception:
+        return None
+
+
+def save_wav(path: str | Path, data: np.ndarray, sr: int) -> None:
+    from scipy.io import wavfile
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    wavfile.write(str(path), sr, np.asarray(data, np.float32))

@@ -1,13 +1,11 @@
-"""The corpus model's sidecar half: ``Recording`` and ``Track`` read from a
-recording's JSON metadata, with tag handling, eBird relabeling and the
-RMS-based track tightening and filtering (a copy of the part of
-``audio_training_tpu/corpus/dataset.py`` that strong evaluation reads,
-``:54-155``, ``:159-327``, ``:397-470``; reference: audiodataset.py).
+"""In-memory corpus model: AudioDataset / Recording / Track / AudioSample
+(a copy of ``audio_training_tpu/corpus/dataset.py`` with the port's imports).
 
-Sampling is not here yet: ``AudioSample``, ``Recording.get_samples`` (so
-``Recording(load_samples=True)``), ``Recording``'s ``signal_percent``,
-``space_signals``, ``add_tracks`` and ``recalc_tags``, and ``AudioDataset``
-come with ROADMAP.md queue 1, "Host corpus tooling".
+Behavioral port of the reference ``audiodataset.py`` dataset model: sidecar
+JSON metadata parsing, tag handling with eBird relabeling, RMS-based track
+tightening/filtering, per-track signal-percent, and the jittered sampling
+scheme producing used / small-stride / unused sample pools (the raw material
+for balancing, build.py:472-676).
 """
 
 from __future__ import annotations
@@ -28,12 +26,13 @@ from audio_training_tpu_torch.taxonomy.ontology import Ontology, load_ontology
 
 log = logging.getLogger(__name__)
 
-_QUEUED = 'ROADMAP.md queue 1, "Host corpus tooling"'
-
 # tag handling constants (audiodataset.py:38-39,68-78,101-104)
 REJECT_TAGS = ["unidentified", "other", "mammal"]
+MAX_TRACK_SAMPLES = 4
 MIN_TRACK_LENGTH = 1.5
+SEG_LEEWAY = 0.5
 TOP_FREQ = 48000 / 2
+LOW_SAMPLES_LABELS: list[str] = []
 
 # dataset-stage relabeling applied when tags are read
 # (audiodataset.RELABEL, audiodataset.py:68-78)
@@ -51,6 +50,9 @@ RELABEL = {
 
 Tag = namedtuple("Tag", "what ebird_id confidence automatic original")
 
+_sample_group_id = 0
+_audio_id = 0
+
 
 def segment_overlap(first, second) -> float:
     return (
@@ -63,6 +65,24 @@ def segment_overlap(first, second) -> float:
 def load_metadata(filename: str | Path) -> dict:
     with open(str(filename), "r") as f:
         return json.load(f)
+
+
+def space_signals(signals, spacing: float = 0.1):
+    """Merge signal spans closer than ``spacing``
+    (audiodataset.space_signals, audiodataset.py:1380-1403)."""
+    out = []
+    prev = None
+    for s in signals:
+        if prev is None:
+            prev = s
+        elif s[0] < prev[1] + spacing:
+            prev = (prev[0], s[1])
+        else:
+            out.append(prev)
+            prev = s
+    if prev is not None:
+        out.append(prev)
+    return out
 
 
 def ensure_track_length(start, end, min_length, track_end=None,
@@ -79,6 +99,11 @@ def ensure_track_length(start, end, min_length, track_end=None,
     if track_end is not None:
         end = min(end, track_end)
     return start, end
+
+
+# ---------------------------------------------------------------------------
+# RMS helpers (audiodataset.py:1424-1495)
+# ---------------------------------------------------------------------------
 
 
 def remove_rms_noise(rms, rms_peaks, rms_meta, noise_peaks, noise_meta,
@@ -129,6 +154,11 @@ def best_rms(rms, segment_length=3, sr=48000, hop_length=281):
     return best
 
 
+# ---------------------------------------------------------------------------
+# Track
+# ---------------------------------------------------------------------------
+
+
 class Track:
     """One tagged region of a recording (audiodataset.Track,
     audiodataset.py:899-1032)."""
@@ -162,13 +192,17 @@ class Track:
         self.human_text_tags: set[str] = set()
         self.original_tags: set[str] = set()
         self.signal_percent = None
+        self.mixed_label = None
+        self.short_features = None
+        self.mid_features = None
         self.rms_filtered = False
         self.predictions: list = []
 
-        ont = ontology or load_ontology()
+        self._ontology = ontology or load_ontology()
         for tag in metadata.get("tags", []):
             self.add_tag(tag)
 
+        ont = self._ontology
         self.bird_track = any(t in ont.all_birds for t in self.human_tags)
         self.animal_track = any(t in ont.animal_labels for t in self.human_tags)
         self.noise_track = any(t in ont.noise_labels for t in self.human_tags)
@@ -289,18 +323,88 @@ def filter_track(track: Track) -> bool:
     return track.tag in REJECT_TAGS
 
 
+# ---------------------------------------------------------------------------
+# AudioSample
+# ---------------------------------------------------------------------------
+
+
+class AudioSample:
+    """One 3 s training example (audiodataset.AudioSample,
+    audiodataset.py:341-433)."""
+
+    def __init__(self, rec, tags, text_tags, start, end, track_ids, group_id,
+                 signal_percent, bin_id=None, min_freq=None, max_freq=None,
+                 mixed_label=None, low_sample=False):
+        global _audio_id
+        self.id = _audio_id
+        _audio_id += 1
+        self.rec_id = rec.id if rec is not None else None
+        self.location = rec.location if rec is not None else None
+        self.low_sample = low_sample
+        self.mixed_label = mixed_label
+        self.tags = sorted(tags)
+        self.text_tags = list(text_tags)
+        non_bird = [t for t in tags if t not in ("noise", "bird")]
+        self.first_tag = non_bird[0] if non_bird else self.tags[0]
+        self.start = start
+        self.end = end
+        self.track_ids = track_ids
+        self.spectogram_data = None
+        self.sr = None
+        self.logits = None
+        self.embeddings = None
+        self.signal_percent = signal_percent
+        self.group = group_id
+        self.predicted_labels = None
+        self.min_freq = min_freq
+        self.max_freq = max_freq
+        self.bin_id = bin_id if bin_id is not None else f"{self.rec_id}"
+
+    def clone(self) -> "AudioSample":
+        c = AudioSample(
+            rec=None, tags=self.tags, text_tags=self.text_tags,
+            start=self.start, end=self.end, track_ids=self.track_ids,
+            group_id=self.group, signal_percent=self.signal_percent,
+            bin_id=self.bin_id, min_freq=self.min_freq,
+            max_freq=self.max_freq, low_sample=self.low_sample,
+        )
+        c.rec_id = self.rec_id
+        c.location = self.location
+        return c
+
+    @property
+    def length(self):
+        return self.end - self.start
+
+    @property
+    def tags_s(self):
+        return "\n".join(self.tags)
+
+    @property
+    def text_tags_s(self):
+        return "\n".join(self.text_tags)
+
+    @property
+    def track_id(self):
+        return self.bin_id
+
+    def __repr__(self):
+        return f"{self.rec_id}:{self.tags} - {self.start}-{self.end}"
+
+
+# ---------------------------------------------------------------------------
+# Recording
+# ---------------------------------------------------------------------------
+
+
 class Recording:
     """A recording with sidecar metadata (audiodataset.Recording,
-    audiodataset.py:436-842), its tracks read and filtered.  Only
-    ``load_samples=False`` is ported (see the module docstring)."""
+    audiodataset.py:436-842)."""
 
     def __init__(self, metadata: dict, filename, config: SamplingConfig | None,
                  ontology: Ontology | None = None, load_samples=True,
                  segment_length=3.0, segment_stride=1.0,
                  rng: np.random.Generator | None = None):
-        if load_samples:
-            raise NotImplementedError(
-                f"Recording(load_samples=True) comes with {_QUEUED}")
         self.filename = filename
         self.metadata = metadata
         self.id = metadata.get("id")
@@ -341,3 +445,315 @@ class Recording:
 
         self.sample_rate = None
         self.rec_data = None
+        self.samples: list[AudioSample] = []
+        self.unused_samples: list[AudioSample] = []
+        self.small_strides: list[AudioSample] = []
+        if load_samples:
+            self.signal_percent()
+            self.samples, self.small_strides, self.unused_samples = (
+                self.get_samples(segment_length, segment_stride)
+            )
+
+    def add_tracks(self, tracks):
+        for t in tracks:
+            if any(existing.id == t.id for existing in self.tracks):
+                continue
+            if filter_track(t):
+                continue
+            self.tracks.append(t)
+            self.human_tags.update(t.human_tags)
+
+    def recalc_tags(self):
+        for track in self.tracks:
+            self.human_tags.update(track.human_tags)
+
+    def space_signals(self, spacing=0.1):
+        self.signals = space_signals(self.signals, spacing)
+
+    def signal_percent(self):
+        """Fraction of each track covered by detected signal spans above
+        1 kHz (audiodataset.py:515-544)."""
+        freq_filter = 1000
+        for t in self.tracks:
+            signal_time = 0.0
+            prev_e = None
+            for s in self.signals:
+                if s[2] < freq_filter:
+                    continue
+                if ((t.end - t.start) + (s[1] - s[0])) > max(t.end, s[1]) - min(
+                    t.start, s[0]
+                ):
+                    start = max(s[0], t.start)
+                    if prev_e is not None:
+                        start = max(prev_e, start)
+                    end = min(s[1], t.end)
+                    if start > end:
+                        continue
+                    signal_time += end - start
+                    prev_e = end
+                    if t.end < s[1]:
+                        break
+                if t.end < s[0]:
+                    break
+            t.signal_percent = signal_time / t.length if t.length > 0 else 0
+
+    def get_samples(self, segment_length, segment_stride, do_overlap=False,
+                    for_label=None, extra_samples=True):
+        """Jittered per-track sampling with used / small-stride / unused
+        pools (audiodataset.Recording.get_samples, audiodataset.py:554-842).
+
+        Per track: candidate starts at ``stride`` spacing (jittered +-0.25 s
+        when more than one); at most MAX_TRACK_SAMPLES randomly selected as
+        "used"; half-stride-offset starts become the small-stride pool and
+        unselected starts the unused pool (both feed oversampling,
+        build.py:539-676); noise tracks overlapping bird tracks are trimmed
+        to the non-overlapping part.
+        """
+        global _sample_group_id
+        _sample_group_id += 1
+        samples: list[AudioSample] = []
+        small_strides: list[AudioSample] = []
+        unused: list[AudioSample] = []
+        rng = self.rng
+
+        min_sample_length = segment_length - SEG_LEEWAY
+        tracks = [t for t in self.tracks if not t.rms_filtered]
+        if for_label is not None:
+            tracks = [t for t in tracks if for_label in t.human_tags]
+        sorted_tracks = sorted(self.tracks, key=lambda t: t.start)
+        bin_id = f"{self.id}-0"
+
+        for track in tracks:
+            if track.bird_track and (track.noise_track or track.animal_track):
+                continue
+            adjusted = False
+            if not track.bird_track:
+                # trim noise tracks overlapping bird tracks
+                # (audiodataset.py:604-641)
+                for other in tracks:
+                    if other is track or not other.bird_track:
+                        continue
+                    overlap = segment_overlap(
+                        [track.og_start, track.og_end],
+                        [other.og_start, other.og_end],
+                    )
+                    if overlap > 0:
+                        if track.og_start > other.og_start:
+                            track.start = other.og_end
+                            track.end = max(track.start, track.end)
+                        elif other.og_end > track.end:
+                            track.end = other.og_start
+                        else:
+                            start_sec = other.og_start - track.start
+                            end_sec = track.end - other.og_end
+                            if start_sec > end_sec:
+                                track.end = other.og_start
+                            else:
+                                track.start = other.og_end
+                        track.start = min(track.og_end, track.start)
+                        track.end = min(track.end, track.og_end)
+                        adjusted = True
+            if adjusted and track.length < 1:
+                continue
+
+            track_samples = (track.length - segment_length) / segment_stride
+            track_samples = max(round(track_samples), 0)
+            left_over = track_samples - int(track_samples)
+            track_samples = int(track_samples) + 1
+
+            sample_starts = (
+                np.arange(track.length, step=segment_stride, dtype=np.float32)
+                + track.start
+            )
+            if track_samples > 1:
+                sample_starts = (
+                    sample_starts + rng.random(len(sample_starts)) / 2 - 0.25
+                )
+            if track_samples > MAX_TRACK_SAMPLES:
+                selected = rng.choice(
+                    sample_starts, MAX_TRACK_SAMPLES, replace=False
+                )
+                left_over = 0
+            else:
+                selected = sample_starts
+
+            small_stride_starts = (
+                np.arange(track_samples, step=segment_stride, dtype=np.float32)
+                + track.start + segment_stride / 2
+            )
+            if track_samples > 1:
+                small_stride_starts = (
+                    small_stride_starts
+                    + rng.random(len(small_stride_starts)) / 2 - 0.25
+                )
+            if left_over > 0 and track_samples == 1 and left_over < SEG_LEEWAY:
+                sample_starts = sample_starts + float(rng.random()) * left_over
+
+            low_sample_track = any(
+                l in LOW_SAMPLES_LABELS for l in track.human_tags
+            )
+            all_starts = (
+                [sample_starts, small_stride_starts]
+                if extra_samples
+                else [sample_starts]
+            )
+            selected_set = set(np.asarray(selected).tolist())
+            sample_i = 1
+            small_stride = False
+            min_len = min_sample_length
+            for starts in all_starts:
+                for start in starts:
+                    start = max(0.0, float(start))
+                    used = start in selected_set and not small_stride
+                    end = min(start + segment_length, track.end)
+                    if sample_i > 1 and (
+                        start > track.end or (end - start) < min_len
+                    ):
+                        break
+                    if (
+                        left_over > 0
+                        and left_over < SEG_LEEWAY
+                        and sample_i == track_samples
+                    ):
+                        end = track.end
+                        start = end - segment_length
+                    sample_i += 1
+
+                    labels = set(track.human_tags)
+                    text_labels = set(track.human_text_tags)
+                    min_freq = track.min_freq
+                    max_freq = track.max_freq
+                    track_ids = [track.id]
+                    if do_overlap:
+                        for other in sorted_tracks:
+                            if other is track:
+                                continue
+                            if other.start > end:
+                                break
+                            overlap = (
+                                (end - start) + other.length
+                                - (max(end, other.end) - min(start, other.start))
+                            )
+                            min_overlap = min(
+                                0.9 * segment_length, other.length * 0.9
+                            )
+                            if overlap >= min_overlap:
+                                track_ids.append(other.id)
+                                labels |= other.human_tags
+                                text_labels |= other.human_text_tags
+                                if min_freq is not None:
+                                    min_freq = (
+                                        None if other.min_freq is None
+                                        else min(other.min_freq, min_freq)
+                                    )
+                                if max_freq is not None:
+                                    max_freq = (
+                                        None if other.max_freq is None
+                                        else max(other.max_freq, max_freq)
+                                    )
+                    sbin = (
+                        f"{self.id}-{track.id}" if low_sample_track else bin_id
+                    )
+                    sample = AudioSample(
+                        self, labels, text_labels, start, end, track_ids,
+                        _sample_group_id, track.signal_percent, bin_id=sbin,
+                        min_freq=min_freq, max_freq=max_freq,
+                        mixed_label=track.mixed_label,
+                        low_sample=low_sample_track,
+                    )
+                    if used:
+                        samples.append(sample)
+                    elif small_stride and extra_samples:
+                        small_strides.append(sample)
+                    elif extra_samples:
+                        unused.append(sample)
+                    if start > track.end or (end - start) < min_len:
+                        break
+                small_stride = True
+                min_len = 1.5  # relaxed for the small-stride pass
+        return samples, small_strides, unused
+
+    def load_samples(self, segment_length, segment_stride):
+        self.samples, self.small_strides, self.unused_samples = (
+            self.get_samples(segment_length, segment_stride)
+        )
+
+    @property
+    def bin_id(self):
+        return self.id
+
+
+# ---------------------------------------------------------------------------
+# AudioDataset
+# ---------------------------------------------------------------------------
+
+AUDIO_SUFFIXES = (".m4a", ".wav", ".mp3", ".flac")
+
+
+class AudioDataset:
+    """A named collection of recordings (audiodataset.AudioDataset,
+    audiodataset.py:122-327)."""
+
+    def __init__(self, name: str, config: SamplingConfig | None = None,
+                 ontology: Ontology | None = None,
+                 segment_length: float = 3.0, segment_stride: float = 1.0):
+        self.name = name
+        self.config = config or SamplingConfig()
+        self.ontology = ontology or load_ontology()
+        self.segment_length = segment_length
+        self.segment_stride = segment_stride
+        self.recs: dict = {}
+        self.labels: set[str] = set()
+        self.samples: list[AudioSample] = []
+
+    def load_meta(self, base_path: str | Path) -> None:
+        for f in Path(base_path).glob("**/*.txt"):
+            try:
+                meta = load_metadata(f)
+                audio_f = None
+                for suffix in AUDIO_SUFFIXES:
+                    cand = f.with_suffix(suffix)
+                    if cand.exists():
+                        audio_f = cand
+                        break
+                if audio_f is None:
+                    audio_f = f.with_suffix(".wav")
+                r = Recording(
+                    meta, audio_f, self.config, ontology=self.ontology,
+                    segment_length=self.segment_length,
+                    segment_stride=self.segment_stride,
+                )
+                self.add_recording(r)
+            except Exception:
+                log.error("Error loading %s", f, exc_info=True)
+
+    def add_recording(self, r: Recording) -> None:
+        if r.id in self.recs:
+            log.info("Already have rec %s; ignoring duplicate", r.id)
+        self.recs[r.id] = r
+        self.samples.extend(r.samples)
+        self.labels.update(r.human_tags)
+
+    def remove_rec(self, rec: Recording) -> None:
+        for s in rec.samples:
+            if s in self.samples:
+                self.samples.remove(s)
+        self.recs.pop(rec.id, None)
+
+    def get_counts(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for s in self.samples:
+            for tag in s.tags:
+                counts[tag] = counts.get(tag, 0) + 1
+        return counts
+
+    def get_rec_counts(self) -> dict[str, set]:
+        counts: dict[str, set] = {}
+        for s in self.samples:
+            for tag in s.tags:
+                counts.setdefault(tag, set()).add(s.rec_id)
+        return counts
+
+    def print_counts(self):
+        for k, v in sorted(self.get_counts().items()):
+            log.info("%s: %s %s", self.name, k, v)

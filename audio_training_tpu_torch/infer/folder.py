@@ -6,9 +6,9 @@ predict.py:477-596; predict.predict_on_test, predict.py:599-720).
 ``best_track`` annotation: the annotated span is windowed, classified by
 the Predictor on the card, and counted correct when the annotated label
 clears the threshold.  ``predict_on_test`` re-derives the held-out test
-split from a pinned split file; it needs ``corpus/dataset.AudioDataset``
-and ``corpus/split.split_by_file``, which come with ROADMAP.md queue 1,
-"Host corpus tooling", and raises until then.
+split from a pinned split file, classifies every stored sample (one
+``predict_windows`` call a recording), and writes an argmax-vs-truth
+confusion.
 """
 
 from __future__ import annotations
@@ -18,6 +18,13 @@ import logging
 from dataclasses import dataclass, field
 from pathlib import Path
 
+import numpy as np
+
+from audio_training_tpu_torch.corpus.audioio import load_recording
+from audio_training_tpu_torch.eval.confusion import (
+    confusion_matrix,
+    save_confusion,
+)
 from audio_training_tpu_torch.eval.strong import find_audio_file
 
 log = logging.getLogger(__name__)
@@ -104,12 +111,81 @@ def predict_on_folder(
     return result
 
 
-def predict_on_test(predictor, split_file, base_dir, confusion_file=None,
-                    remapped_labels=None, extra_label_map=None,
-                    sampling_config=None):
-    """Classify every stored sample of a pinned test split
-    (predict.py:599-720): not ported yet, see the module docstring."""
-    raise NotImplementedError(
-        "predict_on_test (--test-split) needs corpus/dataset.AudioDataset and "
-        "corpus/split.split_by_file, which come with ROADMAP.md queue 1, "
-        "\"Host corpus tooling\"")
+def predict_on_test(
+    predictor,
+    split_file: str | Path,
+    base_dir: str | Path,
+    confusion_file: str | Path | None = None,
+    remapped_labels: dict[str, int] | None = None,
+    extra_label_map: dict[str, int] | None = None,
+    sampling_config=None,
+) -> tuple[np.ndarray, list[str]]:
+    """Classify every stored sample of the pinned test split and build a
+    single-label (argmax) confusion (predict.py:599-720).
+
+    ``sampling_config`` defaults to the most permissive settings (no RMS
+    filtering/tightening) so recordings without stored RMS metadata still
+    yield samples; pass the build-time config to reproduce the exact split.
+    """
+    from audio_training_tpu_torch.config import SamplingConfig
+    from audio_training_tpu_torch.corpus.dataset import AudioDataset
+    from audio_training_tpu_torch.corpus.split import split_by_file
+
+    cfg = predictor.cfg
+    labels = list(predictor.labels)
+    remapped_labels = remapped_labels or {}
+    extra_label_map = extra_label_map or {}
+
+    if sampling_config is None:
+        sampling_config = SamplingConfig(tighten_tracks=False,
+                                         filter_rms=False)
+    dataset = AudioDataset("all", sampling_config)
+    dataset.load_meta(base_dir)
+    split_meta = json.loads(Path(split_file).read_text())
+    _, _, test = split_by_file(dataset, split_meta)
+
+    y_true: list[int] = []
+    predicted: list[int] = []
+    for rec in test.recs.values():
+        if not any(l in labels for l in rec.human_tags):
+            continue
+        try:
+            frames, sr = load_recording(rec.filename, target_sr=cfg.sr)
+        except Exception:
+            log.error("could not load %s", rec.filename, exc_info=True)
+            continue
+        file_y: list[int] = []
+        windows: list[np.ndarray] = []
+        n = cfg.samples_per_clip
+        for sample in rec.samples:
+            label = sample.tags[0] if sample.tags else None
+            if label is None:
+                continue
+            if label in remapped_labels:
+                label_i = int(remapped_labels[label])
+                if label_i == -1:
+                    label_i = int(extra_label_map.get(label, -1))
+                    if label_i == -1:
+                        log.info("Ignoring %s", label)
+                        continue
+            elif label in labels:
+                label_i = labels.index(label)
+            else:
+                log.info("%s not in remapped %s", rec.filename, label)
+                continue
+            s = int(sample.start * sr)
+            data = np.asarray(frames[s : s + n], np.float32)
+            if data.size < n:
+                data = np.pad(data, (0, n - data.size))
+            file_y.append(label_i)
+            windows.append(data)
+        if not windows:
+            continue
+        probs = predictor.predict_windows(np.stack(windows))
+        predicted.extend(int(i) for i in probs.argmax(axis=1))
+        y_true.extend(file_y)
+
+    cm = confusion_matrix(y_true, predicted, len(labels))
+    if confusion_file is not None:
+        save_confusion(cm, labels, Path(confusion_file))
+    return cm, labels

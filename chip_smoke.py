@@ -197,6 +197,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (its draws inside JAX's limits, the masked image zero there and the
    unmasked image elsewhere, ms).  rf-features is host code (scikit-learn)
    and runs in the CPU tests.  K2's records gain the two view shapes.
+14. building a corpus: a raw corpus of 96 float32 WAVs of 20 s at 48 kHz
+   with sidecar ``.txt`` metadata (8 species x 12 recordings, a species
+   tone track and a noise track of 8 s each, no RMS metadata; from a numpy
+   seed), built by the port's ``cli/build`` (production geometry,
+   ``--dont-tighten-tracks --dont-filter-rms``) with 1 and with 4 worker
+   processes, each timed (wall s, recordings/s, clips/s) and checked: every
+   record of ``training-meta.json``'s counts written, the port's
+   ``RecordStream`` reading the meta's counts of the trained labels split
+   by split, the two builds' meta byte-identical; ``cli/train`` of
+   badwinner2 on the 4-worker build (bf16, B=128, 1 epoch x 4 steps; one
+   ``mel_bf16`` launch a train step, one exact launch a validation and a
+   test batch; finite losses; ms a step with the loader); ``cli/predict
+   --test-split <meta> --data-dir <raw> --confusion-out`` on the run (one
+   centered K1 launch a test recording with windows; the confusion holding
+   every test sample the run maps, the build's sampling reproduced by the
+   same seeded generators) and the same call on 2 test recordings on the
+   card and with ``--device cpu``, the confusions equal.  K1's training
+   and centered records gain phase 14's launches.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -206,6 +224,7 @@ card it fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -238,6 +257,15 @@ CORPUS_SPECIES = 12
 EVAL_RECORDINGS = 12
 EVAL_SECONDS = 20.0
 CORPUS_EPOCHS, CORPUS_STEPS = 2, 4
+# phase 14's raw corpus: species, recordings a species, seconds a
+# recording, the two tracks' length; the builds' worker counts; the run
+BUILD_SPECIES = 8
+BUILD_RECORDINGS = 12
+BUILD_SECONDS = 20.0
+BUILD_TRACK_S = 8.0
+BUILD_WORKERS = (1, 4)
+BUILD_STEPS = 4
+BUILD_CPU_RECORDINGS = 2  # test recordings predicted on the CPU too
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
 # f32 logits of the kernel path vs the plain-featurizer path, relative to
@@ -1142,7 +1170,9 @@ def probe_phase(dev, card) -> list[dict]:
 
 def write_corpus(root: Path, cfg, species: list[str],
                  vectors: bool = False) -> dict:
-    """Phase 10's corpus, written by the port's own writer as the build
+    """Phase 10's corpus, written by a writer made here (phases 10-13 keep
+    it, so that their numbers stay comparable; phase 14 goes through the
+    port's real build, ``cli/build``, from audio and sidecars) as the build
     writes it: GZIP TFRecord shards of ``schema.encode_sample`` records
     under train/, validation/ and test/, and a ``training-meta.json`` with
     the labels, the counts and the FeaturizerConfig.  Clip i of a split is
@@ -2515,6 +2545,329 @@ def rest_of_training_phase(dev, cfg, card, fit_step_ms: float,
             for v, (ms, plain_ms, lib_ms, bound) in enumerate(k2_times)]
 
 
+@contextlib.contextmanager
+def seeded_default_rng(seed: int):
+    """``random`` seeded, and ``numpy.random.default_rng()`` without a seed
+    giving ``PCG64([seed, n])`` at its n-th call from entry on, so that a
+    build and a later ``--test-split`` on the same raw directory draw the
+    same samples (each recording's sampling generator is one such call, in
+    the order ``load_meta`` finds the sidecars).  Spawned processes (the
+    build's workers) draw their own."""
+    import itertools
+    import random
+
+    import numpy as np
+
+    real = np.random.default_rng
+    calls = itertools.count()
+    random.seed(seed)
+    np.random.default_rng = lambda s=None: real(
+        [seed, next(calls)] if s is None else s)
+    try:
+        yield
+    finally:
+        np.random.default_rng = real
+
+
+def write_raw_corpus(root: Path, sr: int, species: list[str]) -> list[str]:
+    """Phase 14's raw corpus in the layout of the JAX package's
+    tests/test_corpus.py (``write_rec`` with ``make_meta``): for each
+    species ``BUILD_RECORDINGS`` float32 WAVs of ``BUILD_SECONDS`` at
+    ``sr``, each beside its sidecar ``.txt`` with two tracks of
+    ``BUILD_TRACK_S``: the species' tone (bursts of 1.2 s every 2 s at a
+    log-spaced frequency, 200 Hz to 10 kHz) from 0.5-1.6 s, and broadband
+    noise (tagged ``noise``) from 11 s, over a noise floor, from a numpy
+    seed per recording.  No RMS metadata: the build runs with
+    ``--dont-tighten-tracks --dont-filter-rms``.  Written by threads.
+    Returns the recording ids."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from audio_training_tpu_torch.corpus import save_wav
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n = int(BUILD_SECONDS * sr)
+    t = np.arange(n) / sr
+    freqs = 200.0 * 50.0 ** (np.arange(len(species)) / (len(species) - 1))
+
+    def write(k: int, r: int) -> str:
+        rec_id = f"s{k}r{r:02d}"
+        rng = np.random.default_rng([SEED, 14, k, r])
+        audio = 0.05 * rng.standard_normal(n)
+        start = 0.5 + 0.1 * r
+        tone = (start <= t) & (t < start + BUILD_TRACK_S) & (t % 2 < 1.2)
+        audio += tone * 0.5 * np.sin(2 * np.pi * freqs[k] * t
+                                     + rng.uniform(0, 6.3))
+        noise = (11.0 <= t) & (t < 11.0 + BUILD_TRACK_S)
+        audio += noise * 0.3 * rng.standard_normal(n)
+        save_wav(root / f"{rec_id}.wav", audio.astype(np.float32), sr)
+        tracks = [(start, species[k]), (11.0, "noise")]
+        meta = {
+            "id": rec_id, "duration": BUILD_SECONDS,
+            "location": {"lat": -43.5 + 0.1 * k, "lng": 172.6}, "signal": [],
+            "Tracks": [{"id": f"t{rec_id}_{i}", "start": s0,
+                        "end": s0 + BUILD_TRACK_S,
+                        "tags": [{"what": what, "automatic": False}]}
+                       for i, (s0, what) in enumerate(tracks)],
+        }
+        (root / f"{rec_id}.txt").write_text(json.dumps(meta))
+        return rec_id
+
+    jobs = [(k, r) for k in range(len(species))
+            for r in range(BUILD_RECORDINGS)]
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda j: write(*j), jobs))
+
+
+def build_corpus_phase(dev, cfg, card, fit_step_ms: float) -> dict[str, int]:
+    """Phase 14: building a corpus.  A raw corpus of WAVs and sidecars,
+    the port's ``cli/build`` over it with 1 and with 4 worker processes
+    (timed; the written ``training-meta.json`` against the records the
+    port's ``RecordStream`` reads back), ``cli/train`` on the built corpus,
+    and ``cli/predict --test-split`` on the run (its confusion against the
+    build's test counts; the same call on ``BUILD_CPU_RECORDINGS`` test
+    recordings on the card and with ``--device cpu``, confusions equal).
+    Returns K1's launches on the path by kernel record."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audio_training_tpu_torch.cli import build as cli_build
+    from audio_training_tpu_torch.cli import predict as cli_predict
+    from audio_training_tpu_torch.cli import train as cli_train
+    from audio_training_tpu_torch.config import SamplingConfig
+    from audio_training_tpu_torch.corpus import AudioDataset, split_by_file
+    from audio_training_tpu_torch.data import (
+        RecordStream, find_shards, read_tfrecords)
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.ops.cuda import melspec
+    from audio_training_tpu_torch.taxonomy import load_ontology
+    from audio_training_tpu_torch.train import harness, load_metadata
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "chip_smoke_build"
+    species = list(load_ontology().bird_train_labels[:BUILD_SPECIES])
+    t0 = time.perf_counter()
+    rec_ids = write_raw_corpus(root / "raw", cfg.sr, species)
+    raw = root / "raw"
+    log(f"raw corpus: {len(rec_ids)} recordings of {BUILD_SECONDS:.0f} s at "
+        f"{cfg.sr} Hz with sidecars ({len(species)} species x "
+        f"{BUILD_RECORDINGS}, a {BUILD_TRACK_S:.0f} s species track and a "
+        f"{BUILD_TRACK_S:.0f} s noise track each, no RMS metadata) in "
+        f"{time.perf_counter() - t0:.2f} s: {species} + noise")
+
+    def reset() -> None:
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        melspec.reset_launch_counts()
+
+    def counts() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {**ffz.launch_counts(), **melspec.launch_counts()}
+
+    # ---- the build, with 1 and 4 workers ----------------------------------
+    # a worker process starts by importing the writer (and with it torch)
+    # in a fresh interpreter; each split's writer call is timed
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c",
+                    "import audio_training_tpu_torch.corpus.writer"],
+                   cwd=REPO, check=True)
+    log(f"time a fresh interpreter importing corpus/writer.py (a spawned "
+        f"build worker's start-up): {time.perf_counter() - t0:.2f} s {card}")
+    real_write = cli_build.create_tf_records
+    split_s: dict[str, float] = {}
+
+    def timed_write(ds, *args, **kwargs):
+        t0 = time.perf_counter()
+        n = real_write(ds, *args, **kwargs)
+        split_s[ds.name] = round(time.perf_counter() - t0, 2)
+        return n
+
+    metas = {}
+    for workers in BUILD_WORKERS:
+        out = root / f"workers{workers}"
+        shutil.rmtree(out, ignore_errors=True)
+        argv = [str(out), "-d", str(raw), "--dont-tighten-tracks",
+                "--dont-filter-rms", "--workers", str(workers)]
+        cli_build.create_tf_records = timed_write
+        try:
+            with seeded_default_rng(SEED):
+                t0 = time.perf_counter()
+                rc = cli_build.main(argv)
+                build_s = time.perf_counter() - t0
+        finally:
+            cli_build.create_tf_records = real_write
+        check(rc == 0, f"cli/build exited {rc}")
+        data = out / "training-data"
+        meta_bytes = (data / "training-meta.json").read_bytes()
+        metas[workers] = meta_bytes
+        meta = json.loads(meta_bytes)
+        # every record written, and RecordStream's read of them: it keeps
+        # the samples whose labels the run's label space trains on (noise
+        # is excluded), so its counts are the meta's over those labels
+        space, _, _ = harness.init_labels([data])
+        trained = {label for i, label in enumerate(space.source_labels)
+                   if space.remap[i] >= 0 or space.extra[i] >= 0}
+        written, read, want_written, want_read = {}, {}, {}, {}
+        for split, c in meta["counts"].items():
+            shards = find_shards(data, split)
+            written[split] = sum(1 for shard in shards
+                                 for _ in read_tfrecords(shard))
+            read[split] = sum(1 for _ in RecordStream(
+                shards, space, cfg.samples_per_clip, loop=False))
+            want_written[split] = sum(c["sample_counts"].values())
+            want_read[split] = sum(n for label, n in
+                                   c["sample_counts"].items()
+                                   if label in trained)
+        clips = sum(written.values())
+        nbytes = sum(p.stat().st_size for p in data.rglob("*.tfrecord"))
+        log(f"path cli/build {' '.join(argv[2:])} (defaults: {cfg.sr} Hz, "
+            f"n_fft {cfg.n_fft}, hop {cfg.hop_length}, {cfg.n_mels} mels, "
+            f"{cfg.segment_length:.0f} s segments, {cfg.segment_stride:.0f} s "
+            f"stride): {build_s:.2f} s wall with {workers} worker(s), "
+            f"{len(rec_ids) / build_s:.1f} recordings/s, {clips / build_s:.1f} "
+            f"clips/s; {clips} records ({nbytes / 1e6:.1f} MB in "
+            f"{len(list(data.rglob('*.tfrecord')))} GZIP shards); the "
+            f"writer's s by split {split_s} {card}")
+        log(f"check cli/build with {workers} worker(s): records {written} "
+            f"(training-meta.json's counts {want_written}); RecordStream "
+            f"reads {read} (the meta's counts of the trained labels "
+            f"{sorted(trained)}: {want_read}); labels {meta['labels']}")
+        check(written == want_written and read == want_read
+              and read["train"] > 0 and read["test"] > 0,
+              "training-meta.json's counts are not the records written")
+    check(metas[BUILD_WORKERS[0]] == metas[BUILD_WORKERS[-1]],
+          "the builds' training-meta.json differ between worker counts")
+    data = root / f"workers{BUILD_WORKERS[-1]}" / "training-data"
+    meta = json.loads(metas[BUILD_WORKERS[-1]])
+    sizes = read  # the samples the run streams, by split
+
+    # ---- cli/train on the built corpus -------------------------------------
+    stamps: list[float] = []
+    real_fit = harness.fit
+
+    def timed_fit(state, train_batches, *args, **kwargs):
+        def timed(epoch):
+            for batch in train_batches(epoch):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                yield batch
+        return real_fit(state, timed, *args, **kwargs)
+
+    ckpt = root / "runs"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run_dir = ckpt / "built-run"
+    argv = [run_dir.name, "-d", str(data), "--checkpoint-dir", str(ckpt),
+            "--model-name", "badwinner2", "--batch-size", str(TRAIN_BATCH),
+            "--epochs", "1", "--steps-per-epoch", str(BUILD_STEPS),
+            "--device", str(dev)]
+    harness.fit = timed_fit
+    try:
+        reset()
+        t0 = time.perf_counter()
+        rc = cli_train.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_counts = counts()
+    finally:
+        harness.fit = real_fit
+    check(rc == 0, f"cli/train exited {rc}")
+    want = {k: 0 for k in train_counts}
+    want["fused_featurizer_mel_bf16"] = BUILD_STEPS
+    want["fused_featurizer_mel"] = (math.ceil(sizes["validation"] / TRAIN_BATCH)
+                                    + math.ceil(sizes["test"] / TRAIN_BATCH))
+    hist = json.loads((run_dir / "history.json").read_text())
+    steps = np.diff(stamps)
+    step_ms = float(np.median(steps)) * 1e3 if len(steps) else float("nan")
+    log(f"path cli/train {' '.join(argv)} on the built corpus ({sizes} "
+        f"samples): {train_s:.2f} s; launches {train_counts} (want {want}: "
+        f"one bf16 launch a train step, one exact launch a validation and a "
+        f"test batch); loss {hist['loss']}, val loss {hist['val_loss']}")
+    check(train_counts == want, "phase 14's training launches are not the "
+          "path's")
+    check(all(np.isfinite(hist[k]).all() for k in ("loss", "val_loss")),
+          "non-finite losses on the built corpus")
+    log(f"time cli/train on the built corpus B={TRAIN_BATCH}: "
+        f"{step_ms:.3f} ms a step with the loader (median of "
+        f"{len(steps)} intervals), "
+        f"{TRAIN_BATCH / (step_ms / 1e3):.1f} samples/s (phase 6's step on "
+        f"an in-memory batch: {fit_step_ms:.3f} ms) {card}")
+
+    # ---- cli/predict --test-split on the run --------------------------------
+    run_meta = load_metadata(run_dir)
+    labels = run_meta.get("ebird_labels", run_meta["labels"])
+    remapped = run_meta.get("remapped_labels", {})
+
+    def mapped(label: str) -> bool:
+        return (remapped[label] != -1 if label in remapped
+                else label in labels)
+
+    with seeded_default_rng(SEED):
+        ds = AudioDataset("all", SamplingConfig(tighten_tracks=False,
+                                                filter_rms=False))
+        ds.load_meta(raw)
+    _, _, test = split_by_file(ds, meta)
+    windows = {rid: sum(1 for s in r.samples if s.tags and mapped(s.tags[0]))
+               for rid, r in test.recs.items()}
+    expected = sum(c for label, c in
+                   meta["counts"]["test"]["sample_counts"].items()
+                   if mapped(label))
+    split_file = data / "training-meta.json"
+
+    def test_split(device: str, split: Path, out: Path):
+        argv = [str(run_dir), "-w", "chkpt", "--test-split", str(split),
+                "--data-dir", str(raw), "--confusion-out", str(out),
+                "--device", device]
+        with seeded_default_rng(SEED):
+            t0 = time.perf_counter()
+            rc = cli_predict.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(rc == 0, f"cli/predict --test-split exited {rc}")
+        return np.load(out.with_suffix(".npy")), wall, argv
+
+    reset()
+    cm, wall, argv = test_split(str(dev), split_file, root / "cm" / "test")
+    split_counts = counts()
+    with_windows = sum(1 for n in windows.values() if n)
+    want = {k: 0 for k in split_counts}
+    want["fused_featurizer_mel_centered"] = with_windows
+    log(f"path cli/predict {' '.join(argv)}: {len(test.recs)} test "
+        f"recordings ({with_windows} with windows, {windows}), "
+        f"{wall:.2f} s wall ({wall / max(len(test.recs), 1):.3f} s a "
+        f"recording); confusion total {int(cm.sum())}, trace "
+        f"{int(np.trace(cm))} (want the total {expected}: the test samples "
+        f"whose label the run maps); launches {split_counts} (want {want}) "
+        f"{card}")
+    check(int(cm.sum()) == expected == sum(windows.values()),
+          "the test split's confusion does not hold every test sample")
+    check(split_counts == want, "--test-split's K1 launches are not one "
+          "centered launch a test recording with windows")
+
+    few = sorted(r for r, n in windows.items() if n)[:BUILD_CPU_RECORDINGS]
+    few_split = root / "few-test.json"
+    few_split.write_text(json.dumps({"recs": {"test": few}}))
+    cm_card, card_s, _ = test_split(str(dev), few_split, root / "cm" / "few")
+    cm_cpu, cpu_s, _ = test_split("cpu", few_split, root / "cm" / "few-cpu")
+    log(f"check --test-split on {few}: the card's confusion (total "
+        f"{int(cm_card.sum())}, {card_s:.2f} s) equals --device cpu's "
+        f"({cpu_s:.2f} s): {bool(np.array_equal(cm_card, cm_cpu))}")
+    check(np.array_equal(cm_card, cm_cpu) and cm_card.sum() > 0,
+          "--test-split's confusion on the card differs from the CPU's")
+    log(f"time phase 14: {time.perf_counter() - t_phase:.1f} s {card}")
+    return {"fused_featurizer_mel_bf16":
+            train_counts["fused_featurizer_mel_bf16"],
+            "fused_featurizer_mel": train_counts["fused_featurizer_mel"],
+            "fused_featurizer_mel_centered":
+            split_counts["fused_featurizer_mel_centered"]}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3584,6 +3937,13 @@ def main() -> None:
                 f"MobileNetV2 and EfficientNetV2-B3 chains' 3 requests each")
     # ---- 13. the rest of training -----------------------------------------
     kernels += rest_of_training_phase(dev, cfg, card, step_ms, train_peak_gb)
+    # ---- 14. building a corpus ----------------------------------------------
+    # its K1 launches join the records of the same kernels' other paths
+    for name, n in build_corpus_phase(dev, cfg, card, step_ms).items():
+        record = next(k for k in kernels if k["name"] == name)
+        record["launches"] += n
+        log(f"record {name}: {record['launches']} launches with phase 14's "
+            f"{n}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,7 +8,8 @@ geometry of tests/test_infer.py::test_predictor_end_to_end, so the JAX
 Predictor runs K2 in interpret mode).  Tracks must match exactly; labels
 and tags exactly; confidences, rounded percentages of probabilities that
 agree to 1e-4, to within 1.  Each flag of the JAX CLI that the port leaves
-out must exit 2 with its reason.  A MobileNetV2 run
+out must exit 2 with its reason.  ``--test-split`` (``predict_on_test``)
+gives JAX's confusion on a pinned test split.  A MobileNetV2 run
 (PCEN frontend, 3 channels) loads through both packages' ``load_predictor``
 (the JAX side from an orbax checkpoint of the same Flax variables) and its
 per-track mean probabilities agree to 1e-4 of max |p|, the f32 tolerance of
@@ -40,6 +41,7 @@ from audio_training_tpu_torch.train.checkpoints import (
 
 from test_torch_backbones import flax_classifier
 from test_torch_badwinner2 import flax_variables
+from test_torch_corpus import fixed_randomness
 
 torch.set_num_threads(2)
 
@@ -131,10 +133,77 @@ def test_dir_with_thresholds_json_matches_jax(run, tmp_path):
         _assert_tracks_match(got[str(path)], _jax_tracks(run, path, vector))
 
 
+@pytest.fixture(scope="module")
+def test_split(run, tmp_path_factory):
+    """(raw corpus dir, pinned split file, JAX ``predict_on_test``'s
+    confusion and labels): four 8 s recordings with sidecars, tagged kiwi,
+    morepork (morepo2), tui (tui1, not among the run's labels) and kiwi,
+    all in the test split; JAX's Predictor on the run's Flax variables,
+    under the fixed randomness of tests/test_torch_corpus.py."""
+    from audio_training_tpu.infer.folder import predict_on_test
+
+    _, module, v, _ = run
+    raw = tmp_path_factory.mktemp("test_split_raw")
+    ids = []
+    for i, (what, freq) in enumerate((("kiwi", 1500), ("morepork", 2200),
+                                      ("tui", 900), ("kiwi", 1500))):
+        ids.append(f"rec{i}")
+        wavfile.write(raw / f"rec{i}.wav", SR, _recording(10 + i, freq))
+        (raw / f"rec{i}.txt").write_text(json.dumps({
+            "id": f"rec{i}", "duration": 8.0,
+            "Tracks": [{"id": f"t{i}", "start": 0.5, "end": 6.5,
+                        "tags": [{"what": what, "automatic": False}]}]}))
+    split = raw.parent / "split.json"
+    split.write_text(json.dumps({"recs": {"train": [], "validation": [],
+                                          "test": ids}}))
+    pred = JaxPredictor(module, v, LABELS, JaxConfig(**CFG),
+                        JaxInferenceConfig())
+    with fixed_randomness(0):
+        cm, labels = predict_on_test(pred, split, raw)
+    return raw, split, cm, labels
+
+
+def test_predict_on_test_matches_jax(run, test_split):
+    """``predict_on_test`` of the port against JAX's on the CPU, the
+    weights carried across by ``models/convert``: equal confusions (argmax
+    against the sample's label) and labels."""
+    from audio_training_tpu_torch.infer.folder import predict_on_test
+
+    raw, split, want_cm, want_labels = test_split
+    pred, _ = predict.load_predictor(run[0], "val-loss", device="cpu")
+    with fixed_randomness(0):
+        cm, labels = predict_on_test(pred, split, raw)
+    assert labels == want_labels == LABELS
+    np.testing.assert_array_equal(cm, want_cm)
+    assert cm.sum() >= 6  # every kiwi / morepo2 sample, no tui1 one
+
+
+@pytest.mark.parametrize("case", ["no_data_dir", "default_out",
+                                  "confusion_out"])
+def test_test_split_flags(run, test_split, tmp_path, monkeypatch, case):
+    """``--test-split`` without ``--data-dir`` fails as JAX's CLI does
+    (``cli/predict.py:221``, exit 1); with it the confusion is written to
+    ``--confusion-out`` (default ``./confusions/test-split``) and equals
+    JAX's ``predict_on_test``."""
+    raw, split, want_cm, _ = test_split
+    monkeypatch.chdir(tmp_path)
+    argv = [str(run[0]), "--test-split", str(split), "--device", "cpu"]
+    if case == "no_data_dir":
+        assert predict.main(argv) == 1
+        assert not (tmp_path / "confusions").exists()
+        return
+    argv += ["--data-dir", str(raw)]
+    out = tmp_path / "confusions" / "test-split.npy"
+    if case == "confusion_out":
+        out = tmp_path / "cm" / "split"
+        argv += ["--confusion-out", str(out)]
+        out = out.with_suffix(".npy")
+    with fixed_randomness(0):
+        assert predict.main(argv) == 0
+    np.testing.assert_array_equal(np.load(out), want_cm)
+
+
 @pytest.mark.parametrize("flags,reason", [
-    (["--test-split", "s"], "Host corpus tooling"),
-    (["--data-dir", "d"], "Host corpus tooling"),
-    (["--confusion-out", "c"], "Host corpus tooling"),
     (["--embedding-model", "m"], "TensorFlow saved model"),
     (["--embedding-kind", "yamnet"], "TensorFlow saved model"),
     (["--yamnet-model", "m"], "TensorFlow saved model"),

@@ -40,6 +40,8 @@ from audio_training_tpu_torch.infer import ebirdgrid, format_metadata
 from audio_training_tpu_torch.ops.denoise import spectral_gate
 from audio_training_tpu_torch.ops.stft import istft_centered
 
+from test_torch_corpus import fixed_randomness, rec_view
+
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -362,7 +364,8 @@ def _sidecar():
 def test_recording_tracks_match_jax(tighten, filter_rms):
     """Tags, eBird ids, relabeling, the frequency band from positions, the
     filters and the RMS tightening read as JAX's ``Recording`` reads them
-    (``load_samples=False``, the strong evaluation's reader)."""
+    (``load_samples=False``, the strong evaluation's reader); with
+    ``load_samples=True`` the samples too."""
     from audio_training_tpu.config import SamplingConfig as JaxSampling
 
     meta = _sidecar()
@@ -382,8 +385,13 @@ def test_recording_tracks_match_jax(tighten, filter_rms):
             k: getattr(w, k) for k in keys}
     if tighten:
         assert got.tracks[1].start != 2.0  # moved to the best 3 s
-    with pytest.raises(NotImplementedError, match="Host corpus tooling"):
-        Recording(meta, "r.wav", None)
+    # with its samples (load_samples=True), under the same fixed randomness
+    with fixed_randomness(0):
+        got = Recording(meta, "r.wav", None)
+    with fixed_randomness(0):
+        want = JaxRecording(meta, "r.wav", None)
+    assert rec_view(got) == rec_view(want)
+    assert got.samples
 
 
 def test_span_helpers_match_jax():

@@ -1038,3 +1038,60 @@ def test_dual_preprocess_on_the_card_matches_the_cpu():
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert _rel(g.cpu(), w) < MEL_REL
+
+
+@pytest.mark.gpu
+def test_predict_on_test_on_the_card_matches_the_cpu(tmp_path,
+                                                     monkeypatch):
+    """``predict_on_test`` of one run (seeded badwinner2 weights, the
+    production geometry) on a pinned test split of three 8 s recordings:
+    the card's confusion (centered K1, one launch a recording) equals the
+    CPU's, each side under the same fixed sampling randomness."""
+    import json
+
+    from scipy.io import wavfile
+
+    from audio_training_tpu_torch.cli.predict import load_predictor
+    from audio_training_tpu_torch.infer.folder import predict_on_test
+    from audio_training_tpu_torch.train.checkpoints import save_state_dict
+
+    dev = _card()
+    cfg = FeaturizerConfig()
+    labels = ["kiwi", "morepo2", "tui1", "noise"]
+    run = tmp_path / "run"
+    model = build_model("badwinner2", len(labels), logits_only=True,
+                        n_mels=cfg.n_mels,
+                        generator=torch.Generator().manual_seed(3)).module
+    save_state_dict(run / "val-loss.pt", model.state_dict())
+    (run / "metadata.txt").write_text(json.dumps({
+        "name": "badwinner2", "labels": labels, "multi_label": True}))
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    rng = np.random.default_rng(4)
+    t = np.arange(8 * cfg.sr) / cfg.sr
+    for i, (what, freq) in enumerate((("kiwi", 1800), ("morepork", 900),
+                                      ("tui", 3000))):
+        audio = (np.sin(2 * np.pi * freq * t) * (t % 2 < 1.0)
+                 + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        wavfile.write(raw / f"r{i}.wav", cfg.sr, audio)
+        (raw / f"r{i}.txt").write_text(json.dumps({
+            "id": f"r{i}", "duration": 8.0,
+            "Tracks": [{"id": i, "start": 0.5, "end": 7.0,
+                        "tags": [{"what": what, "automatic": False}]}]}))
+    split = tmp_path / "split.json"
+    split.write_text(json.dumps({"recs": {"test": ["r0", "r1", "r2"]}}))
+
+    real = np.random.default_rng
+    monkeypatch.setattr(np.random, "default_rng", lambda seed=None: real(
+        0 if seed is None else seed))
+    cms = {}
+    for device in ("cuda", "cpu"):
+        pred, _ = load_predictor(run, "val-loss", device=device)
+        ffz.reset_launch_counts()
+        cms[device], got_labels = predict_on_test(pred, split, raw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert ffz.launch_counts()["fused_featurizer_mel_centered"] == 3
+    assert got_labels == labels
+    assert cms["cuda"].sum() > 0
+    np.testing.assert_array_equal(cms["cuda"], cms["cpu"])

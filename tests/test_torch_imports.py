@@ -57,7 +57,9 @@ def test_port_modules_import_without_jax():
                  "infer.ebirdgrid", "infer.folder", "cli.evaluate",
                  "cli.freeze", "cli.ebirdgrid", "models.badwinner",
                  "models.wr_resnet", "models.wr_resnet_bird",
-                 "models.resnet", "models.layers", "data.embeddings"):
+                 "models.resnet", "models.layers", "data.embeddings",
+                 "corpus.split", "corpus.writer", "corpus.features",
+                 "corpus.signal_data", "cli.build"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
     leaked = [m for m in result["modules"]
               if _forbidden(m) or m.split(".")[0] in ABSENT]

@@ -6,7 +6,9 @@ on the specific-species rows, every populated row's maximum on the
 diagonal.  The trained run is then frozen by the port's ``cli/freeze`` and
 its deployment scored on fresh clips by the port's ``evaluate_strong_dir``
 against the bar of ``tests/test_quality_gate.py:150-190`` (0.8 on the
-species rows).  Slow (outside tier-1): a full small training.
+species rows).  A second run builds the same corpus with the port's own
+``cli/build`` and must clear the same training bars.  Slow (outside
+tier-1): two full small trainings.
 """
 
 import json
@@ -32,12 +34,7 @@ pytestmark = pytest.mark.slow
 torch.set_num_threads(4)
 
 
-@pytest.fixture(scope="module")
-def gate_run(tmp_path_factory):
-    """JAX build CLI -> the port's training, as the JAX gate's fixture
-    (tests/test_quality_gate.py:75-117) with the port's train_run."""
-    from audio_training_tpu.cli.build import main as build_main
-
+def _build_and_train(build_main, tmp_path_factory):
     corpus = tmp_path_factory.mktemp("gate_corpus")
     out = tmp_path_factory.mktemp("gate_out")
     _write_corpus(corpus)
@@ -64,6 +61,24 @@ def gate_run(tmp_path_factory):
         checkpoint_root=tmp_path_factory.mktemp("gate_ckpt"),
         train_cfg=cfg, featurizer=featurizer, epochs=8, device="cpu",
     )
+
+
+@pytest.fixture(scope="module")
+def gate_run(tmp_path_factory):
+    """JAX build CLI -> the port's training, as the JAX gate's fixture
+    (tests/test_quality_gate.py:75-117) with the port's train_run."""
+    from audio_training_tpu.cli.build import main as build_main
+
+    return _build_and_train(build_main, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def port_gate_run(tmp_path_factory):
+    """The same corpus built by the port's ``cli/build``, then the port's
+    training."""
+    from audio_training_tpu_torch.cli.build import main as build_main
+
+    return _build_and_train(build_main, tmp_path_factory)
 
 
 def test_training_quality_bar(gate_run):
@@ -124,3 +139,10 @@ def test_strong_eval_deployment_quality(gate_run, tmp_path):
     sp_total = cm[idx].sum()
     assert sp_total >= len(LABELS) * 2  # every track evaluated
     assert sum(cm[i, i] for i in idx) / sp_total >= 0.8, (res.labels, cm)
+
+
+def test_port_build_training_quality(port_gate_run):
+    """The port's ``cli/build`` -> ``train_run`` clears the bars of the two
+    tests above."""
+    test_training_quality_bar(port_gate_run)
+    test_test_split_confusion_quality(port_gate_run)
