@@ -121,7 +121,14 @@ def _connected_components(mask: np.ndarray) -> list[tuple]:
     return sorted(stats, key=lambda s: (s[0], s[1]))
 
 
-def signal_noise(frames: np.ndarray, sr: int):
+def signal_noise(
+    frames: np.ndarray,
+    sr: int,
+    hop_length: int = DETECT_HOP,
+    n_fft: int = 1024,
+    min_width: float | None = None,
+    min_height: float | None = None,
+):
     """Detect candidate signal boxes in a recording
     (identifytracks.signal_noise, identifytracks.py:51-143).
 
@@ -129,9 +136,12 @@ def signal_noise(frames: np.ndarray, sr: int):
     median; then open(4,4), dilate(height x width), erode(height//10 x width)
     with width = 0.25 s of frames and height = the ~100 Hz bin count.
     Returns (signals, magnitude spectrogram).
+
+    The reference's quirks are kept: ``n_fft`` is overridden to 2048, and
+    ``hop_length`` feeds the STFT while the boxes' times are still counted
+    in ``DETECT_HOP`` frames.
     """
-    hop_length = DETECT_HOP
-    n_fft = 2048  # fixed, as in identifytracks.py:55
+    n_fft = 2048  # hard override, identifytracks.py:55
     mag = _host_stft_mag(frames, n_fft, hop_length)
     freqs = np.linspace(0, sr / 2, 1 + n_fft // 2)
 
@@ -164,8 +174,10 @@ def signal_noise(frames: np.ndarray, sr: int):
     signal = (_erode(signal, erode_h, width) if erode_h > 0
               else _erode(signal, 3, 3))
 
-    min_height = height - height // 10
-    min_width = 0.65 * width
+    if min_height is None:
+        min_height = height - height // 10
+    if min_width is None:
+        min_width = 0.65 * width
     stats = [s for s in _connected_components(signal)
              if s[2] > min_width and s[3] > min_height]
 
@@ -361,11 +373,17 @@ def merge_signals(signals: list[Signal]) -> tuple[list[Signal], bool]:
     return signals, something_merged
 
 
-def get_tracks_from_signals(signals: list[Signal], end: float) -> list[Signal]:
+def get_tracks_from_signals(signals: list[Signal], end: float,
+                            filter_short: bool = True) -> list[Signal]:
     """Signals -> tracks (identifytracks.get_tracks_from_signals,
     identifytracks.py:236-301): merge to fixed point, drop <0.35 s, enlarge
     1.4x (min 0.7 s), re-merge heavy overlaps, drop <50 mel range, split
-    tracks longer than 6 s."""
+    tracks longer than 6 s.
+
+    ``filter_short=False`` keeps sub-0.35 s signals — the weak-label
+    best-track scorer wants them (otherdata.py:1486 calls with
+    ``filter_short=False``; the reference's live identifytracks signature
+    lost the parameter and would TypeError, restored here)."""
     max_length = 6
     min_mel_range = 50
     merged = True
@@ -379,7 +397,7 @@ def get_tracks_from_signals(signals: list[Signal], end: float) -> list[Signal]:
     for s in signals:
         if s in to_delete:
             continue
-        if s.length < min_length_base:
+        if filter_short and s.length < min_length_base:
             to_delete.append(s)
             continue
         s.enlarge(1.4, min_track_length=min_track_length)
@@ -413,3 +431,46 @@ def get_tracks_from_signals(signals: list[Signal], end: float) -> list[Signal]:
             final.append(s)
     return final
 
+
+def merge_again(tracks: list[Signal]) -> list[Signal]:
+    """Second-pass greedy track merge used by the weak-label corpus track
+    generator (otherdata.merge_again, otherdata.py:193-229).
+
+    Order-sensitive behavioral port, including the reference's quirks: when
+    the current track is mostly (>50%) covered by the newcomer it is
+    REPLACED in the output; a >50% time overlap (of the newcomer) or any
+    time overlap with >50% mel-frequency overlap extends the current track
+    end only in the frequency-overlap case.
+
+    One documented fix: the reference's trailing ``if overlap <= 0`` block
+    re-appends a newcomer its ``else`` branch already appended (overlap<=0
+    implies both percent tests were false), so every gap-separated track
+    appears TWICE in its output — the duplicate append is removed here.
+    """
+    post_filter: list[Signal] = []
+    current = None
+    for t in sorted(tracks, key=lambda track: track.start):
+        if current is None:
+            current = t
+            post_filter.append(current)
+            continue
+        overlap = current.time_overlap(t)
+        pct = overlap / t.length if t.length else 0.0
+        pct2 = overlap / current.length if current.length else 0.0
+        f_overlap = current.mel_freq_overlap(t)
+        f_pct = f_overlap / t.mel_freq_range if t.mel_freq_range else 0.0
+
+        if pct2 > 0.5:
+            post_filter = post_filter[:-1]
+            post_filter.append(t)
+            current = t
+        elif pct > 0.5 or (pct > 0 and f_pct > 0.5):
+            if f_pct > 0.5:
+                current.end = max(current.end, t.end)
+        else:
+            # also covers overlap <= 0 (both percent tests are then false);
+            # the reference's extra `if overlap <= 0` block after this
+            # appended the same newcomer a SECOND time — dropped here
+            current = t
+            post_filter.append(current)
+    return post_filter

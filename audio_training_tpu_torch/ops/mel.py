@@ -79,6 +79,32 @@ def mel_filterbank(
     return weights
 
 
+# Backwards-compatible alias matching the reference public name
+# (custommel.mel_f, custommel.py:18)
+mel_f = mel_filterbank
+
+
+def mel_spec(
+    stft,
+    sr: float,
+    n_fft: int,
+    hop_length: int,
+    n_mels: int,
+    fmin: float,
+    fmax: float,
+    break_freq: float = 1750.0,
+    power: int = 2,
+) -> np.ndarray:
+    """Host (numpy) mel spectrogram from a complex STFT (custommel.py:57-61).
+
+    ``stft`` is ``(freq_bins, frames)`` complex; output ``(n_mels, frames)``.
+    The on-device equivalent lives in :mod:`audio_training_tpu_torch.ops.features`.
+    """
+    magnitude = np.abs(stft) ** power
+    mels = mel_filterbank(sr, n_mels, fmin, fmax, n_fft, break_freq)
+    return mels.dot(magnitude)
+
+
 def band_tables(mel_weights) -> tuple[np.ndarray, ...]:
     """Each filter's contiguous band ``[start, start + length)`` of bins,
     from its first to its last non-zero weight, for the kernels that walk

@@ -215,6 +215,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    same seeded generators) and the same call on 2 test recordings on the
    card and with ``--device cpu``, the confusions equal.  K1's training
    and centered records gain phase 14's launches.
+15. preparing a corpus: phase 14's raw corpus enriched in place by
+   ``cli/ingest --signal --rms --tracks`` in its own interpreter, with one
+   worker on the first 16 recordings and then with 4 on all 96 at the same
+   path (each timed; a worker's start-up timed and checked torch-free;
+   every sidecar with signal spans and a best track, every track with its
+   three RMS arrays, the 16 sidecars byte-identical between the runs);
+   ``--gen-tracks`` on 8 copies whose sidecars carry a ``label`` and no
+   tracks (each gains tagged tracks); ``cli/build`` at its defaults
+   (tracks tightened and filtered by RMS; records against
+   ``training-meta.json`` and ``RecordStream``); ``cli/debug`` of the
+   build on the card (one exact tf launch a batch, no NaN or constant
+   sample; its check on 2 batches equal to ``--device cpu``'s);
+   ``cli/augment`` of the build (every mixed record read back);
+   ``utils/profiling`` around 3 requests of phase 4's chain (a trace that
+   left out a launch taken again, at most twice; every launch recorded,
+   ``mel_power_kernel`` in the summary within 25% of phase 5's time, the
+   condense conv's kernels in the layer map, ``time_fn`` within 10% of
+   phase 5's chain, the memory peak).  K1's exact tf record gains
+   ``cli/debug``'s launches.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -266,6 +285,16 @@ BUILD_TRACK_S = 8.0
 BUILD_WORKERS = (1, 4)
 BUILD_STEPS = 4
 BUILD_CPU_RECORDINGS = 2  # test recordings predicted on the CPU too
+# phase 15: enrichment's worker counts and the recordings of its 1-worker
+# run, the untracked copies for --gen-tracks, cli/debug's most batches and
+# the CPU comparison's, and the profile's limits against phase 5's times
+TOOLS_WORKERS = 4
+TOOLS_ONE_WORKER_RECORDINGS = 16
+GEN_TRACKS_RECORDINGS = 8
+DEBUG_BATCHES = 16
+DEBUG_CPU_BATCHES = 2
+PROFILE_KERNEL_REL = 0.25
+PROFILE_CHAIN_REL = 0.10
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
 # f32 logits of the kernel path vs the plain-featurizer path, relative to
@@ -2868,6 +2897,326 @@ def build_corpus_phase(dev, cfg, card, fit_step_ms: float) -> dict[str, int]:
             split_counts["fused_featurizer_mel_centered"]}
 
 
+def ingest(argv: list[str]) -> float:
+    """``cli/ingest`` as a user runs it, in its own interpreter (its
+    spawned workers then re-import the CLI, not this script); wall s."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "audio_training_tpu_torch.cli.ingest",
+                    *argv], cwd=REPO, check=True)
+    return time.perf_counter() - t0
+
+
+def corpus_tools_phase(dev, cfg, card, model, chain, requests,
+                       mel_ms: float, chain_ms: float) -> int:
+    """Phase 15: preparing a corpus.  Phase 14's raw corpus enriched by
+    ``cli/ingest --signal --rms --tracks`` (``TOOLS_WORKERS`` workers on all
+    of it, one on its first ``TOOLS_ONE_WORKER_RECORDINGS``, at one path so
+    that the sidecars compare byte for byte), ``--gen-tracks`` on untracked
+    copies, ``cli/build`` at its defaults (tracks tightened and filtered by
+    RMS), ``cli/debug`` of the build on the card (K1's exact tf tier, one
+    launch a batch; the check equal to ``--device cpu``'s), ``cli/augment``
+    of the build, and ``utils/profiling`` around phase 4's chain against
+    phase 5's times.  Returns cli/debug's K1 launches."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from audio_training_tpu_torch.cli import augment as cli_augment
+    from audio_training_tpu_torch.cli import build as cli_build
+    from audio_training_tpu_torch.cli import debug as cli_debug
+    from audio_training_tpu_torch.config import FeaturizerConfig
+    from audio_training_tpu_torch.data import (
+        RecordStream, find_shards, load_meta, read_tfrecords)
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.taxonomy import load_ontology
+    from audio_training_tpu_torch.taxonomy.labels import build_label_space
+    from audio_training_tpu_torch.train import harness
+    from audio_training_tpu_torch.utils import profiling
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    src = REPO / "build" / "chip_smoke_build" / "raw"
+    root = REPO / "build" / "chip_smoke_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    raw = root / "raw"
+    stems = sorted(p.stem for p in src.glob("*.wav"))
+
+    def copy_raw(dst: Path, names: list[str], keep_tracks: bool = True):
+        """Copies of phase 14's WAVs and sidecars, without its empty
+        ``signal`` list (enrichment adds none to a sidecar that has one)."""
+        shutil.rmtree(dst, ignore_errors=True)
+        dst.mkdir(parents=True)
+        for name in names:
+            shutil.copyfile(src / f"{name}.wav", dst / f"{name}.wav")
+            meta = json.loads((src / f"{name}.txt").read_text())
+            meta.pop("signal")
+            if not keep_tracks:
+                meta["label"] = meta.pop("Tracks")[0]["tags"][0]["what"]
+            (dst / f"{name}.txt").write_text(json.dumps(meta))
+
+    # ---- 1. enrichment, with 1 and with TOOLS_WORKERS workers -------------
+    t0 = time.perf_counter()
+    probe = subprocess.run(
+        [sys.executable, "-c", "import sys, audio_training_tpu_torch.corpus"
+         ".enrich; print('torch' in sys.modules)"],
+        cwd=REPO, check=True, capture_output=True, text=True)
+    startup_s = time.perf_counter() - t0
+    worker_torch = probe.stdout.strip()
+    log(f"time a fresh interpreter importing corpus/enrich.py (an "
+        f"enrichment worker's start-up, spawned): {startup_s:.2f} s, torch "
+        f"imported: {worker_torch} {card}")
+    check(worker_torch == "False", "an enrichment worker imports torch")
+    flags = ["--signal", "--rms", "--tracks"]
+    first = stems[:TOOLS_ONE_WORKER_RECORDINGS]
+    copy_raw(raw, first)
+    one_s = ingest(["-d", str(raw), *flags, "--workers", "1"])
+    one = {n: (raw / f"{n}.txt").read_bytes() for n in first}
+    copy_raw(raw, stems)
+    many_s = ingest(["-d", str(raw), *flags,
+                     "--workers", str(TOOLS_WORKERS)])
+    metas = {n: json.loads((raw / f"{n}.txt").read_text()) for n in stems}
+    same = sum((raw / f"{n}.txt").read_bytes() == one[n] for n in first)
+    n_signals = sum(len(m["signal"]) for m in metas.values())
+    tracks = [t for m in metas.values() for t in m["Tracks"]]
+    enriched = all("signal" in m and "best_track" in m
+                   for m in metas.values()) and all(
+        {"upper_rms", "noise_rms", "bird_rms"} <= t.keys() for t in tracks)
+    for workers, n, wall in ((1, len(first), one_s),
+                             (TOOLS_WORKERS, len(stems), many_s)):
+        log(f"path cli/ingest -d <raw> {' '.join(flags)} --workers "
+            f"{workers}: {n} recordings in {wall:.2f} s wall (its own "
+            f"interpreter), {n / wall:.2f} recordings/s {card}")
+    log(f"check enrichment: {len(stems)} sidecars with signal spans "
+        f"({n_signals} in all) and a best_track, {len(tracks)} tracks with "
+        f"upper / noise / bird RMS arrays: {enriched}; the first "
+        f"{len(first)} sidecars byte-identical at 1 and {TOOLS_WORKERS} "
+        f"workers: {same} of {len(first)}")
+    check(enriched and n_signals > 0, "enrichment left a sidecar without "
+          "signal spans or a track without RMS arrays")
+    check(same == len(first), "the sidecars differ between worker counts")
+    # one process's s a recording by stage, on the first 4 recordings
+    from audio_training_tpu_torch.corpus import enrich
+    from audio_training_tpu_torch.corpus.audioio import load_recording
+    from audio_training_tpu_torch.detect.signals import (
+        DETECT_HOP, _host_stft_mag, signal_noise)
+
+    stages = dict.fromkeys(("decode", "band RMS", "detection STFT",
+                            "detection", "best track"), 0.0)
+    for name in first[:4]:
+        t0 = time.perf_counter()
+        y, sr = load_recording(src / f"{name}.wav", target_sr=cfg.sr)
+        t1 = time.perf_counter()
+        enrich.add_rms_data_to_tracks(
+            y, sr, json.loads((src / f"{name}.txt").read_text())["Tracks"])
+        t2 = time.perf_counter()
+        _host_stft_mag(y, 2048, DETECT_HOP)
+        t3 = time.perf_counter()
+        signal_noise(y, sr)
+        t4 = time.perf_counter()
+        enrich.generate_best_track(raw / f"{name}.txt")
+        t5 = time.perf_counter()
+        for stage, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                      t5 - t4)):
+            stages[stage] += dt / 4
+    log(f"time enrichment by stage, one process, s a recording (detection "
+        f"holds its STFT): { {k: round(v, 3) for k, v in stages.items()} } "
+        f"{card}")
+
+    # ---- 2. --gen-tracks on untracked copies -------------------------------
+    untracked = root / "untracked"
+    copy_raw(untracked, stems[::len(stems) // GEN_TRACKS_RECORDINGS]
+             [:GEN_TRACKS_RECORDINGS], keep_tracks=False)
+    gen_s = ingest(["-d", str(untracked), "--gen-tracks"])
+    generated = {p.stem: json.loads(p.read_text()).get("Tracks", [])
+                 for p in sorted(untracked.glob("*.txt"))}
+    labelled = all(t["tags"] and t["tags"][0]["what"]
+                   for ts in generated.values() for t in ts)
+    log(f"path cli/ingest -d <untracked> --gen-tracks: "
+        f"{len(generated)} recordings in {gen_s:.2f} s wall; tracks "
+        f"{ {k: len(v) for k, v in generated.items()} }, each tagged with "
+        f"its sidecar's label: {labelled} {card}")
+    check(len(generated) == GEN_TRACKS_RECORDINGS
+          and all(generated.values()) and labelled,
+          "--gen-tracks left a recording without tracks")
+
+    # ---- 3. cli/build at its defaults ---------------------------------------
+    out = root / "build"
+    argv = [str(out), "-d", str(raw), "--workers", "1"]
+    with seeded_default_rng(SEED):
+        t0 = time.perf_counter()
+        rc = cli_build.main(argv)
+        build_s = time.perf_counter() - t0
+    check(rc == 0, f"cli/build exited {rc}")
+    data = out / "training-data"
+    meta = load_meta(data)
+    space, _, _ = harness.init_labels([data])
+    trained = {label for i, label in enumerate(space.source_labels)
+               if space.remap[i] >= 0 or space.extra[i] >= 0}
+    written, read, want_read = {}, {}, {}
+    for split, c in meta["counts"].items():
+        shards = find_shards(data, split)
+        written[split] = sum(1 for shard in shards
+                             for _ in read_tfrecords(shard))
+        read[split] = sum(1 for _ in RecordStream(
+            shards, space, cfg.samples_per_clip, loop=False))
+        want_read[split] = sum(n for label, n in c["sample_counts"].items()
+                               if label in trained)
+    want_written = {split: sum(c["sample_counts"].values())
+                    for split, c in meta["counts"].items()}
+    untight = load_meta(REPO / "build" / "chip_smoke_build" / "workers1"
+                        / "training-data")["counts"]
+    untight = {split: sum(c["sample_counts"].values())
+               for split, c in untight.items()}
+    clips = sum(written.values())
+    log(f"path cli/build {' '.join(argv[2:])} (the defaults: tracks "
+        f"tightened and filtered by RMS) on the enriched corpus: "
+        f"{build_s:.2f} s wall, {len(stems) / build_s:.1f} recordings/s, "
+        f"{clips / build_s:.1f} clips/s; records by split {written} "
+        f"(phase 14's untightened build: {untight}) {card}")
+    log(f"check the default build: records {written} (training-meta.json's "
+        f"counts {want_written}); RecordStream reads {read} (want "
+        f"{want_read})")
+    check(written == want_written and read == want_read
+          and read["train"] > 0 and read["validation"] > 0,
+          "the default build's records are not training-meta.json's")
+
+    # ---- 4. cli/debug of the build on the card -----------------------------
+    debug_cfg = FeaturizerConfig()
+    debug_space = build_label_space(
+        load_ontology(), sorted(set(meta["labels"]) | {"bird"}))
+    debug_samples = sum(1 for _ in RecordStream(
+        find_shards(data, "train"), debug_space, debug_cfg.samples_per_clip,
+        loop=False))
+    n_batches = min(DEBUG_BATCHES, debug_samples // 8)
+    check(n_batches >= DEBUG_CPU_BATCHES, "the build's train split holds "
+          "too few batches for cli/debug")
+    def run_debug(batches: int, device: str):
+        """``cli/debug``'s run (its exit code is 0 when the check is ok);
+        the check's counts, launches, wall s."""
+        argv = [str(data), "--batches", str(batches), "--device", device]
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cli_debug.debug_pipeline(cli_debug.parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rc = 0 if res.ok else 1
+        res = {k: getattr(res, k) for k in (
+            "checked", "nan_count", "out_of_range", "constant",
+            "label_counts")}
+        return rc, res, ffz.launch_counts(), wall, argv
+
+    rc, res, counts, wall, argv = run_debug(n_batches, str(dev))
+    debug_launches = counts["fused_featurizer_mel"]
+    want = {k: 0 for k in counts}
+    want["fused_featurizer_mel"] = n_batches
+    log(f"path cli/debug {' '.join(argv[1:])} (train split, "
+        f"{debug_samples} samples at B=8): exit {rc}, {res}; launches "
+        f"{counts} (want {want}: one exact tf launch a batch); {wall:.2f} s "
+        f"wall, {n_batches / wall:.2f} batches/s {card}")
+    check(rc == 0 and res["nan_count"] == 0 and res["constant"] == 0
+          and res["checked"] == 8 * n_batches,
+          "cli/debug found NaN or constant samples in the default build")
+    check(counts == want, "cli/debug's launches are not one exact tf launch "
+          "a batch")
+    _, card_res, _, _, _ = run_debug(DEBUG_CPU_BATCHES, str(dev))
+    _, cpu_res, cpu_counts, cpu_s, _ = run_debug(DEBUG_CPU_BATCHES, "cpu")
+    log(f"check cli/debug --batches {DEBUG_CPU_BATCHES}: the card's check "
+        f"{card_res} equals --device cpu's ({cpu_s:.2f} s, launches "
+        f"{sum(cpu_counts.values())}): {card_res == cpu_res}")
+    check(card_res == cpu_res and sum(cpu_counts.values()) == 0,
+          "cli/debug on the card differs from --device cpu")
+
+    # ---- 5. cli/augment of the build ---------------------------------------
+    mixed = root / "mixed"
+    t0 = time.perf_counter()
+    rc = cli_augment.main([str(data), str(mixed)])
+    augment_s = time.perf_counter() - t0
+    check(rc == 0, f"cli/augment exited {rc}")
+    mixed_shards = find_shards(mixed)
+    n_mixed = sum(1 for shard in mixed_shards for _ in read_tfrecords(shard))
+    streamed = sum(1 for _ in RecordStream(
+        mixed_shards, space, cfg.samples_per_clip, loop=False,
+        keep_unlabeled=True))
+    log(f"path cli/augment <build> <out>: {n_mixed} mixed records in "
+        f"{len(mixed_shards)} shards from {written['train']} train records, "
+        f"{augment_s:.2f} s wall, {n_mixed / augment_s:.1f} records/s; "
+        f"RecordStream reads {streamed} {card}")
+    check(n_mixed > 0 and streamed == n_mixed,
+          "the port's RecordStream does not read every mixed record")
+
+    # ---- 6. utils/profiling around phase 4's chain -------------------------
+    # the K1 counter says how many launches ran and the trace how many it
+    # recorded; a trace that left out a launch (unrecorded_launches) is
+    # taken again, at most twice, as phase 7 takes its profile again
+    torch.cuda.reset_peak_memory_stats()
+    for attempt in range(3):
+        trace_dir = root / f"profile-{attempt}"
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        with profiling.trace(trace_dir):
+            for r in requests:
+                chain(r)
+        launched = ffz.launch_counts()["fused_featurizer_mel"]
+        lost = profiling.unrecorded_launches(trace_dir)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            rows = profiling.device_event_summary(trace_dir, device=0)
+        mel_rows = [(n, ms) for n, ms in rows if "mel_power_kernel" in n]
+        events = json.loads(sorted(trace_dir.glob("*.trace.json"))[-1]
+                            .read_text())["traceEvents"]
+        n_mel = sum(1 for e in events if e.get("cat") == "kernel"
+                    and "mel_power_kernel" in e["name"])
+        n_launches = sum(1 for e in events if e.get("ph") == "X"
+                         and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                         and "Launch" in e["name"])
+        if not lost and n_mel == launched:
+            break
+        log(f"profile attempt {attempt + 1} left out {len(lost)} of "
+            f"{n_launches} launches, at positions {[i for i, _ in lost]}, "
+            f"and {launched - n_mel} of {launched} mel_power_kernel launches")
+    busy = sum(ms for _, ms in rows)
+    prof_mel_ms = sum(ms for _, ms in mel_rows) / len(requests)
+    log(f"profile utils/profiling.trace, {len(requests)} requests of the "
+        f"badwinner2 chain B={BATCH} (attempt {attempt + 1}): "
+        f"{busy / len(requests):.3f} ms of card events a request; "
+        f"mel_power_kernel {prof_mel_ms:.4f} ms a request, {n_mel} of "
+        f"{launched} launches recorded (phase 5's CUDA events: "
+        f"{mel_ms:.4f} ms); {len(lost)} of {n_launches} launches left out "
+        f"{card}")
+    for name, ms in rows[:8]:
+        log(f"  kernel {ms / len(requests):9.4f} ms a request {name[:90]}")
+    check(launched == len(requests) and n_mel == launched and not lost,
+          "the profile left out launches on each of 3 attempts")
+    check(abs(prof_mel_ms - mel_ms) <= PROFILE_KERNEL_REL * mel_ms,
+          "the profile's mel_power_kernel time is not phase 5's")
+    lmap = profiling.fusion_layer_map(chain, requests[0], model=model,
+                                      trace_dir=root / "layer-map")
+    condense = "BadWinner2.convs.4"
+    condense_kernels = sorted(k for k, paths in lmap.items()
+                              if condense in paths)
+    log(f"profile fusion_layer_map of the chain: {len(lmap)} kernels "
+        f"under {len({p for ps in lmap.values() for p in ps})} module "
+        f"paths; the condense conv ({condense}, 44 x 3) ran "
+        f"{[k[:60] for k in condense_kernels]}")
+    check(bool(condense_kernels), "the layer map attributes no kernel to "
+          "the condense conv")
+    stats = profiling.time_fn(chain, requests[1], iters=5)
+    log(f"time utils/profiling.time_fn of the chain B={BATCH}: "
+        f"{stats['mean_ms']:.3f} ms mean, p50 {stats['p50_ms']:.3f}, p90 "
+        f"{stats['p90_ms']:.3f} (phase 5: {chain_ms:.3f} ms a batch) {card}")
+    check(abs(stats["mean_ms"] - chain_ms) <= PROFILE_CHAIN_REL * chain_ms,
+          "time_fn of the chain is not phase 5's time")
+    memory = profiling.log_memory_stats()["cuda:0"]
+    log(f"memory utils/profiling.log_memory_stats: peak "
+        f"{memory['peak_bytes_in_use'] / 1e9:.2f} GB, in use "
+        f"{memory['bytes_in_use'] / 1e9:.2f} GB of "
+        f"{memory['bytes_limit'] / 1e9:.2f} GB {card}")
+    log(f"time phase 15: {time.perf_counter() - t_phase:.1f} s {card}")
+    return debug_launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3065,11 +3414,14 @@ def main() -> None:
     model = build_model("badwinner2", NUM_LABELS, logits_only=True,
                         dtype=torch.bfloat16, generator=cpu_gen).module
     model = model.to(dev).eval()
+    # the chain keeps this model: main rebinds ``model`` to the train
+    # step's before phase 15 profiles the chain again
+    serving_model = model
 
     @torch.no_grad()
     def chain(raw: torch.Tensor) -> torch.Tensor:
         img = fz(normalize_rows(raw), pcen=False, out_dtype=torch.bfloat16)
-        return model(img[..., None])
+        return serving_model(img[..., None])
 
     requests = [clips(BATCH) for _ in range(REQUESTS)]
     torch.cuda.synchronize()
@@ -3944,6 +4296,14 @@ def main() -> None:
         record["launches"] += n
         log(f"record {name}: {record['launches']} launches with phase 14's "
             f"{n}")
+    # ---- 15. preparing a corpus -----------------------------------------------
+    # cli/debug's exact tf launches join the chain's record
+    n = corpus_tools_phase(dev, cfg, card, serving_model, chain, requests,
+                           mel_ms, chain_ms)
+    record = next(k for k in kernels if k["name"] == "fused_featurizer_mel")
+    record["launches"] += n
+    log(f"record fused_featurizer_mel: {record['launches']} launches with "
+        f"phase 15's {n}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

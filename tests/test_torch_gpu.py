@@ -1095,3 +1095,96 @@ def test_predict_on_test_on_the_card_matches_the_cpu(tmp_path,
     assert got_labels == labels
     assert cms["cuda"].sum() > 0
     np.testing.assert_array_equal(cms["cuda"], cms["cpu"])
+
+
+def _write_debug_data(root, labels, n=12):
+    """A built dataset's layout at the production geometry: ``n`` records
+    of 3 s at 48 kHz (tone bursts over noise, one label each) in a train
+    shard, and ``training-meta.json`` naming the labels."""
+    import json
+
+    from audio_training_tpu_torch.data import (
+        SampleRecord,
+        encode_sample,
+        write_tfrecords,
+    )
+
+    cfg = FeaturizerConfig()
+    rng = np.random.default_rng(8)
+    t = np.arange(cfg.samples_per_clip) / cfg.sr
+    recs = [encode_sample(SampleRecord(
+        raw=(np.sin(2 * np.pi * (500 + 300 * i) * t) * (t % 1 < 0.6)
+             + 0.05 * rng.standard_normal(t.size)).astype(np.float32),
+        tags=[labels[i % len(labels)]], rec_id=f"r{i}"))
+        for i in range(n)]
+    write_tfrecords(root / "train" / "00-0.tfrecord", recs)
+    (root / "training-meta.json").write_text(json.dumps({"labels": labels}))
+
+
+@pytest.mark.gpu
+def test_debug_cli_on_the_card_matches_the_cpu(tmp_path):
+    """``cli/debug`` featurizes each batch with K1's exact tf tier, one
+    ``mel_power_kernel`` launch a batch, and its check equals the CPU's."""
+    from audio_training_tpu_torch.cli import debug
+
+    _card()
+    _write_debug_data(tmp_path, ["kiwi", "morepo2", "tui1"])
+    fields = ("checked", "nan_count", "out_of_range", "constant",
+              "label_counts")
+    results = {}
+    for device in ("cuda", "cpu"):
+        args = debug.parse_args([str(tmp_path), "--batches", "2",
+                                 "--batch-size", "4", "--device", device])
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+        res = debug.debug_pipeline(args)
+        torch.cuda.synchronize()
+        counts = ffz.launch_counts()
+        results[device] = {k: getattr(res, k) for k in fields}
+        want = 2 if device == "cuda" else 0
+        assert counts["fused_featurizer_mel"] == want
+        assert sum(counts.values()) == want
+    assert results["cuda"] == results["cpu"]
+    assert results["cuda"]["checked"] == 8 and res.ok
+    assert debug.main([str(tmp_path), "--batches", "1"]) == 0
+
+
+@pytest.mark.gpu
+def test_device_event_summary_finds_the_exact_kernel(tmp_path):
+    """A trace of one exact-tier K1 call lists ``mel_power_kernel`` among
+    the card's kernels, and the layer map ties a conv's kernels to its
+    module."""
+    from audio_training_tpu_torch.utils import profiling
+
+    dev = _card()
+    cfg = FeaturizerConfig()
+    fz = ffz.FusedFeaturizer(build_mel_weights(cfg), cfg.n_fft,
+                             cfg.hop_length, device=dev)
+    raw = torch.randn(8, cfg.samples_per_clip, device=dev)
+    fz(raw, pcen=False)
+    with profiling.trace(tmp_path):
+        fz(raw, pcen=False)
+    rows = profiling.device_event_summary(tmp_path, device=0)
+    names = [name for name, _ in rows]
+    assert any("mel_power_kernel" in name for name in names), names
+    assert all(ms > 0 for _, ms in rows)
+
+    model = torch.nn.Sequential(torch.nn.Conv2d(1, 8, 3),
+                                torch.nn.ReLU()).to(dev)
+    x = torch.randn(2, 1, 32, 32, device=dev)
+    lmap = profiling.fusion_layer_map(model, x, model=model)
+    assert any("Sequential.0" in paths for paths in lmap.values()), lmap
+
+
+@pytest.mark.gpu
+def test_log_memory_stats_reports_the_card():
+    from audio_training_tpu_torch.utils.profiling import log_memory_stats
+
+    dev = _card()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.empty(1 << 20, device=dev)
+    stats = log_memory_stats()["cuda:0"]
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory

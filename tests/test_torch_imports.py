@@ -1,6 +1,7 @@
 """The PyTorch port imports nothing of JAX, Flax or the JAX package, nor
 scikit-learn, TensorFlow or orbax; matplotlib only inside the functions
-that plot."""
+that plot, and h5py, filelock and requests only inside the corpus tools'
+functions that use them."""
 
 import ast
 import json
@@ -14,8 +15,10 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "audio_training_tpu")
-# packages the card's image lacks: never imported; matplotlib only lazily
-ABSENT = ("sklearn", "tensorflow", "orbax", "matplotlib")
+# packages the card's image lacks: never imported; matplotlib, and the
+# corpus tools' h5py, filelock and requests, only lazily
+ABSENT = ("sklearn", "tensorflow", "orbax", "matplotlib", "h5py", "filelock",
+          "requests")
 
 
 def _forbidden(name: str) -> bool:
@@ -24,8 +27,8 @@ def _forbidden(name: str) -> bool:
 
 def test_port_modules_import_without_jax():
     """In a fresh interpreter, importing every port module leaves jax, flax,
-    every audio_training_tpu.* module, scikit-learn, TensorFlow, orbax and
-    matplotlib out of sys.modules."""
+    every audio_training_tpu.* module, scikit-learn, TensorFlow, orbax,
+    matplotlib, h5py, filelock and requests out of sys.modules."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import audio_training_tpu_torch as p\n"
@@ -59,7 +62,10 @@ def test_port_modules_import_without_jax():
                  "models.wr_resnet", "models.wr_resnet_bird",
                  "models.resnet", "models.layers", "data.embeddings",
                  "corpus.split", "corpus.writer", "corpus.features",
-                 "corpus.signal_data", "cli.build"):
+                 "corpus.signal_data", "cli.build", "corpus.enrich",
+                 "corpus.otherdata", "corpus.tools", "corpus.downloaders",
+                 "cli.ingest", "utils.logging", "utils.debug", "cli.debug",
+                 "data.augmented", "cli.augment", "utils.profiling"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
     leaked = [m for m in result["modules"]
               if _forbidden(m) or m.split(".")[0] in ABSENT]
@@ -86,10 +92,10 @@ def test_port_sources_and_chip_smoke_name_no_jax_import():
 
 
 def test_port_names_absent_packages_only_inside_functions():
-    """No import of TensorFlow or orbax anywhere in the port; matplotlib
-    only inside a function body; scikit-learn only inside
-    ``models/registry.build_random_forest`` (``rf-features``' forest, as
-    in the JAX package)."""
+    """No import of TensorFlow or orbax anywhere in the port; matplotlib,
+    h5py, filelock and requests only inside a function body; scikit-learn
+    only inside ``models/registry.build_random_forest`` (``rf-features``'
+    forest, as in the JAX package)."""
     bad = []
     for path in sorted((REPO / "audio_training_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text())
@@ -110,7 +116,9 @@ def test_port_names_absent_packages_only_inside_functions():
                 continue
             for n in names:
                 top = n.split(".")[0]
-                allowed = {"matplotlib": inside, "sklearn": in_forest}
+                allowed = {"matplotlib": inside, "sklearn": in_forest,
+                           "h5py": inside, "filelock": inside,
+                           "requests": inside}
                 if top in ABSENT and id(node) not in allowed.get(top, ()):
                     bad.append((path.name, n))
     assert not bad, bad

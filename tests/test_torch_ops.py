@@ -153,7 +153,8 @@ def test_ema_matches_jax_scan():
     x = rng.gamma(2.0, 10.0, (2, 30, 513)).astype(np.float32)
     init = x[:, :, 0]
     want = jpcen.ema_scan(jnp.asarray(x), 0.04, jnp.asarray(init), axis=2)
-    got = tpcen.ema(torch.from_numpy(x), 0.04, torch.from_numpy(init), axis=2)
+    got = tpcen.ema_scan(torch.from_numpy(x), 0.04, torch.from_numpy(init),
+                         axis=2)
     _close(got, want)
 
 

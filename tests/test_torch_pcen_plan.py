@@ -28,7 +28,8 @@ import pytest
 import torch
 
 from audio_training_tpu.ops.pcen import pcen as jax_pcen
-from audio_training_tpu_torch.ops.pcen import ema, normalize_minmax_global, pcen
+from audio_training_tpu_torch.ops.pcen import (ema_scan, normalize_minmax_global,
+                                               pcen)
 
 torch.set_num_threads(2)
 
@@ -128,7 +129,7 @@ def test_chunked_scan_matches_sequential_and_jax(frames, smooth):
     got, got_ema = _kernel_pcen(xt, GAIN, BIAS, ROOT, smooth, EPS)
     got = normalize_minmax_global(got)
     want = pcen(xt, GAIN, BIAS, ROOT, smooth, EPS, time_axis=-1)
-    want_ema = ema(xt, smooth, xt[:, 0], axis=-1)
+    want_ema = ema_scan(xt, smooth, xt[:, 0], axis=-1)
     jax_want = np.asarray(jax_pcen(jnp.asarray(x), GAIN, BIAS, ROOT, smooth,
                                    EPS, time_axis=-1))
     assert (got_ema - want_ema).abs().max() <= EMA_REL * want_ema.abs().max()
