@@ -8,8 +8,15 @@ unless given ``--device cpu``).  Every model name trains: the mel families,
 tower with the stored short / mid features), ``cnn-features`` and
 ``embeddings`` (stored vectors, no featurizer) and ``rf-features`` (a
 scikit-learn random forest on the host).  A run that needs what the port
-has not ported yet (``--backbone-weights``, ``--data-shards`` > 1) exits 2
-with a message naming the ROADMAP.md item that ports it.
+has not ported yet (``--backbone-weights``) exits 2 with a message naming
+the ROADMAP.md item that ports it.
+
+``--data-shards N`` trains data-parallel over N ranks, as JAX's flag does
+over N chips.  Under a launcher (``torchrun``'s or JAX's environment
+variables) this process is one rank of the launcher's group; otherwise it
+starts N ranks itself, rank r on card r (``--device cpu``: CPU ranks over
+gloo).  Fewer cards than N exits 2 with the mesh's message; it never puts
+two ranks on one card.  A failing rank makes the command exit 1.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import sys
 from pathlib import Path
 
 from audio_training_tpu_torch.config import (
@@ -95,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fmin", type=float, default=None)
     parser.add_argument("--fmax", type=float, default=None)
     parser.add_argument("--data-shards", type=int, default=1,
-                        help="Data-parallel size (devices; only 1 is ported)")
+                        help="Data-parallel mesh size (ranks, one a card)")
     parser.add_argument("--loader-workers", type=int, default=None,
                         help="Host decode processes for the train split "
                              "(default: AUDIO_TPU_LOADER_WORKERS, else one "
@@ -144,14 +152,32 @@ def featurizer_for(args) -> FeaturizerConfig:
 def main(argv=None) -> int:
     init_logging()
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     from audio_training_tpu_torch.train.harness import (
-        cross_fold_train,
-        train_random_forest,
-        train_run,
+        trains_on_one_device,
         unported_reason,
     )
 
+    train_cfg = train_config(args)
+    reason = unported_reason(train_cfg, args.backbone_weights)
+    if reason is not None:
+        parser.error(f"not ported yet: {reason}")
+    if train_cfg.num_data_shards > 1:
+        from audio_training_tpu_torch.parallel import initialize_distributed
+        from audio_training_tpu_torch.parallel.multihost import local_rank
+
+        if initialize_distributed():
+            # one rank of a launcher's group
+            if args.device != "cpu":
+                args.device = f"cuda:{local_rank()}"
+        elif not trains_on_one_device(train_cfg.model_name):
+            return spawn_ranks(parser, args, train_cfg, argv)
+    return run(args, train_cfg)
+
+
+def train_config(args) -> TrainConfig:
+    """The flags' TrainConfig, with ``-c``'s JSON overrides."""
     cfg_kwargs = dict(
         model_name=args.model_name, batch_size=args.batch_size,
         learning_rate=args.lr, epochs=args.epochs,
@@ -168,10 +194,46 @@ def main(argv=None) -> int:
     )
     if args.config_file:
         cfg_kwargs.update(json.loads(Path(args.config_file).read_text()))
-    train_cfg = config_from_dict(TrainConfig, cfg_kwargs)
-    reason = unported_reason(train_cfg, args.backbone_weights)
-    if reason is not None:
-        parser.error(f"not ported yet: {reason}")
+    return config_from_dict(TrainConfig, cfg_kwargs)
+
+
+def spawn_ranks(parser, args, train_cfg, argv) -> int:
+    """Start ``num_data_shards`` ranks on this host and train in each:
+    rank r on card r over NCCL, or on the CPU over gloo."""
+    import torch
+
+    from audio_training_tpu_torch.parallel.mesh import mesh_error
+    from audio_training_tpu_torch.parallel.multihost import run_ranks
+
+    n = train_cfg.num_data_shards
+    if args.device != "cpu":
+        error = mesh_error(n, 1, torch.cuda.device_count())
+        if error is not None:
+            parser.error(error)
+    try:
+        run_ranks(_rank_main, n, args=(argv, args.device),
+                  backend="gloo" if args.device == "cpu" else "nccl")
+    except RuntimeError as e:
+        logging.error("data-parallel training failed: %s", e)
+        return 1
+    return 0
+
+
+def _rank_main(rank: int, argv: list[str], device: str) -> None:
+    init_logging()
+    args = build_parser().parse_args(argv)
+    args.device = "cpu" if device == "cpu" else f"cuda:{rank}"
+    run(args, train_config(args))
+
+
+def run(args, train_cfg: TrainConfig) -> int:
+    """Train as ``args`` and ``train_cfg`` say, in this process."""
+    from audio_training_tpu_torch.parallel.multihost import on_rank_zero
+    from audio_training_tpu_torch.train.harness import (
+        cross_fold_train,
+        train_random_forest,
+        train_run,
+    )
 
     data_dirs = [args.data_dir]
     if args.second_dataset_dir:
@@ -192,10 +254,11 @@ def main(argv=None) -> int:
         device=args.device,
     )
     if train_cfg.model_name == "rf-features":
-        result = train_random_forest(
+        # on one device: under a launcher's group, on rank 0
+        result = on_rank_zero(lambda: train_random_forest(
             data_dirs, args.name, checkpoint_root=args.checkpoint_dir,
             train_cfg=train_cfg,
-        )
+        ))
         logging.info("Random forest complete: %s %s", result.run_dir,
                      result.history)
         return 0

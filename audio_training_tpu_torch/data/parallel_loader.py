@@ -8,12 +8,18 @@ processes, audiowriter.py:602-632) on the read side: N workers each own a
 disjoint slice of the shard list, decode and batch independently, and ship
 ready (raw, labels) numpy batch pairs over a bounded queue; the parent only
 copies them to the device (pinned, on a side stream: ``DeviceCopier``).
+
+Under a data-parallel mesh every rank runs its own loader with the same
+seeds and keeps its rows of each global batch; the batches are taken from
+the workers in turn (worker 0's first, worker 1's first, ...) instead of
+as they arrive, so every rank assembles the same sequence.
 """
 
 from __future__ import annotations
 
 import logging
 import multiprocessing as mp
+from collections import deque
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +38,7 @@ def _worker(
     seed: int,
     loop: bool,
     out_queue: mp.Queue,
+    worker: int = 0,
 ):
     """Decode and batch in a spawned process: host modules only, numpy out
     (the worker never touches ``torch.cuda``)."""
@@ -51,10 +58,10 @@ def _worker(
             y[i] = lbl
             i += 1
             if i == batch_size:
-                out_queue.put((raw.copy(), y.copy()))
+                out_queue.put((worker, (raw.copy(), y.copy())))
                 i = 0
     finally:
-        out_queue.put(None)  # this worker is done
+        out_queue.put((worker, None))  # this worker is done
 
 
 class ParallelLoader:
@@ -77,12 +84,18 @@ class ParallelLoader:
         mix: bool = False,
         queue_depth: int = 4,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if not shards:
             raise ValueError("no shards")
         self.num_workers = max(1, min(num_workers, len(shards)))
         self.mix = mix
         self.device = device
+        self.rows = None
+        if mesh is not None and mesh.distributed:
+            from audio_training_tpu_torch.parallel.mesh import batch_sharding
+
+            self.rows = batch_sharding(mesh).rows(batch_size)
         # spawn, not fork: the parent has live threads (CUDA's, the
         # loaders') by the time the loader starts, and fork() from a
         # multithreaded process is a latent deadlock.  Workers re-import the
@@ -97,35 +110,53 @@ class ParallelLoader:
             p = ctx.Process(
                 target=_worker,
                 args=(my_shards, space_dict, samples_per_clip, batch_size,
-                      seed + w * 7919, loop, self.queue),
+                      seed + w * 7919, loop, self.queue, w),
                 daemon=True,
             )
             p.start()
             self.procs.append(p)
 
-    def _next_pair(self, live):
-        while live[0] > 0:
-            item = self.queue.get()
-            if item is None:
-                live[0] -= 1
-                continue
-            return item
+    def _next_pair(self, live: set, pending: dict, turn: list):
+        """The next (raw, y) batch pair: as it arrives, or under a mesh the
+        next worker's in turn (None once every worker is done)."""
+        if self.rows is None:
+            while live:
+                w, item = self.queue.get()
+                if item is None:
+                    live.discard(w)
+                    continue
+                return item
+            return None
+        while live or any(pending.values()):
+            w = turn[0]
+            turn[0] = (w + 1) % self.num_workers
+            while not pending[w] and w in live:
+                v, item = self.queue.get()
+                if item is None:
+                    live.discard(v)
+                else:
+                    pending[v].append(item)
+            if pending[w]:
+                raw, y = pending[w].popleft()
+                return raw[self.rows], y[self.rows]
         return None
 
     def __iter__(self):
         from audio_training_tpu_torch.data.pipeline import DeviceCopier
 
         copier = DeviceCopier(self.device)
-        live = [self.num_workers]
+        live = set(range(self.num_workers))
+        pending = {w: deque() for w in range(self.num_workers)}
+        turn = [0]
         try:
             while True:
-                a = self._next_pair(live)
+                a = self._next_pair(live, pending, turn)
                 if a is None:
                     return
                 if not self.mix:
                     yield copier.ready(copier.put(a))
                     continue
-                b = self._next_pair(live)
+                b = self._next_pair(live, pending, turn)
                 if b is None:
                     return
                 yield copier.ready(copier.put((*a, *b)))

@@ -331,6 +331,15 @@ class DeviceCopier:
         return tensors
 
 
+def _mesh_rows(mesh, batch_size: int) -> slice | None:
+    """This rank's rows of a global batch under a data-parallel mesh."""
+    if mesh is None or not mesh.distributed:
+        return None
+    from audio_training_tpu_torch.parallel.mesh import batch_sharding
+
+    return batch_sharding(mesh).rows(batch_size)
+
+
 class BatchLoader:
     """Assemble fixed-shape batches and prefetch them to ``device``.
 
@@ -338,6 +347,13 @@ class BatchLoader:
     the second, independently shuffled pipeline instance — the host half of
     the reference's mixup zip (tfdataset.py:468-480).  Items are tuples of
     tensors on ``device`` (see :class:`DeviceCopier`).
+
+    Under a data-parallel ``mesh`` ``batch_size`` is the global batch: every
+    rank reads the same seeded stream, assembles each global batch and
+    keeps its rows of it (``parallel.batch_sharding``), so the batches are
+    the single-device run's; a tail batch is dropped, as a sharded batch
+    must divide the mesh (JAX ``data/pipeline.py:337-346``).  Each rank
+    decodes the whole global batch.
     """
 
     def __init__(
@@ -349,6 +365,7 @@ class BatchLoader:
         mix_stream: Iterator[tuple[np.ndarray, np.ndarray]] | None = None,
         prefetch: int = 2,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.stream = stream
         self.mix_stream = mix_stream
@@ -357,6 +374,7 @@ class BatchLoader:
         self.samples_per_clip = samples_per_clip
         self.prefetch = prefetch
         self.device = device
+        self.rows = _mesh_rows(mesh, batch_size)
 
     def _next_batch(self, stream) -> Optional[SampleBatch]:
         raw = np.empty((self.batch_size, self.samples_per_clip), np.float32)
@@ -376,12 +394,17 @@ class BatchLoader:
                     latlng = np.zeros((self.batch_size, 2), np.float32)
                 latlng[i] = item[2]
         if n == self.batch_size:
+            if self.rows is not None:
+                rows = self.rows
+                return SampleBatch(raw[rows], y[rows], latlng[rows]
+                                   if latlng is not None else None)
             return SampleBatch(raw, y, latlng)
         # Partial tail batch: Keras evaluates it (the reference batches
         # without drop_remainder); emit it trimmed for single-stream eval
         # passes.  Mixup training keeps fixed shapes (the partner zip drops
-        # remainders in the reference too).
-        if n == 0 or self.mix_stream is not None:
+        # remainders in the reference too), and a sharded batch must divide
+        # the mesh — both drop the tail.
+        if n == 0 or self.mix_stream is not None or self.rows is not None:
             return None
         return SampleBatch(
             raw[:n], y[:n], latlng[:n] if latlng is not None else None
@@ -480,6 +503,7 @@ def build_training_stream(
     drop_bird_only: bool = False,
     filter_freq: bool = False,
     random_butter: float = 0.0,
+    mesh=None,
 ):
     """End-to-end loader for one split over one or more dataset dirs
     (main/second/human dataset merging, audiomodel.py:1582-1644).
@@ -496,7 +520,9 @@ def build_training_stream(
     variable), as in the JAX package.  Paths the parallel loader doesn't
     cover (deterministic streams, eval caching, per-sample lat/lng,
     weighted multi-stream interleave, the decode-time filters) use the
-    threaded ``BatchLoader``.  Batches land on ``device``.
+    threaded ``BatchLoader``.  Batches land on ``device``; under a
+    data-parallel ``mesh`` they are this rank's rows of the global batches
+    (``batch_size``), tails dropped.
     """
 
     # cache rule parity (tfdataset.py:830-833): non-train splits always cache;
@@ -529,7 +555,7 @@ def build_training_stream(
         return ParallelLoader(
             list(groups[0]), label_space, samples_per_clip, batch_size,
             num_workers=workers, seed=seed, loop=True, mix=True,
-            device=device,
+            device=device, mesh=mesh,
         )
 
     def make(seed_offset: int) -> Iterator:
@@ -565,4 +591,5 @@ def build_training_stream(
         samples_per_clip=samples_per_clip,
         mix_stream=mix,
         device=device,
+        mesh=mesh,
     )

@@ -16,9 +16,13 @@ The featurizer is chosen from the geometry, before anything launches:
   then the power-mel kernel (K2, ``ops.cuda.melspec``) on the complex STFT.
 
 On a CUDA device both wrappers launch their kernels or raise; on the CPU
-they compute their plain versions, so the CPU runs the same two paths.  The
-JAX class's ``mesh`` argument (data-parallel inference) is not ported yet
-(ROADMAP.md queue 1, "Data parallel").
+they compute their plain versions, so the CPU runs the same two paths.
+
+With a data-parallel ``mesh`` (JAX ``infer/predictor.py:78-85``,
+``:174-188``) the weights are broadcast from rank 0, each window batch is
+padded up to a multiple of the mesh's ranks, every rank featurizes and
+classifies its rows, and the probabilities are gathered, so that every
+rank returns the full ``(n, labels)`` array.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ from audio_training_tpu_torch.ops.features import (
     normalize_rows,
 )
 from audio_training_tpu_torch.ops.stft import stft_centered
+from audio_training_tpu_torch.parallel.collectives import gather_rows
+from audio_training_tpu_torch.parallel.mesh import replicated, shard_batch
 
 
 @dataclass
@@ -75,7 +81,9 @@ class ModelResult:
 class Predictor:
     """Inference engine for one trained model.  ``module`` returns logits
     (built with ``logits_only=True``), holds its weights on ``device`` and
-    is put in eval mode."""
+    is put in eval mode.  With a ``mesh`` of more than one rank
+    (``parallel.make_mesh``), ``device`` is the mesh's and every rank calls
+    the Predictor with the same windows."""
 
     def __init__(
         self,
@@ -89,7 +97,12 @@ class Predictor:
         db_scale: bool = False,
         multi_label: bool = True,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        if self.mesh is not None:
+            device = self.mesh.device
+            replicated(self.mesh)(module)
         self.module = module.eval()
         self.labels = list(labels)
         self.cfg = cfg
@@ -153,6 +166,10 @@ class Predictor:
         if n == 0:
             return np.zeros((0, len(self.labels)), np.float32)
         padded = bucket_pad(n, self.infer_cfg.bucket_sizes)
+        if self.mesh is not None:
+            # the batch axis must divide the mesh (JAX pads to its devices)
+            shards = self.mesh.size
+            padded = -(-padded // shards) * shards
         if padded != n:
             # pad by repeating the last real window: all-zero rows would
             # turn into NaN under the per-window min-max normalize
@@ -162,7 +179,14 @@ class Predictor:
         cap = self.infer_cfg.max_window_batch
         for i in range(0, padded, cap):
             chunk = torch.as_tensor(windows[i : i + cap], dtype=torch.float32)
-            probs = self.classify(self.featurize(chunk.to(self.device)))
+            if self.mesh is None:
+                probs = self.classify(self.featurize(chunk.to(self.device)))
+            else:
+                # a chunk the data axis does not divide raises, as JAX's
+                # device_put of it does
+                with self.mesh:
+                    probs = gather_rows(self.mesh, self.classify(
+                        self.featurize(shard_batch(self.mesh, chunk))))
             out.append(probs.cpu().numpy())
         return np.concatenate(out)[:n]
 

@@ -33,6 +33,8 @@ from torch import nn
 
 from audio_training_tpu_torch.ops.features import mag_transform
 from audio_training_tpu_torch.ops.pcen import pcen
+from audio_training_tpu_torch.parallel.collectives import all_reduce_sum
+from audio_training_tpu_torch.parallel.mesh import active_mesh, local_rows
 
 # Keras BatchNormalization defaults
 BN_EPS = 1e-3
@@ -60,12 +62,18 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability 1 - rate, scaled by
     1 / (1 - rate), the mask drawn from ``generator``; the identity in eval
-    or at rate 0."""
+    or at rate 0.  Under an entered data-parallel mesh ``x`` is this rank's
+    rows of the batch (dim 0): the mask is drawn for the global batch and
+    this rank's rows taken, as JAX's SPMD draws one key's mask for the
+    sharded global array, so with the generator seeded alike on every rank
+    the masks are the single-device run's (the bits still differ from
+    JAX's: parity tests run at rate 0)."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(
-        keep, generator=generator)
+    n, rows = local_rows(x.shape[0])
+    mask = torch.empty((n, *x.shape[1:]), device=x.device).bernoulli_(
+        keep, generator=generator)[rows]
     return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
@@ -97,6 +105,12 @@ class KerasBatchNorm(nn.Module):
     fast variance; ``F.batch_norm`` stores the unbiased variance), and
     ``running = 0.99 running + 0.01 batch``.  ``eps`` is Keras' 1e-3 unless
     given (keras.applications' ResNets and DenseNet pass 1.001e-5).
+
+    Under an entered data-parallel mesh (``parallel.mesh``) the moments are
+    the global batch's, as JAX's SPMD computes them: the per-channel sums
+    of ``x`` and ``x^2`` and the row count are all-reduced in f32, in one
+    call whose backward all-reduces the gradient (``SyncBatchNorm`` keeps
+    PyTorch's unbiased running variance and momentum, not Flax's rule).
     """
 
     flax_kind = "KerasBatchNorm"
@@ -144,9 +158,21 @@ class KerasBatchNorm(nn.Module):
         shape[self.feature_dim] = -1
         if self.training:
             dims = [d for d in range(x.ndim) if d != self.feature_dim]
-            xf = x.float()
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            xf = x if x.dtype == torch.float64 else x.float()
+            mesh = active_mesh()
+            if mesh is None:
+                mean = xf.mean(dims)
+                ex2 = (xf * xf).mean(dims)
+            else:
+                # the global batch's moments: [sum x, sum x^2, rows] in one
+                # all-reduce that carries the gradient
+                c = xf.shape[self.feature_dim]
+                rows = torch.full((1,), xf.numel() / c, dtype=xf.dtype,
+                                  device=xf.device)
+                sums = all_reduce_sum(mesh, torch.cat(
+                    [xf.sum(dims), (xf * xf).sum(dims), rows]))
+                mean, ex2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            var = (ex2 - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1.0 - BN_MOMENTUM) * mean)
@@ -323,8 +349,12 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         with torch.no_grad():
             lecun_normal_(self.weight, generator=generator)
+            self.bias.zero_()
 
     def flax_leaves(self):
         return [("params", ("kernel",), "weight", lambda a: a.T),

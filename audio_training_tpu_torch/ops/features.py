@@ -16,6 +16,8 @@ from audio_training_tpu_torch.config import FeaturizerConfig
 from audio_training_tpu_torch.ops.cuda.melspec import fused_power_mel_complex
 from audio_training_tpu_torch.ops.mel import mel_filterbank
 from audio_training_tpu_torch.ops.stft import stft_centered, stft_tf_style
+from audio_training_tpu_torch.parallel.collectives import global_extrema
+from audio_training_tpu_torch.parallel.mesh import active_mesh, local_rows
 
 
 def mag_transform(x: torch.Tensor, a: torch.Tensor | float) -> torch.Tensor:
@@ -36,7 +38,13 @@ def power_to_db(mel: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_minmax(data: torch.Tensor) -> torch.Tensor:
-    """Global min-max to [-1, 1] (tfdataset.py:1897-1902)."""
+    """Global min-max to [-1, 1] (tfdataset.py:1897-1902).  Under an
+    entered data-parallel mesh the minimum and maximum are the global
+    batch's (``parallel.collectives.global_extrema``), as in JAX's SPMD."""
+    mesh = active_mesh()
+    if mesh is not None:
+        min_v, max_v = global_extrema(mesh, data)
+        return 2.0 * ((data - min_v) / (max_v - min_v)) - 1.0
     max_v = data.max()
     min_v = data.min()
     return 2.0 * ((data - min_v) / (max_v - min_v)) - 1.0
@@ -236,11 +244,16 @@ def sample_beta(gen: torch.Generator, size: int, alpha: float) -> torch.Tensor:
 def sample_mix_weights(gen: torch.Generator, batch: int, alpha: float = 0.5,
                        chance: float = 0.25) -> torch.Tensor:
     """Per-sample mixup weight: Beta(alpha, alpha) gated by ``chance``
-    (zero = take sample two unchanged, tfdataset.py:934-940)."""
+    (zero = take sample two unchanged, tfdataset.py:934-940).  Under an
+    entered data-parallel mesh ``batch`` is this rank's rows: the weights
+    are drawn for the global batch and this rank's rows taken, so that
+    with the same generator state on every rank they are the
+    single-device draw's."""
+    batch, rows = local_rows(batch)
     l = sample_beta(gen, batch, alpha)
     aug = (torch.rand(batch, generator=gen, device=gen.device)
            < chance).to(l.dtype)
-    return l * aug
+    return (l * aug)[rows]
 
 
 def apply_mix(l: torch.Tensor, one: torch.Tensor,
@@ -293,7 +306,10 @@ def sample_spec_augment(gen: torch.Generator, batch: int, n_mels: int,
                         time_mask_width: int = 50, num_freq_masks: int = 2,
                         freq_mask_width: int = 20) -> SpecAugmentDraw:
     """JAX's draw with its limits: a start uniform in ``[0, max(size -
-    width, 1))`` and a width uniform in ``[0, width]`` for each mask."""
+    width, 1))`` and a width uniform in ``[0, width]`` for each mask.  As
+    :func:`sample_mix_weights`, drawn for the global batch under an
+    entered data-parallel mesh, this rank's rows returned."""
+    batch, rows = local_rows(batch)
 
     def draw(size, width, count):
         starts = torch.randint(0, max(size - width, 1), (batch, count),
@@ -302,8 +318,9 @@ def sample_spec_augment(gen: torch.Generator, batch: int, n_mels: int,
                                device=gen.device)
         return starts, widths
 
-    return SpecAugmentDraw(*draw(frames, time_mask_width, num_time_masks),
-                           *draw(n_mels, freq_mask_width, num_freq_masks))
+    return SpecAugmentDraw(*(d[rows] for d in (
+        *draw(frames, time_mask_width, num_time_masks),
+        *draw(n_mels, freq_mask_width, num_freq_masks))))
 
 
 def apply_spec_augment(mel: torch.Tensor, draw: SpecAugmentDraw,

@@ -5,17 +5,21 @@ second/extra/human dataset dirs), count-based label admission, dataset
 streams, model build, class weights, fit with the callback suite, BN
 re-estimation, test-set confusion, metadata.
 
-Every run kind of the JAX package on one device: the mel families, the
-dual-badwinner2 views, the joint ``merge`` run (:func:`_train_merge_run`),
-the vector-input ``cnn-features`` / ``embeddings`` runs
+Every run kind of the JAX package: the mel families, the dual-badwinner2
+views, the joint ``merge`` run (:func:`_train_merge_run`), the
+vector-input ``cnn-features`` / ``embeddings`` runs
 (:func:`_train_vector_run`) and the ``rf-features`` random forest
-(:func:`train_random_forest`).  Data-parallel runs and the backbone
-transplant raise ``NotImplementedError`` naming their ROADMAP.md item
-(:func:`unported_reason`); nothing is silently dropped.
+(:func:`train_random_forest`).  ``num_data_shards > 1`` trains the mel
+families data-parallel over that many ranks of the process group, as JAX
+does over its mesh: :func:`train_run` builds the mesh before it dispatches,
+the merge run refuses it with JAX's message and the vector runs train on
+one device.  The backbone transplant raises ``NotImplementedError`` naming
+its ROADMAP.md item (:func:`unported_reason`); nothing is silently dropped.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -50,6 +54,16 @@ from audio_training_tpu_torch.eval.confusion import (
 )
 from audio_training_tpu_torch.models import build_model
 from audio_training_tpu_torch.models.registry import build_random_forest
+from audio_training_tpu_torch.parallel import (
+    batch_sharding,
+    make_mesh,
+    replicated,
+)
+from audio_training_tpu_torch.parallel.collectives import gather_rows
+from audio_training_tpu_torch.parallel.multihost import (
+    is_primary,
+    on_rank_zero,
+)
 from audio_training_tpu_torch.taxonomy.ebird import get_ebird_id
 from audio_training_tpu_torch.taxonomy.labels import (
     LabelSpace,
@@ -76,18 +90,20 @@ from audio_training_tpu_torch.train.step import (
 log = logging.getLogger(__name__)
 
 _FAMILIES_ITEM = 'ROADMAP.md queue 1, "Model families"'
-_DATA_PARALLEL_ITEM = 'ROADMAP.md queue 1, "Data parallel"'
 # the run kinds whose models take stored vectors, not a mel image
 _VECTOR_MODELS = ("embeddings", "cnn-features")
+
+
+def trains_on_one_device(model_name: str) -> bool:
+    """Whether a run kind trains on one device whatever ``num_data_shards``
+    says, as in JAX: ``rf-features`` and the vector-input models."""
+    return model_name.lower() in ("rf-features", *_VECTOR_MODELS)
 
 
 def unported_reason(train_cfg: TrainConfig,
                     backbone_weights=None) -> str | None:
     """Why :func:`train_run` cannot take this run yet, naming the ROADMAP.md
     item that ports it; None when it can."""
-    if train_cfg.num_data_shards > 1:
-        return (f"num_data_shards > 1 (data-parallel training) comes with "
-                f"{_DATA_PARALLEL_ITEM}")
     if backbone_weights is not None:
         return (f"backbone weights (models/transplant.py) load a Keras model, "
                 f"and the port does not depend on TensorFlow; they come with "
@@ -336,6 +352,11 @@ def _train_merge_run(run_dir, data_dirs, split_shards, space, ontology,
     input tensors with one shared lambda and featurizes the waveform
     (:func:`make_merge_preprocess_fn`: K1 on the card).  As in the JAX
     package, no BN re-estimation; the test split's confusion is written."""
+    if train_cfg.num_data_shards > 1:
+        raise ValueError(
+            "merge training does not implement mesh data-parallelism yet; "
+            "run with num_data_shards=1 (--data-shards 1)"
+        )
 
     def make_stream(split, loop, seed_offset=0):
         sh = _split_shards(data_dirs, split_shards, split)
@@ -481,6 +502,7 @@ def train_run(
     split_shards: dict[str, list[Path]] | None = None,
     backbone_weights: str | Path | None = None,
     device: str | torch.device | None = None,
+    mesh_devices: list | None = None,
 ) -> TrainRunResult:
     """The full training pipeline on real shard data, on ``device`` (the
     CUDA card unless the caller names another).
@@ -498,19 +520,37 @@ def train_run(
     ``merge`` :func:`_train_merge_run`, the vector models
     :func:`_train_vector_run`.  ``rf-features``, which JAX's ``cli/train``
     sends to :func:`train_random_forest`, goes there from here too.
+
+    ``train_cfg.num_data_shards > 1`` runs on that many ranks of the
+    process group (``parallel.initialize_distributed``; ``cli/train
+    --data-shards N`` starts them), each calling this function with its
+    ``device`` (``"cpu"`` for CPU ranks, else rank r's card; or
+    ``mesh_devices``, one device a rank, as ``parallel.make_mesh`` takes
+    them, e.g. one card named twice for a rehearsal): the mesh is built
+    before the dispatch, the train and validation batches are each
+    rank's rows of the global batches (``batch_size``) with their tails
+    dropped, as JAX shards them, the BatchNorm re-estimation and test
+    passes keep their tails, as JAX's unsharded ones do
+    (:func:`_eval_rows`), the state is broadcast from rank 0, and only rank
+    0 writes the run directory.  Every rank returns the same result.  The
+    vector-input runs and ``rf-features`` train on one device
+    (:func:`trains_on_one_device`): rank 0 trains, the others wait.
     """
     train_cfg = train_cfg or TrainConfig()
     reason = unported_reason(train_cfg, backbone_weights)
     if reason is not None:
         raise NotImplementedError(reason)
     if train_cfg.model_name.lower() == "rf-features":
-        return train_random_forest(data_dirs, run_name, checkpoint_root,
-                                   train_cfg=train_cfg, ontology=ontology)
+        return on_rank_zero(lambda: train_random_forest(
+            data_dirs, run_name, checkpoint_root, train_cfg=train_cfg,
+            ontology=ontology))
     device = torch.device(device or "cuda")
     cfg = featurizer or FeaturizerConfig()
     data_dirs = [Path(d) for d in data_dirs]
     run_dir = Path(checkpoint_root) / run_name
-    run_dir.mkdir(parents=True, exist_ok=True)
+    primary = is_primary()  # rank 0 of a process group writes, and only it
+    if primary:
+        run_dir.mkdir(parents=True, exist_ok=True)
 
     space, ontology, data_meta = init_labels(
         data_dirs, ontology,
@@ -520,12 +560,23 @@ def train_run(
     labels = list(space.labels)
     log.info("Training %s on %s labels: %s", run_name, len(labels), labels)
 
+    # the mesh, before the dispatch (JAX harness.py:537-544), for the run
+    # kinds that use it: CPU ranks name the CPU, card ranks take rank r's
+    # card, unless the caller names the devices
+    vector = train_cfg.model_name.lower() in _VECTOR_MODELS
+    mesh = None
+    if train_cfg.num_data_shards > 1 and not vector:
+        if mesh_devices is None and device.type == "cpu":
+            mesh_devices = [device] * train_cfg.num_data_shards
+        mesh = make_mesh(num_data=train_cfg.num_data_shards,
+                         devices=mesh_devices)
+        device = mesh.device
+
     # the model: weights drawn from the run's seed (on the CPU, so they do
     # not depend on the device); its inputs pick the run kind
     channels = cfg.channels
     dtype = (torch.bfloat16 if train_cfg.compute_dtype == "bfloat16"
              else None)
-    vector = train_cfg.model_name.lower() in _VECTOR_MODELS
     spec = build_model(
         train_cfg.model_name, num_labels=len(labels),
         multi_label=train_cfg.multi_label, logits_only=True, dtype=dtype,
@@ -537,7 +588,10 @@ def train_run(
     restore = dict(weights=weights, weight_labels=weight_labels,
                    device=device)
     if vector:
-        return _train_vector_run(*run_args, **restore)
+        # one device whatever num_data_shards says, as in JAX
+        # (harness.py:553-570): under a process group rank 0 trains and
+        # writes, and the others wait for its result
+        return on_rank_zero(lambda: _train_vector_run(*run_args, **restore))
     if spec.inputs == ("mel", "short_f", "mid_f"):
         return _train_merge_run(*run_args, confusion=confusion, **restore)
     dual = spec.inputs == ("mel", "mel2")
@@ -581,7 +635,7 @@ def train_run(
             data_dirs, "train", space, cfg.samples_per_clip,
             batch_size=train_cfg.batch_size, seed=train_cfg.seed,
             augment=True, device=device, with_latlng=with_latlng,
-            shard_groups=train_shard_groups, cache=True,
+            shard_groups=train_shard_groups, cache=True, mesh=mesh,
             **stream_filters,
         ))
 
@@ -599,7 +653,7 @@ def train_run(
             batch_size=train_cfg.batch_size, seed=train_cfg.seed + epoch,
             augment=True, device=device, with_latlng=with_latlng,
             shard_groups=train_shard_groups,
-            workers=train_cfg.loader_workers,
+            workers=train_cfg.loader_workers, mesh=mesh,
             **stream_filters,
         )
         yield from loader
@@ -634,7 +688,7 @@ def train_run(
         yield from BatchLoader(
             stream, batch_size=train_cfg.batch_size,
             num_labels=space.num_labels,
-            samples_per_clip=cfg.samples_per_clip, device=device,
+            samples_per_clip=cfg.samples_per_clip, device=device, mesh=mesh,
         )
 
     # remapped per-output-label distribution: fold source-tag counts through
@@ -699,10 +753,14 @@ def train_run(
         seed=train_cfg.seed, device=device,
     )
     state = _maybe_restore(state, weights, weight_labels, labels)
+    if mesh is not None:
+        replicated(mesh)(state.model)
     log.info("Model %s has %s params", train_cfg.model_name,
              param_count(state))
 
     def write_metadata(history=None, test_results=None):
+        if not primary:
+            return
         save_metadata(
             run_dir, train_cfg.model_name, labels, cfg, ontology,
             loss_fn=train_cfg.loss, multi_label=train_cfg.multi_label,
@@ -783,6 +841,7 @@ def train_run(
         specific_bird_mask=specific_bird_mask,
         geo_masks=geo_masks,
         confusion_labels=labels if train_cfg.epoch_confusion else None,
+        mesh=mesh,
     )
 
     if persistent_train is not None:
@@ -807,12 +866,17 @@ def train_run(
                 num_labels=space.num_labels,
                 samples_per_clip=cfg.samples_per_clip, device=device,
             ):
-                mel, _ = pre_eval(*batch[:2])
-                yield mel
+                part, within, _ = _eval_rows(mesh, *batch[:2])
+                # the model runs on the batch while the generator waits
+                # here, still inside its mesh
+                with within:
+                    mel, _ = pre_eval(*part)
+                    yield mel
 
         new_stats = reestimate_batch_stats(result.state.model, bn_batches())
         result.state.model.load_state_dict(new_stats, strict=False)
-        save_state(run_dir / f"chkpt{SUFFIX}", result.state)
+        if primary:
+            save_state(run_dir / f"chkpt{SUFFIX}", result.state)
         log.info("BN running stats re-estimated over the train split")
 
     test_metrics: dict = {}
@@ -823,7 +887,7 @@ def train_run(
             test_shards=(
                 split_shards.get("test") if split_shards is not None else None
             ),
-            device=device,
+            device=device, mesh=mesh,
         )
 
     write_metadata(result.history, test_metrics)
@@ -874,11 +938,28 @@ def test_set_metrics(y_true: np.ndarray, y_pred: np.ndarray,
     }
 
 
+def _eval_rows(mesh, *arrays):
+    """How a rank runs a batch of an evaluation pass (BatchNorm
+    re-estimation, the test confusion), which JAX runs unsharded with its
+    tail: ``(arrays, context, sharded)``.  Under a data-parallel ``mesh``
+    that divides the batch, this rank's rows and the mesh, so that the
+    PCEN min-max and the BatchNorm moments are the whole batch's; else (no
+    mesh, or a tail that the data axis does not divide) the whole batch and
+    no context, each rank computing it alone."""
+    if mesh is None or len(arrays[0]) % mesh.data_size:
+        return arrays, contextlib.nullcontext(), False
+    rows = batch_sharding(mesh).rows(len(arrays[0]))
+    return tuple(a[rows] for a in arrays), mesh, True
+
+
 def run_test_confusion(state, spec, pre_eval, data_dirs, space, cfg,
                        train_cfg, run_dir, test_shards=None,
-                       device="cuda") -> dict:
+                       device="cuda", mesh=None) -> dict:
     """Held-out test confusion (audiomodel.py:566-595); ``spec`` is unused,
-    as in the JAX function."""
+    as in the JAX function.  Under a data-parallel ``mesh`` the test
+    batches and their tail are the single-device run's, run as
+    :func:`_eval_rows` says; the predictions are gathered, and rank 0
+    writes the confusion."""
     predict = make_predict_fn(multi_label=train_cfg.multi_label)
     y_true_all, y_pred_all = [], []
     try:
@@ -888,18 +969,23 @@ def run_test_confusion(state, spec, pre_eval, data_dirs, space, cfg,
             shard_groups=[test_shards] if test_shards is not None else None,
         )
         for batch in loader:
-            raw, y = batch[:2]
-            mel, yy = pre_eval(raw, y)
-            y_pred_all.append(_host(predict(state, mel)))
+            part, within, sharded = _eval_rows(mesh, *batch[:2])
+            with within:
+                mel, yy = pre_eval(*part)
+                probs = predict(state, mel)
+            if sharded:
+                probs, yy = gather_rows(mesh, probs), gather_rows(mesh, yy)
+            y_pred_all.append(_host(probs))
             y_true_all.append(_host(yy))
     except (ValueError, FileNotFoundError):
         log.info("No test split found")
         return {}
     if not y_true_all:
         return {}
-    return _save_test_confusion(run_dir, list(space.labels),
-                                np.concatenate(y_true_all),
-                                np.concatenate(y_pred_all),
+    y_true, y_pred = np.concatenate(y_true_all), np.concatenate(y_pred_all)
+    if mesh is not None and mesh.rank != 0:
+        return test_set_metrics(y_true, y_pred, list(space.labels))
+    return _save_test_confusion(run_dir, list(space.labels), y_true, y_pred,
                                 train_cfg.multi_label)
 
 
@@ -973,10 +1059,11 @@ def cross_fold_train(
             data_dirs, f"{run_name}-fold{fold}", train_cfg=fold_cfg,
             split_shards=split_shards, **kwargs,
         )
-        (result.run_dir / "fold-files.json").write_text(json.dumps(
-            {k: [str(p) for p in v] for k, v in split_shards.items()},
-            indent=2,
-        ))
+        if is_primary():
+            (result.run_dir / "fold-files.json").write_text(json.dumps(
+                {k: [str(p) for p in v] for k, v in split_shards.items()},
+                indent=2,
+            ))
         results.append(result)
     return results
 

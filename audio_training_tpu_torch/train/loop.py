@@ -5,6 +5,12 @@ checkpoints, early stopping (patience 10), reduce-LR-on-plateau, the
 per-epoch ``training-log.csv``, the TensorBoard event file, the
 ``hist_writer`` hook, the per-epoch validation confusion, ``history.json``,
 and the rollback of an epoch whose loss is not finite.
+
+Under a data-parallel mesh (``fit(mesh=...)``, the batches each rank's
+rows) every rank runs the same schedule on global metrics: the epoch
+metrics are summed over the ranks, so the callbacks and the rollback take
+the same branch on every rank (a rank-local decision would hang the
+group), and only rank 0 writes the run directory.
 """
 
 from __future__ import annotations
@@ -24,6 +30,11 @@ from audio_training_tpu_torch.eval.confusion import (
     save_confusion,
     single_label_confusion,
 )
+from audio_training_tpu_torch.parallel.collectives import (
+    broadcast_object,
+    gather_rows,
+)
+from audio_training_tpu_torch.parallel.mesh import Mesh, active_mesh, replicated
 from audio_training_tpu_torch.train.checkpoints import (
     SUFFIX,
     BestCheckpointTracker,
@@ -157,6 +168,7 @@ def fit(
     specific_bird_mask=None,
     geo_masks=None,
     confusion_labels: list[str] | None = None,
+    mesh: Mesh | None = None,
 ) -> FitResult:
     """Run the training schedule.
 
@@ -173,12 +185,26 @@ def fit(
     validation confusion matrix is written per epoch to
     ``run_dir/epoch-confusion/epoch_NNN.{npy,png}`` — the per-epoch
     TensorBoard confusion image of the reference
-    (audiomodel.log_confusion_matrix, audiomodel.py:1262-1314)."""
+    (audiomodel.log_confusion_matrix, audiomodel.py:1262-1314).
+
+    With a ``mesh`` of more than one rank the batches are each rank's rows
+    of the global batches and the whole schedule runs inside the mesh: the
+    mixup weights and the dropout masks are drawn for the global batch
+    (both generators are seeded alike on every rank) and each rank takes
+    its rows, so the run is the single-device run; the validation
+    confusion gathers every rank's rows, and only rank 0 writes
+    ``run_dir``."""
+    if mesh is not None and mesh.distributed and active_mesh() is not mesh:
+        with mesh:  # the whole schedule runs inside the mesh
+            return fit(**locals())
+    mesh = mesh if mesh is not None and mesh.distributed else None
+    primary = mesh is None or mesh.rank == 0
     train_step = make_train_step(
         loss_name=loss_name, multi_label=multi_label,
         label_smoothing=label_smoothing, class_weights=class_weights,
         remat=remat, bird_index=bird_index,
         specific_bird_mask=specific_bird_mask, geo_masks=geo_masks,
+        mesh=mesh,
     )
     eval_step = make_eval_step(
         loss_name=loss_name, multi_label=multi_label, bird_index=bird_index,
@@ -186,17 +212,19 @@ def fit(
     )
     val_preprocess = val_preprocess or preprocess
     run_dir = Path(run_dir) if run_dir is not None else None
-    if run_dir is not None:
-        run_dir.mkdir(parents=True, exist_ok=True)
-    tracker = BestCheckpointTracker(run_dir) if run_dir is not None else None
-    scalar_log = (ScalarLog(run_dir / "training-log.csv")
-                  if run_dir is not None else None)
+    # the directory this rank writes: rank 0's run_dir, else none
+    out_dir = run_dir if primary else None
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+    tracker = BestCheckpointTracker(out_dir) if out_dir is not None else None
+    scalar_log = (ScalarLog(out_dir / "training-log.csv")
+                  if out_dir is not None else None)
     stopper = EarlyStopping(patience=early_stop_patience)
     reducer = ReduceLROnPlateau(patience=reduce_lr_patience,
                                 factor=reduce_lr_factor)
     # the standard-dashboard event stream beside training-log.csv
     # (audiomodel.py:553-558): ``tensorboard --logdir`` watches the run live
-    tb = TBEventWriter(run_dir) if run_dir is not None else None
+    tb = TBEventWriter(out_dir) if out_dir is not None else None
     collect_confusion = confusion_labels is not None and run_dir is not None
     confusion_predict = make_predict_fn(multi_label=multi_label)
     device = state.device
@@ -238,11 +266,10 @@ def fit(
                     y_true_parts.append(yy.float().cpu().numpy())
             for k, v in metrics_compute(vmetrics).items():
                 logs[f"val_{k}"] = v
-            if y_true_parts:
+            y_true, y_pred = _epoch_rows(y_true_parts, y_pred_parts, mesh)
+            if y_true is not None and out_dir is not None:
                 base = _write_epoch_confusion(
-                    run_dir / "epoch-confusion", epoch,
-                    np.concatenate(y_true_parts),
-                    np.concatenate(y_pred_parts),
+                    out_dir / "epoch-confusion", epoch, y_true, y_pred,
                     confusion_labels, multi_label,
                 )
                 png = base.with_suffix(".png")
@@ -259,25 +286,34 @@ def fit(
             scalar_log.append(epoch, logs)
         if tb is not None:
             tb.add_scalars(logs, epoch)
-        if hist_writer is not None:
+        if hist_writer is not None and primary:
             hist_writer(epoch, logs, state, tb)
 
         # failure detection: a non-finite train loss means this epoch's
         # updates are poison — roll back to the last good per-epoch
         # checkpoint instead of checkpointing/score-tracking the wreck.
-        # Two consecutive poisoned epochs abort the run.
+        # Two consecutive poisoned epochs abort the run.  The loss is the
+        # global one, and rank 0 (which wrote the checkpoint) decides
+        # whether it can restore, so that every rank takes the same branch.
         if not np.isfinite(logs.get("loss", 0.0)):
             nan_epochs += 1
-            chkpt = run_dir / f"chkpt{SUFFIX}" if run_dir is not None else None
-            if nan_epochs >= 2 or chkpt is None or not chkpt.exists():
+            chkpt = out_dir / f"chkpt{SUFFIX}" if out_dir is not None else None
+            can_restore = chkpt is not None and chkpt.exists()
+            if mesh is not None:
+                can_restore = broadcast_object(mesh, can_restore)
+            if nan_epochs >= 2 or not can_restore:
                 log.error("non-finite loss at epoch %d (%d in a row): "
                           "stopping", epoch + 1, nan_epochs)
                 break
             log.error("non-finite loss at epoch %d: restoring %s and "
                       "continuing", epoch + 1, chkpt)
+            if chkpt is not None:
+                state = restore_into(state, chkpt)
+            if mesh is not None:
+                replicated(mesh)(state.model)
             # the NaN gradients also poisoned the optimizer moments —
             # restoring the weights alone would re-diverge on the next step
-            state = restore_into(state, chkpt).reset_optimizer()
+            state = state.reset_optimizer()
             continue
         nan_epochs = 0
 
@@ -293,7 +329,23 @@ def fit(
 
     if tb is not None:
         tb.close()
-    if run_dir is not None:
-        (run_dir / "history.json").write_text(
+    if out_dir is not None:
+        (out_dir / "history.json").write_text(
             json.dumps(history, indent=2, default=float))
     return FitResult(state=state, history=history, epochs_run=epoch + 1)
+
+
+def _epoch_rows(y_true_parts: list, y_pred_parts: list, mesh: Mesh | None):
+    """The epoch's validation targets and predictions, every rank's rows
+    under a mesh (each rank holds as many: the tails are dropped); None
+    when there are none."""
+    if mesh is not None:
+        parts = [np.concatenate(p) if p else None
+                 for p in (y_true_parts, y_pred_parts)]
+        if parts[0] is None:
+            return None, None
+        return tuple(gather_rows(mesh, torch.from_numpy(p).to(mesh.device))
+                     .cpu().numpy() for p in parts)
+    if not y_true_parts:
+        return None, None
+    return np.concatenate(y_true_parts), np.concatenate(y_pred_parts)

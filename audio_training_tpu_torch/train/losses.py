@@ -1,11 +1,19 @@
 """Loss zoo (port of ``audio_training_tpu/train/losses.py:16-139``) —
 parity with the reference's losses (audiomodel.py:1194-1240, 2437-2650) but
-computed on *logits* for numerical stability, as the JAX package does."""
+computed on *logits* for numerical stability, as the JAX package does.
+
+Under an entered data-parallel mesh the soft-F1 losses sum their per-label
+counts over the ranks (with a gradient), so that, like JAX's, they are the
+global batch's; every other loss is a mean over rows, whose per-rank values
+DistributedDataParallel's gradient mean already makes global."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from audio_training_tpu_torch.parallel.collectives import all_reduce_sum
+from audio_training_tpu_torch.parallel.mesh import active_mesh
 
 EPS = 1e-7  # keras backend epsilon
 
@@ -56,6 +64,9 @@ def _soft_counts(logits, labels):
     fp = (y_hat * (1.0 - y)).sum(dim=0)
     fn = ((1.0 - y_hat) * y).sum(dim=0)
     tn = ((1.0 - y_hat) * (1.0 - y)).sum(dim=0)
+    mesh = active_mesh()
+    if mesh is not None:  # the global batch's counts, in one all-reduce
+        tp, fp, fn, tn = all_reduce_sum(mesh, torch.stack([tp, fp, fn, tn]))
     return tp, fp, fn, tn
 
 

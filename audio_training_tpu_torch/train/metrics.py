@@ -5,7 +5,9 @@ precAtK top-k metric (audiomodel.py:2653-2717).
 
 Accumulators as in the JAX package: ``init() -> state``, ``update(state,
 ...) -> state``, ``compute(state) -> value``; states are tensors on the
-batch's device.
+batch's device.  Under an entered data-parallel mesh each rank accumulates
+its rows, and ``compute`` sums the states over the ranks first, so every
+rank reports the global batch's metrics, as JAX's sharded sums are.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from dataclasses import dataclass
 
 import torch
 
+from audio_training_tpu_torch.parallel.collectives import sum_over_ranks
+from audio_training_tpu_torch.parallel.mesh import active_mesh
 from audio_training_tpu_torch.train.losses import focal_bce_from_logits, huber
 
 NUM_THRESHOLDS = 200
@@ -133,7 +137,16 @@ def prec_at_k_update(
 
 
 def prec_at_k_compute(state: PrecAtKState) -> torch.Tensor:
-    return state.hits / state.total.clamp_min(1.0)
+    hits, total = _global(state.hits, state.total)
+    return hits / total.clamp_min(1.0)
+
+
+def _global(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The tensors summed over the ranks of the entered data-parallel
+    mesh; as they are without one."""
+    mesh = active_mesh()
+    return list(tensors) if mesh is None else sum_over_ranks(mesh,
+                                                             list(tensors))
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +182,12 @@ def metrics_update(state: dict, loss: torch.Tensor, probs: torch.Tensor,
 
 
 def metrics_compute(state: dict) -> dict[str, float]:
+    c = state["confusion"]
+    keys = ("loss_sum", "acc_sum", "focal_sum", "huber_sum", "count")
+    summed = _global(*(state[k] for k in keys), c.tp, c.fp, c.tn, c.fn)
+    state = dict(zip(keys, summed))
+    conf = ConfusionState(*summed[len(keys):])
     n = max(float(state["count"]), 1.0)
-    conf = state["confusion"]
     return {
         "loss": float(state["loss_sum"]) / n,
         "accuracy": float(state["acc_sum"]) / n,

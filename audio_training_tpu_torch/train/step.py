@@ -5,16 +5,34 @@ metric accumulation; it replaces the reference's Keras ``model.fit`` inner
 loop (audiomodel.py:550-562).  The JAX step is one jitted function; here
 PyTorch runs it eagerly and updates the model, its BatchNorm running
 statistics and the optimizer in place.
+
+Under a data-parallel mesh (``make_train_step(mesh=...)``, the batch this
+rank's rows) the model runs inside ``DistributedDataParallel``, whose
+gradient buckets are all-reduced to their mean over the ranks and counted
+(``parallel.collectives.counting_allreduce_hook``).  Its buffers are not
+broadcast: the BatchNorm statistics are already the global batch's, and a
+broadcast would add collectives that JAX's step does not have.  The loss
+is taken inside the mesh: a loss that is a mean over rows is each rank's
+mean over its rows, whose averaged gradient is the global batch's, and the
+soft-F1 losses sum their counts over the ranks (``train/losses.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
+
+from audio_training_tpu_torch.parallel.collectives import (
+    counting_allreduce_hook,
+)
+from audio_training_tpu_torch.parallel.mesh import Mesh
 
 from audio_training_tpu_torch.train.losses import get_loss
 from audio_training_tpu_torch.train.metrics import metrics_init, metrics_update
@@ -155,6 +173,39 @@ def remat_forward(model: torch.nn.Module, inputs: tuple,
                             _replaying(model, generator, start)))
 
 
+class _Remat(nn.Module):
+    """``model``'s forward through :func:`remat_forward`, as a module that
+    DistributedDataParallel can wrap: the recompute runs inside the
+    wrapper's forward, so it replays the BatchNorm all-reduces too."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *inputs, generator=None):
+        return remat_forward(self.model, inputs, generator)
+
+
+def data_parallel(model: nn.Module, mesh: Mesh,
+                  remat: bool = False) -> DistributedDataParallel:
+    """``model`` (or its rematerialized forward) in DistributedDataParallel
+    over ``mesh``'s group, without buffer broadcasts, its gradient buckets
+    all-reduced by :func:`counting_allreduce_hook`.  Building it checks the
+    parameters' shapes across the ranks and broadcasts rank 0's."""
+    device = next(model.parameters()).device
+    with warnings.catch_warnings():
+        # newer releases deprecate broadcast_buffers for forward_sync_buffers,
+        # whose False still broadcasts the buffers once at build time
+        warnings.filterwarnings("ignore", ".*broadcast_buffers",
+                                FutureWarning)
+        ddp = DistributedDataParallel(
+            _Remat(model) if remat else model,
+            device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False, process_group=mesh.group)
+    ddp.register_comm_hook(mesh, counting_allreduce_hook)
+    return ddp
+
+
 def make_train_step(
     loss_name: str = "bce",
     multi_label: bool = True,
@@ -164,6 +215,7 @@ def make_train_step(
     bird_index: int | None = None,
     specific_bird_mask=None,
     geo_masks: GeoMasks | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable:
     """Returns ``step(state, metrics, mel, y, generator=None, possible=None,
     latlng=None) -> (state, metrics)``; ``generator`` draws the dropout
@@ -174,21 +226,37 @@ def make_train_step(
     With ``geo_masks`` set and a per-sample ``latlng`` batch given, the
     weighted_bce negative mask follows the reference's NZ-bounding-box rule
     (possible_from_geo); otherwise it falls back to the target-only
-    approximation (possible_labels_from_targets)."""
+    approximation (possible_labels_from_targets).
+
+    With a ``mesh`` of more than one rank, ``mel`` and ``y`` are this
+    rank's rows of the global batch, the model runs in
+    :func:`data_parallel` (built at the first step, once a model) and the
+    step runs inside the mesh, so BatchNorm takes the global moments."""
     loss_of = _make_loss(loss_name, label_smoothing, class_weights,
                          bird_index, specific_bird_mask, geo_masks)
+    parallel = mesh is not None and mesh.distributed
+    wrapped: list[tuple[nn.Module, DistributedDataParallel]] = []
+
+    def forward(model, inputs, generator):
+        if parallel:
+            if not wrapped or wrapped[0][0] is not model:
+                wrapped[:] = [(model, data_parallel(model, mesh, remat))]
+            return wrapped[0][1](*inputs, generator=generator)
+        if remat:
+            return remat_forward(model, inputs, generator)
+        return model(*inputs, generator=generator)
 
     def step(state: TrainState, metrics, mel, y, generator=None,
              possible=None, latlng=None):
         model = state.model.train()
         inputs = mel if isinstance(mel, tuple) else (mel,)
-        if remat:
-            logits = remat_forward(model, inputs, generator)
-        else:
-            logits = model(*inputs, generator=generator)
-        loss = loss_of(logits, y, possible, latlng)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        # the forward, the loss and the backward (whose remat recompute
+        # replays the BatchNorm all-reduces) run inside the mesh
+        with mesh if parallel else contextlib.nullcontext():
+            logits = forward(model, inputs, generator)
+            loss = loss_of(logits, y, possible, latlng)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():

@@ -234,6 +234,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    condense conv's kernels in the layer map, ``time_fn`` within 10% of
    phase 5's chain, the memory peak).  K1's exact tf record gains
    ``cli/debug``'s launches.
+16. data parallel (``parallel/``): two ranks spawned on ``cuda:0`` over
+   gloo (the port's form of JAX's forced virtual devices; the card is
+   named twice, so ``make_mesh`` picks gloo), badwinner2 f32 at full width
+   (62 labels, 160 mels x 513 frames) from seeded weights, B=128 global
+   (64 a rank) with mixup: one ``train_step`` through K1's ``"default"``
+   tier against the single-process step on the same weights and batch
+   (TF32 off): |loss difference|, the largest relative gradient and
+   running-statistic differences, the two ranks' parameters after Adam
+   (identical); a later step's all-reduced elements (counted by
+   ``parallel.audit``) against the audit's budget and JAX's 4,729,891
+   (``MULTICHIP_r05.json``); each rank's step ms beside the single
+   process's (two ranks share one card: no scaling is measured); the
+   sharded Predictor on 67 windows (K1 centered, padded to 128) against the
+   unsharded one, the gather its only collective; ``train_run`` over the
+   mesh (``mesh_devices``: the card twice) on phase 10's corpus, one step
+   of B=128 global at f32 and learning rate 0 with BN re-estimation and
+   the confusions, against the single-device run: the train and
+   validation losses, the test predictions, one run directory with its
+   artifacts, the ranks' K1 launches (the sharded loaders, ``fit``'s
+   mesh, the evaluation passes' tails).  The same over NCCL on ``cuda:0``
+   / ``cuda:1`` where the machine has two cards.  ``cli/train
+   --data-shards`` starts one rank a card and so needs two cards: not run
+   on one.  The ranks' K1 launches join the training, exact and centered
+   records.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -295,6 +319,38 @@ DEBUG_BATCHES = 16
 DEBUG_CPU_BATCHES = 2
 PROFILE_KERNEL_REL = 0.25
 PROFILE_CHAIN_REL = 0.10
+# phase 16: ranks, the Predictor's windows, timed steps; the ranks' f32
+# step against one process's on the same weights and batch (TF32 off): the
+# loss to 1e-5 relative, running statistics to 1e-4 of each tensor's max,
+# the gradients' largest relative difference printed: f32 train-mode
+# BatchNorm gradients of the seeded badwinner2 are themselves up to 5.8e-2
+# of a tensor's max from float64 ones (the CPU at B=4, one process or two
+# alike), so the gradients are held in float64 at B=8 (4 a rank), where
+# only summation order and the f32 logits separate the two runs (the CPU
+# rehearsal at B=4: 7.8e-7): gradients and statistics to 1e-5 of each
+# tensor's max, and Adam's update to 1e-3 of lr wherever the gradient is
+# clear of that (above 1e-3 of its tensor's max: Adam's first step, lr * g
+# / (|g| + eps), turns a tiny difference near g = 0 into a full lr); the
+# sharded probabilities as JAX's dry run holds them
+# (__graft_entry__.py:223); the group's timeout
+DP_RANKS = 2
+DP_BATCH = TRAIN_BATCH
+DP_WINDOWS = 67
+DP_TIMED_STEPS = 5
+DP_F64_BATCH = 8
+DP_LOSS_REL = 1e-5
+DP_STAT_REL = 1e-4
+DP_F64_REL = 1e-5
+DP_PROB_RTOL, DP_PROB_ATOL = 2e-5, 2e-6
+DP_TIMEOUT_S = 300.0
+DP_JAX_ALL_REDUCED = 4_729_891  # MULTICHIP_r05.json, params 4,720,767
+# phase 16's train_run on phase 10's corpus: one step of B=128 global at
+# f32 and learning rate 0 (its numbers then follow the data path alone),
+# against the single-device run: the train and validation losses to
+# DP_LOSS_REL, the test predictions (after BN re-estimation, whose
+# statistics differ in f32 summation order) to 1e-4 / 1e-5
+DP_RUN_STEPS = 1
+DP_RUN_RTOL, DP_RUN_ATOL = 1e-4, 1e-5
 MEL_REL_TOL = 1e-5
 PCEN_ABS_TOL = 1e-4
 # f32 logits of the kernel path vs the plain-featurizer path, relative to
@@ -3217,6 +3273,460 @@ def corpus_tools_phase(dev, cfg, card, model, chain, requests,
     return debug_launches
 
 
+
+def dp_sizes(corpus: Path, run_root: Path) -> dict:
+    """Phase 16's sizes and paths, handed to the ranks (spawned processes
+    import this script anew)."""
+    return {"batch": DP_BATCH, "windows": DP_WINDOWS,
+            "steps": DP_TIMED_STEPS, "window_batch": WINDOW_BATCH,
+            "f64_batch": DP_F64_BATCH, "corpus": str(corpus),
+            "run_root": str(run_root)}
+
+
+def dp_batch(cfg, n: int):
+    """Phase 16's global batch of ``n`` from a numpy seed: ``(raw, y, raw2,
+    y2)``, the mixup partner the batch rolled by one."""
+    import numpy as np
+
+    x, y = tone_band_batch(n, NUM_LABELS, cfg.samples_per_clip, cfg.sr,
+                           SEED + 16)
+    partner = np.roll(np.arange(n), 1)
+    return x, y, x[partner], y[partner]
+
+
+def dp_windows(cfg, n: int):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 17)
+    return rng.standard_normal((n, cfg.samples_per_clip)).astype(np.float32)
+
+
+def dp_model(cfg, weights, dev):
+    """badwinner2 f32 at full width with ``weights``, in a fresh train
+    state on ``dev``."""
+    from audio_training_tpu_torch.models import build_model
+    from audio_training_tpu_torch.train import create_train_state
+
+    model = build_model("badwinner2", NUM_LABELS, logits_only=True,
+                        n_mels=cfg.n_mels, mel_frames=cfg.mel_frames).module
+    model.load_state_dict(weights)
+    return create_train_state(model, learning_rate=TRAIN_LR, device=dev)
+
+
+def dp_stepper(cfg, state, batch, mesh, dev):
+    """One call: preprocess (mixup, K1's ``"default"`` tier) and one train
+    step of ``batch`` (this rank's rows under ``mesh``), from generators
+    seeded alike on every rank."""
+    import contextlib
+
+    import torch
+
+    from audio_training_tpu_torch.data import make_preprocess_fn
+    from audio_training_tpu_torch.train import fresh_metrics, make_train_step
+
+    pre = make_preprocess_fn(cfg, augment=True, device=dev)
+    step = make_train_step(mesh=mesh)
+    gen_pre = torch.Generator(device=dev).manual_seed(SEED)
+    gen_drop = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def one():
+        with mesh if mesh is not None else contextlib.nullcontext():
+            mel, yy = pre(*batch, gen_pre)
+        return step(state, fresh_metrics(dev), mel, yy, gen_drop)
+
+    return one
+
+
+def dp_f64_step(cfg, weights, dev, mesh, n: int) -> dict:
+    """One float64 train step on a global batch of ``n`` (this rank's rows
+    under ``mesh``): the whole batch's image is made first, on every rank
+    alike, so that the two runs differ in the step's summation order
+    alone.  Returns the loss, gradients and state after the step."""
+    import contextlib
+
+    import torch
+
+    from audio_training_tpu_torch.data import make_preprocess_fn
+    from audio_training_tpu_torch.parallel import batch_sharding
+    from audio_training_tpu_torch.train import fresh_metrics, make_train_step
+    from audio_training_tpu_torch.train.metrics import metrics_compute
+
+    batch = tuple(torch.as_tensor(a, device=dev) for a in dp_batch(cfg, n))
+    mel, y = make_preprocess_fn(cfg, augment=True, device=dev)(
+        *batch, torch.Generator(device=dev).manual_seed(SEED))
+    rows = slice(None) if mesh is None else batch_sharding(mesh).rows(n)
+    state = dp_model(cfg, weights, dev)
+    state.model.double()
+    state, metrics = make_train_step(mesh=mesh)(
+        state, fresh_metrics(dev), mel[rows].double(), y[rows].double(),
+        torch.Generator(device=dev).manual_seed(SEED + 1))
+    with mesh if mesh is not None else contextlib.nullcontext():
+        return {"loss": metrics_compute(metrics)["loss"],
+                **dp_tensors(state.model)}
+
+
+def dp_tensors(model) -> dict:
+    """A model's gradients and state after a step, copied to the host."""
+    return {"grads": {n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()},
+            "after": {n: t.detach().cpu().clone()
+                      for n, t in model.state_dict().items()}}
+
+
+def dp_train_run(cfg, dev, corpus: str, root: str,
+                 devices: list | None) -> dict:
+    """``train_run`` on phase 10's corpus (``DP_RUN_STEPS`` steps of
+    B=``DP_BATCH`` global, f32, learning rate 0, BN re-estimation and the
+    epoch and test confusions): over the mesh of ``devices`` in a rank (the
+    sharded loaders, ``fit(mesh=)``, the evaluation passes' rows), or on
+    ``dev`` alone where ``devices`` is None.  Returns its history, test
+    predictions and metrics, the run directory's files (as this process
+    sees them) and K1's launches."""
+    from pathlib import Path
+
+    import torch
+
+    from audio_training_tpu_torch.config import TrainConfig
+    from audio_training_tpu_torch.eval.confusion import load_raw_predictions
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.train import harness
+
+    n = 1 if devices is None else len(devices)
+    train_cfg = TrainConfig(
+        model_name="badwinner2", batch_size=DP_BATCH, learning_rate=0.0,
+        epochs=1, compute_dtype="float32", bn_reestimate=True,
+        epoch_confusion=True, num_data_shards=n, seed=SEED)
+    ffz.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = harness.train_run(
+        [corpus], "dp-run" if n > 1 else "one-run", checkpoint_root=root,
+        train_cfg=train_cfg, featurizer=cfg, steps_per_epoch=DP_RUN_STEPS,
+        device=dev, mesh_devices=devices)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_dir = Path(result.run_dir)
+    raw = run_dir / "confusion-raw.npy"
+    return {"history": result.history, "run_s": run_s,
+            "test_metrics": {k: v for k, v in result.test_metrics.items()
+                             if k != "per_label"},
+            "y_pred": load_raw_predictions(raw)["y_pred"]
+            if raw.exists() else None,
+            "files": sorted(str(f.relative_to(run_dir))
+                            for f in run_dir.rglob("*") if f.is_file()),
+            "counts": ffz.launch_counts()}
+
+
+def dp_rank(rank: int, repo: str, devices: list, weights_path: str,
+            sizes: dict) -> dict:
+    """One rank of phase 16: its rows of the batch through one DP step
+    (compared by the parent), a later step counted for the audit, timed
+    steps, the sharded Predictor over the windows, and ``train_run`` over
+    the mesh (:func:`dp_train_run`)."""
+    import contextlib
+
+    sys.path.insert(0, repo)
+    import torch
+
+    from audio_training_tpu_torch.config import (
+        FeaturizerConfig, InferenceConfig)
+    from audio_training_tpu_torch.infer import Predictor
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.parallel import (
+        make_mesh, replicated, shard_batch)
+    from audio_training_tpu_torch.parallel.audit import counting
+    from audio_training_tpu_torch.train.metrics import metrics_compute
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = FeaturizerConfig()
+    mesh = make_mesh(num_data=len(devices), devices=devices)
+    dev = mesh.device
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else lambda: None)
+    weights = torch.load(weights_path, map_location="cpu", weights_only=True)
+    state = dp_model(cfg, weights, dev)
+    replicated(mesh)(state.model)
+    one = dp_stepper(cfg, state,
+                     shard_batch(mesh, *dp_batch(cfg, sizes["batch"])), mesh,
+                     dev)
+    ffz.reset_launch_counts()
+    state, metrics = one()
+    sync()
+    step_counts = ffz.launch_counts()
+    with mesh:
+        loss = metrics_compute(metrics)["loss"]
+    out = {"backend": mesh.backend, "device": str(dev), "loss": loss,
+           "step_counts": step_counts, **dp_tensors(state.model)}
+    with counting() as inv:
+        one()
+        sync()
+    out["inventory"] = inv.ops
+    # the timed steps (CUDA events on the card, the host clock off it)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+    for _ in range(sizes["steps"]):
+        one()
+    if dev.type == "cuda":
+        end.record()
+        end.synchronize()
+        out["step_ms"] = start.elapsed_time(end) / sizes["steps"]
+    else:
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / sizes["steps"]
+    del one, state
+    out["f64"] = dp_f64_step(cfg, weights, dev, mesh, sizes["f64_batch"])
+    # the sharded Predictor from the phase's starting weights
+    module = dp_model(cfg, weights, dev).model
+    pred = Predictor(module, [f"l{i}" for i in range(NUM_LABELS)], cfg,
+                     InferenceConfig(max_window_batch=sizes["window_batch"]),
+                     device=dev, mesh=mesh)
+    windows = dp_windows(cfg, sizes["windows"])
+    ffz.reset_launch_counts()
+    with counting() as inv:
+        out["probs"] = pred.predict_windows(windows)
+        sync()
+    out["predict_counts"] = ffz.launch_counts()
+    out["predict_inventory"] = inv.ops
+    del pred, module
+    torch.cuda.empty_cache()
+    out["run"] = dp_train_run(cfg, dev, sizes["corpus"],
+                              f"{sizes['run_root']}/{mesh.backend}", devices)
+    with contextlib.suppress(Exception):
+        torch.cuda.empty_cache()
+    return out
+
+
+def data_parallel_phase(dev, cfg, card) -> dict[str, int]:
+    """Phase 16: data parallel over two ranks on one card (gloo), and over
+    two cards (NCCL) where the machine has them; see the module docstring.
+    Returns the ranks' K1 launches by counter, for the kernel records."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audio_training_tpu_torch.config import InferenceConfig
+    from audio_training_tpu_torch.infer import Predictor
+    from audio_training_tpu_torch.parallel.audit import (
+        CollectiveInventory, audit_dp_inference, audit_dp_train_step)
+    from audio_training_tpu_torch.parallel.multihost import run_ranks
+    from audio_training_tpu_torch.train import create_train_state
+    from audio_training_tpu_torch.train.metrics import metrics_compute
+
+    t_phase = time.perf_counter()
+    out_dir = REPO / "build" / "chip_smoke_dp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    weights_path = out_dir / "weights.pt"
+    from audio_training_tpu_torch.models import build_model
+
+    seeded = create_train_state(
+        build_model("badwinner2", NUM_LABELS, logits_only=True,
+                    n_mels=cfg.n_mels, mel_frames=cfg.mel_frames).module,
+        learning_rate=TRAIN_LR, seed=SEED, device="cpu")
+    weights = seeded.model.state_dict()
+    torch.save(weights, weights_path)
+    n_params = sum(p.numel() for p in seeded.model.parameters())
+    n_bn = sum(b.numel() for n, b in seeded.model.named_buffers()
+               if n.endswith(("running_mean", "running_var")))
+    del seeded
+
+    # the single-process step on the whole batch
+    state = dp_model(cfg, weights, dev)
+    batch = tuple(torch.as_tensor(a, device=dev)
+                  for a in dp_batch(cfg, DP_BATCH))
+    one = dp_stepper(cfg, state, batch, None, dev)
+    state, metrics = one()
+    torch.cuda.synchronize()
+    single = {"loss": metrics_compute(metrics)["loss"],
+              **dp_tensors(state.model)}
+    torch.cuda.reset_peak_memory_stats()
+    single_ms = time_ms(one, iters=DP_TIMED_STEPS, warmup=1)
+    single_peak = torch.cuda.max_memory_allocated() / 1e9
+    del one, state, batch
+    single64 = dp_f64_step(cfg, weights, dev, None, DP_F64_BATCH)
+    module = dp_model(cfg, weights, dev).model
+    probs_1 = Predictor(module, [f"l{i}" for i in range(NUM_LABELS)], cfg,
+                        InferenceConfig(max_window_batch=WINDOW_BATCH),
+                        device=dev).predict_windows(dp_windows(cfg,
+                                                               DP_WINDOWS))
+    del module
+    torch.cuda.empty_cache()
+    corpus = REPO / "build" / "chip_smoke_corpus"  # phase 10's
+    run_root = out_dir / "runs"
+    shutil.rmtree(run_root, ignore_errors=True)
+    run_1 = dp_train_run(cfg, dev, str(corpus), str(run_root / "one"), None)
+    torch.cuda.empty_cache()
+    log(f"phase 16: badwinner2 f32 at {cfg.n_mels} x {cfg.mel_frames}, "
+        f"{NUM_LABELS} labels, {n_params} parameters ({n_bn} BN statistics), "
+        f"B={DP_BATCH} global; the single-process step {single_ms:.3f} ms, "
+        f"peak {single_peak:.2f} GB {card}")
+
+    from audio_training_tpu_torch.infer.windows import bucket_pad
+
+    padded = -(-bucket_pad(DP_WINDOWS, InferenceConfig().bucket_sizes)
+               // DP_RANKS) * DP_RANKS
+    chunks = -(-padded // WINDOW_BATCH)
+
+    sizes = {k: n for k, (n, _) in CORPUS_SPLITS.items()}
+    run_want = {k: 0 for k in run_1["counts"]}
+    run_want["fused_featurizer_mel_bf16"] = DP_RUN_STEPS
+    # a validation batch an epoch (the mesh drops the tail), a BN
+    # re-estimation and a test batch each (their tails kept)
+    run_want["fused_featurizer_mel"] = (
+        sizes["validation"] // DP_BATCH + math.ceil(sizes["train"] / DP_BATCH)
+        + math.ceil(sizes["test"] / DP_BATCH))
+
+    def compare_runs(runs, label: str) -> None:
+        r0 = runs[0]
+        rel = {k: abs(r0["history"][k][0] - run_1["history"][k][0])
+               / abs(run_1["history"][k][0]) for k in ("loss", "val_loss")}
+        err = np.abs(r0["y_pred"] - run_1["y_pred"])
+        ok = bool((err <= DP_RUN_ATOL + DP_RUN_RTOL
+                   * np.abs(run_1["y_pred"])).all())
+        log(f"check DP train_run {label}: {DP_RUN_STEPS} step of "
+            f"B={DP_BATCH} global over phase 10's corpus ({sizes}), f32, "
+            f"lr 0, BN re-estimation and the confusions; train loss "
+            f"{rel['loss']:.3e} and validation loss {rel['val_loss']:.3e} "
+            f"relative to the single-device run's (limit {DP_LOSS_REL}); "
+            f"test predictions {r0['y_pred'].shape} max abs difference "
+            f"{err.max():.3e} (rtol {DP_RUN_RTOL}, atol {DP_RUN_ATOL}): "
+            f"{ok}; test_samples {r0['test_metrics']['test_samples']}; "
+            f"K1 launches a rank {[r['counts'] for r in runs]} (want "
+            f"{run_want}); {[round(r['run_s'], 2) for r in runs]} s a rank, "
+            f"the single-device run {run_1['run_s']:.2f} s {card}")
+        check(max(rel.values()) <= DP_LOSS_REL and ok,
+              f"the DP train_run ({label}) differs from the single-device "
+              f"run")
+        # the epoch metrics are summed over the ranks; only epoch_time,
+        # each rank's own clock, differs
+        same = lambda h: {k: v for k, v in h.items()  # noqa: E731
+                          if k != "epoch_time"}
+        check(all(same(r["history"]) == same(r0["history"])
+                  and r["test_metrics"] == r0["test_metrics"] for r in runs),
+              f"the ranks' train_run results ({label}) differ")
+        check(r0["test_metrics"]["test_samples"] == sizes["test"]
+              and r0["y_pred"].shape == run_1["y_pred"].shape,
+              f"the DP train_run's test metrics ({label}) miss samples")
+        for name in ("chkpt.pt", "history.json", "metadata.txt",
+                     "confusion.npy", "epoch-confusion/epoch_000.npy"):
+            check(name in r0["files"], f"the DP run ({label}) wrote no "
+                  f"{name}")
+        check(all(r["counts"] == run_want for r in runs),
+              f"a rank's K1 launches in train_run ({label}) are not the "
+              f"path's")
+
+    def compare(results, label: str) -> dict[str, int]:
+        r0, r1 = results[0], results[1]
+        loss_diff = abs(r0["loss"] - single["loss"])
+        grad_rel = max(
+            float((r0["grads"][n] - g).abs().max() / g.abs().max())
+            for n, g in single["grads"].items())
+        stats = [n for n in single["after"] if "running" in n]
+        stat_rel = max(
+            float((r0["after"][n] - single["after"][n]).abs().max()
+                  / single["after"][n].abs().max()) for n in stats)
+        rank_diff = max(float((r0["after"][n] - r1["after"][n]).abs().max())
+                        for n in r0["after"])
+        log(f"check DP step {label}: |loss - single| {loss_diff:.3e} "
+            f"(loss {single['loss']:.6f}, limit {DP_LOSS_REL} relative); "
+            f"largest relative gradient difference {grad_rel:.3e} (f32 "
+            f"noise; held in float64 below); largest running-statistic "
+            f"difference {stat_rel:.3e} of the tensor's max (limit "
+            f"{DP_STAT_REL}); the "
+            f"two ranks' largest parameter difference after Adam "
+            f"{rank_diff:.3e} (must be 0)")
+        check(loss_diff <= DP_LOSS_REL * abs(single["loss"]),
+              f"the DP loss ({label}) differs from one process's")
+        check(stat_rel < DP_STAT_REL,
+              f"the DP BatchNorm statistics ({label}) differ")
+        f64 = r0["f64"]
+        rel64 = {k: max(float((f64[k][n] - t).abs().max() / t.abs().max())
+                        for n, t in single64[k].items()
+                        if k == "grads" or "running" in n)
+                 for k in ("grads", "after")}
+        moved = 0.0
+        for n, g in single64["grads"].items():
+            clear = g.abs() > 1e-3 * g.abs().max()
+            moved = max(moved, float(((f64["after"][n] - single64["after"][n])
+                                      .abs() / TRAIN_LR)[clear].max()))
+        loss64 = abs(f64["loss"] - single64["loss"]) / abs(single64["loss"])
+        log(f"check DP step {label} in float64, B={DP_F64_BATCH}: loss "
+            f"{loss64:.3e} relative, gradients {rel64['grads']:.3e}, running "
+            f"statistics {rel64['after']:.3e} of each tensor's max (limits "
+            f"{DP_F64_REL}); Adam's update where the gradient is clear "
+            f"{moved:.3e} of lr (limit 1e-3)")
+        check(max(loss64, rel64["grads"], rel64["after"]) < DP_F64_REL
+              and moved < 1e-3,
+              f"the float64 DP step ({label}) differs from one process's")
+        check(rank_diff == 0.0, f"the ranks' parameters ({label}) differ")
+        for r in results:
+            inv = CollectiveInventory(r["inventory"])
+            audit_dp_train_step(inv, n_params, n_bn)
+            total = inv.total_elements("all-reduce")
+            pinv = CollectiveInventory(r["predict_inventory"])
+            audit_dp_inference(pinv, padded * NUM_LABELS)
+        budget = n_params + 4 * n_bn + 4096
+        log(f"audit DP step {label}: {inv.summary()}: {total} elements "
+            f"all-reduced a step (JAX's audit of badwinner2 at production "
+            f"geometry: {DP_JAX_ALL_REDUCED}); budget {n_params} params to "
+            f"{budget} (params + 4 x {n_bn} BN + 4096); the Predictor: "
+            f"{pinv.summary()} (the ({padded}, {NUM_LABELS}) probabilities)")
+        for r in results:
+            err = np.abs(r["probs"] - probs_1)
+            ok = bool((err <= DP_PROB_ATOL + DP_PROB_RTOL
+                       * np.abs(probs_1)).all())
+            log(f"check sharded Predictor {label}: {r['probs'].shape} on "
+                f"{r['device']}, max abs difference from unsharded "
+                f"{err.max():.3e} (rtol {DP_PROB_RTOL}, atol {DP_PROB_ATOL}): "
+                f"{ok}")
+            check(r["probs"].shape == (DP_WINDOWS, NUM_LABELS) and ok,
+                  f"the sharded Predictor ({label}) differs from unsharded")
+        compare_runs([r["run"] for r in results], label)
+        counts: dict[str, int] = {}
+        for r in results:
+            check(r["step_counts"]["fused_featurizer_mel_bf16"] == 1
+                  and r["predict_counts"]["fused_featurizer_mel_centered"]
+                  == chunks, f"a rank's K1 launches ({label}) are not the "
+                  f"path's: {r['step_counts']} {r['predict_counts']}")
+            for c in (r["step_counts"], r["predict_counts"],
+                      r["run"]["counts"]):
+                for k, v in c.items():
+                    counts[k] = counts.get(k, 0) + v
+        log(f"time DP step {label}: rank ms {[round(r['step_ms'], 3) for r in results]} "
+            f"a step of B={DP_BATCH // DP_RANKS} a rank, the single process "
+            f"{single_ms:.3f} ms at B={DP_BATCH}; both ranks share one card "
+            f"here, so these times say nothing about scaling {card}"
+            if label.startswith("gloo") else
+            f"time DP step {label}: rank ms "
+            f"{[round(r['step_ms'], 3) for r in results]} a step of "
+            f"B={DP_BATCH // DP_RANKS} a rank on its own card, the single "
+            f"process {single_ms:.3f} ms at B={DP_BATCH} {card}")
+        return counts
+
+    t0 = time.perf_counter()
+    results = run_ranks(dp_rank, DP_RANKS, args=(
+        str(REPO), [str(dev)] * DP_RANKS, str(weights_path),
+        dp_sizes(corpus, run_root)), backend="gloo", timeout_s=DP_TIMEOUT_S)
+    log(f"phase 16: {DP_RANKS} ranks on {dev} over {results[0]['backend']} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    counts = compare(results, f"gloo, {DP_RANKS} ranks on one card")
+    if dev.type == "cuda" and torch.cuda.device_count() >= DP_RANKS:
+        results = run_ranks(dp_rank, DP_RANKS, args=(
+            str(REPO), [f"cuda:{i}" for i in range(DP_RANKS)],
+            str(weights_path), dp_sizes(corpus, run_root)), backend="nccl",
+            timeout_s=DP_TIMEOUT_S)
+        check(results[0]["backend"] == "nccl", "the cards' mesh is not NCCL")
+        for k, v in compare(results, f"nccl, {DP_RANKS} cards").items():
+            counts[k] += v
+    else:
+        log(f"phase 16: NCCL across cards not run: "
+            f"{torch.cuda.device_count()} card(s) visible")
+    log(f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4304,6 +4814,15 @@ def main() -> None:
     record["launches"] += n
     log(f"record fused_featurizer_mel: {record['launches']} launches with "
         f"phase 15's {n}")
+    # ---- 16. data parallel --------------------------------------------------
+    # the ranks' K1 launches join the training, exact and centered records
+    dp_counts = data_parallel_phase(dev, cfg, card)
+    for name in ("fused_featurizer_mel_bf16", "fused_featurizer_mel",
+                 "fused_featurizer_mel_centered"):
+        record = next(k for k in kernels if k["name"] == name)
+        record["launches"] += dp_counts[name]
+        log(f"record {name}: {record['launches']} launches with phase 16's "
+            f"{dp_counts[name]}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

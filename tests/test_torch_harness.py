@@ -51,13 +51,14 @@ TRAIN = dict(model_name="badwinner2", batch_size=4, learning_rate=1e-3,
              epoch_confusion=True)
 
 
-def write_corpus(root, cfg, shards=2, seed=0):
-    """Tone-band clips over noise, ``shards`` GZIP shards a split, and the
-    build's ``training-meta.json`` (labels, counts, featurizer)."""
+def write_corpus(root, cfg, shards=2, seed=0, splits=SPLITS):
+    """Tone-band clips over noise (``splits`` maps each split to its clip
+    count), ``shards`` GZIP shards a split, and the build's
+    ``training-meta.json`` (labels, counts, featurizer)."""
     rng = np.random.default_rng(seed)
     t = np.arange(cfg.samples_per_clip) / cfg.sr
     counts = {}
-    for split, n in SPLITS.items():
+    for split, n in splits.items():
         recs = []
         for i in range(n):
             k = i % len(SPECIES)
@@ -93,6 +94,25 @@ def run(corpus, tmp_path_factory):
         train_cfg=TrainConfig(**TRAIN), featurizer=FeaturizerConfig(**GEOMETRY),
         steps_per_epoch=2, device="cpu")
     return result
+
+
+@pytest.fixture(scope="module")
+def one_step_run(corpus, tmp_path_factory):
+    """The single-device run that the data-parallel runs are held to: one
+    step, so that its train loss is taken before any update."""
+    return harness.train_run(
+        [corpus], "one", checkpoint_root=tmp_path_factory.mktemp("one"),
+        train_cfg=TrainConfig(**TRAIN), featurizer=FeaturizerConfig(**GEOMETRY),
+        steps_per_epoch=1, device="cpu")
+
+
+def assert_history_matches(hist, want):
+    """The train loss (one step, before any update) within 1e-5; the
+    validation loss, after Adam's first update, within 1e-3: that update
+    is +-lr an element, and the f32 rounding of a gradient element near 0,
+    which differs between one process and two, can flip its sign."""
+    np.testing.assert_allclose(hist["loss"], want["loss"], rtol=1e-5)
+    np.testing.assert_allclose(hist["val_loss"], want["val_loss"], rtol=1e-3)
 
 
 def test_train_run_labels_match_jax_init_labels(run, corpus):
@@ -198,7 +218,27 @@ def test_parse_args_matches_jax(argv):
     (["--backbone-weights", "notop.h5"], "Model families"),
     (["--data-shards", "2"], "Data parallel"),
 ])
-def test_cli_exits_2_naming_the_item(flags, item, capsys, tmp_path):
+def test_cli_exits_2_naming_the_item(flags, item, capsys, tmp_path, corpus,
+                                     one_step_run):
+    """The backbone transplant exits 2 naming its ROADMAP.md item; data
+    parallel, once refused the same way, trains: ``--data-shards 2 --device
+    cpu`` starts two gloo ranks, and its one run directory's history is the
+    single-device run's (:func:`assert_history_matches`)."""
+    if item == "Data parallel":
+        conf = tmp_path / "train.json"
+        conf.write_text(json.dumps({"compute_dtype": "float32",
+                                    "bn_reestimate": True}))
+        assert cli.main(["dp", "-d", str(corpus), "--checkpoint-dir",
+                         str(tmp_path), "--batch-size", "4", "--lr", "0.001",
+                         "--epochs", "1", "--steps-per-epoch", "1",
+                         "--epoch-confusion", "-c", str(conf), "--device",
+                         "cpu"] + flags) == 0
+        assert [p.name for p in tmp_path.iterdir() if p.is_dir()] == ["dp"]
+        hist = json.loads((tmp_path / "dp" / "history.json").read_text())
+        assert_history_matches(hist, one_step_run.history)
+        meta = metadata.load_metadata(tmp_path / "dp")
+        assert meta["test_samples"] == SPLITS["test"]
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(["run", "-d", str(tmp_path)] + flags)
     assert exc.value.code == 2
@@ -281,13 +321,31 @@ def test_cli_trains_each_model_name(name, feature_corpus, tmp_path):
         assert (d / "confusion.npy").exists()
 
 
-def test_train_run_refuses_unported_configs(corpus, tmp_path):
-    for kw, item in (({"train_cfg": TrainConfig(num_data_shards=4)},
-                      "Data parallel"),
-                     ({"backbone_weights": "notop.h5"}, "Model families")):
-        with pytest.raises(NotImplementedError, match=item):
-            harness.train_run([corpus], "x", checkpoint_root=tmp_path,
-                              device="cpu", **kw)
+def test_train_run_refuses_unported_configs(corpus, tmp_path, one_step_run):
+    """``num_data_shards=2``, once refused, trains on two gloo ranks: every
+    rank returns the single-device run's history (as
+    :func:`assert_history_matches` holds it) and the same test metrics, and
+    the run directory holds every artifact.  The backbone transplant still
+    raises."""
+    from audio_training_tpu_torch.parallel.multihost import run_ranks
+
+    import torch_dp_ranks
+
+    results = run_ranks(torch_dp_ranks.train_run_rank, 2, args=(
+        [corpus], tmp_path, dict(TRAIN, num_data_shards=2),
+        dict(featurizer=FeaturizerConfig(**GEOMETRY), steps_per_epoch=1)),
+        timeout_s=120.0)
+    for r in results:
+        assert r["labels"] == one_step_run.labels
+        assert_history_matches(r["history"], one_step_run.history)
+        assert r["test_metrics"]["test_samples"] == SPLITS["test"]
+    assert results[0]["test_metrics"] == results[1]["test_metrics"]
+    for name in ("chkpt.pt", "history.json", "confusion.npy",
+                 "epoch-confusion/epoch_000.npy", "metadata.txt"):
+        assert name in results[0]["files"], name
+    with pytest.raises(NotImplementedError, match="Model families"):
+        harness.train_run([corpus], "x", checkpoint_root=tmp_path,
+                          device="cpu", backbone_weights="notop.h5")
 
 
 def test_cli_trains_from_the_corpus(corpus, tmp_path):
