@@ -5,8 +5,8 @@
 Pipeline: load sidecar-metadata corpus -> per-label bin-aware split ->
 optional balancing -> leakage asserts -> GZIP TFRecord shards +
 training-meta.json.  Host code throughout, as in the JAX package.  Every
-flag of the JAX CLI is known; ``--embedding-model`` exits 2 with its
-reason (it loads a TensorFlow saved model).
+flag of the JAX CLI is known; ``--embedding-model`` (a local Perch saved
+model) needs TensorFlow where the build runs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from audio_training_tpu_torch.corpus import (
     validate_datasets,
     write_training_meta,
 )
-from audio_training_tpu_torch.corpus.writer import EMBEDDING_REFUSAL
 from audio_training_tpu_torch.utils import init_logging
 
 
@@ -68,7 +67,9 @@ def parse_args(argv=None):
                              "sample with track freq bounds (feeds train "
                              "--filter-freq; audiodataset.py:1301 intent)")
     parser.add_argument("--embedding-model", default=None,
-                        help=argparse.SUPPRESS)
+                        help="Local Perch saved-model path: store a "
+                             "per-sample embedding in each record "
+                             "(audiowriter DO_EMBEDDING parity)")
     parser.add_argument("--shards-per-worker", default=4, type=int)
     parser.add_argument("--signal", action="count",
                         help="Treat <dir> as a pre-split signal-WAV tree "
@@ -79,10 +80,7 @@ def parse_args(argv=None):
                         help="Instead of building records, export per-tag "
                              "signal-region audio chunks to this directory "
                              "(build.create_signal_data)")
-    args = parser.parse_args(argv)
-    if args.embedding_model is not None:
-        parser.error(f"--embedding-model is not ported: it {EMBEDDING_REFUSAL}")
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:

@@ -7,9 +7,12 @@ The run directory holds ``metadata.txt`` and the port's weights file
 (``cli/freeze``) holds ``audioModel.pt``.  The Predictor runs on the CUDA
 card unless given ``--device cpu``.
 
-Every flag of the JAX CLI is known.  ``--embedding-model`` /
-``--embedding-kind`` / ``--yamnet-model`` are not ported and exit 2 with
-their reason (they load TensorFlow saved models).
+Every flag of the JAX CLI is known.  An ``embeddings`` run predicts
+through ``infer/embeddings.EmbeddingPredictor`` with ``--embedding-model``
+(a local Perch or YAMNet saved model, ``--embedding-kind``), and
+``--yamnet-model`` adds a speech score per file; these three load
+TensorFlow saved models, so they need TensorFlow where they run, as in the
+JAX package (the card's machine has none).
 """
 
 from __future__ import annotations
@@ -23,16 +26,6 @@ import numpy as np
 
 from audio_training_tpu_torch.utils import init_logging
 
-_ITEM = ('ROADMAP.md queue 1, "Evaluation, deployment and the rest of '
-         'long-recording inference"')
-_TENSORFLOW = ("loads a TensorFlow saved model (infer/embeddings.py), and the "
-               "port does not depend on TensorFlow")
-# flag -> why it exits 2
-_UNPORTED = {
-    "--embedding-model": _TENSORFLOW,
-    "--embedding-kind": _TENSORFLOW,
-    "--yamnet-model": _TENSORFLOW,
-}
 AUDIO_SUFFIXES = (".wav", ".mp3", ".m4a", ".flac")
 
 
@@ -60,6 +53,18 @@ def parse_args(argv=None):
     parser.add_argument("--thresholds-json", default=None,
                         help="Per-class thresholds JSON (label -> threshold)"
                              " (preeval.py:143-221 + predict.py:503 parity)")
+    parser.add_argument("--embedding-model", default=None,
+                        help="Local saved-model path for the embedding "
+                             "extractor when the run is an 'embeddings' "
+                             "linear probe (predict.py:380-396 parity)")
+    parser.add_argument("--embedding-kind", default="perch",
+                        choices=["perch", "yamnet"],
+                        help="Embedding extractor family for "
+                             "--embedding-model (chirp=perch)")
+    parser.add_argument("--yamnet-model", default=None,
+                        help="Local YAMNet saved-model path: adds a speech "
+                             "score per file (predict.get_speech_score, "
+                             "predict.py:1051)")
     parser.add_argument("--folder-eval", default=None,
                         help="Score best_track-annotated recordings under "
                              "this dir (predict.predict_on_folder parity)")
@@ -75,13 +80,7 @@ def parse_args(argv=None):
                         help="Confusion output prefix for --test-split")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the Predictor (cuda or cpu)")
-    for flag in _UNPORTED:
-        parser.add_argument(flag, help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    for flag, reason in _UNPORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            parser.error(f"{flag} is not ported: it {reason}")
-    return args
+    return parser.parse_args(argv)
 
 
 def weights_path(model_dir: Path, weights: str) -> Path:
@@ -96,16 +95,21 @@ def weights_path(model_dir: Path, weights: str) -> Path:
     if (model_dir / weights).is_dir():
         raise FileNotFoundError(
             f"{model_dir / weights} is an orbax checkpoint of the JAX "
-            f"package; the port reads its own {SUFFIX} files only (reading "
-            f"orbax checkpoints stays open in {_ITEM})"
+            f"package; the port reads its own {SUFFIX} files only (orbax "
+            f"imports JAX, which the port does not; convert the variables "
+            f"with models/convert.state_dict_from_flax)"
         )
     raise FileNotFoundError(f"no {weights}{SUFFIX} weights file in {model_dir}")
 
 
 def load_predictor(model_dir: Path, weights: str, aggregation: str = "mean",
-                   threshold: float = 0.7, device: str = "cuda"):
+                   threshold: float = 0.7, embedding_model: str | None = None,
+                   embedding_kind: str = "perch", device: str = "cuda"):
     """Reconstruct a Predictor from a run/deployment dir
-    (predict.py:743-816: model + metadata.txt)."""
+    (predict.py:743-816: model + metadata.txt).  An ``embeddings`` run
+    yields an :class:`EmbeddingPredictor` over the chirp/yamnet extractor
+    (predict.py:380-396), which raises ``RuntimeError`` without a loadable
+    ``embedding_model``."""
     from audio_training_tpu_torch.config import InferenceConfig
     from audio_training_tpu_torch.infer.predictor import Predictor
     from audio_training_tpu_torch.models import build_model
@@ -127,6 +131,26 @@ def load_predictor(model_dir: Path, weights: str, aggregation: str = "mean",
                          in_channels=channels).module
     module.load_state_dict(load_state_dict(weights_path(model_dir, weights)))
     infer_cfg = InferenceConfig(threshold=threshold, aggregation=aggregation)
+
+    if model_name == "embeddings":
+        from audio_training_tpu_torch.infer.embeddings import (
+            EmbeddingPredictor,
+            PerchModel,
+            YamnetModel,
+        )
+
+        embedder = (PerchModel(embedding_model) if embedding_kind == "perch"
+                    else YamnetModel(embedding_model))
+        if not embedder.available:
+            raise RuntimeError(
+                "an 'embeddings' run needs --embedding-model pointing at a "
+                f"local {embedding_kind} saved model"
+            )
+        return EmbeddingPredictor(
+            embedder, module, labels, cfg, infer_cfg,
+            multi_label=multi_label, device=device,
+        ), meta
+
     return Predictor(
         module.to(device), labels, cfg, infer_cfg,
         model_name=model_name,
@@ -139,18 +163,26 @@ def load_predictor(model_dir: Path, weights: str, aggregation: str = "mean",
 
 
 def predict_file(predictor, path: Path, grid_meta=None, lat=None, lng=None,
-                 month=None, threshold=0.7, denoise=False) -> list[dict]:
-    """Per-track meta dicts of one recording, predictions included.
-    ``denoise`` runs ``ops/denoise.spectral_gate`` on the Predictor's device
-    before detection; with ``grid_meta`` and ``lat`` each track's labels are
+                 month=None, threshold=0.7, denoise=False,
+                 speech_scorer=None) -> tuple[list[dict], float | None]:
+    """Per-track meta dicts of one recording, predictions included, and its
+    speech score (None without a ``speech_scorer``, a ``YamnetModel``).
+    The speech score resamples the already-decoded frames
+    (predict.get_speech_score, predict.py:1051).  ``denoise`` runs
+    ``ops/denoise.spectral_gate`` on the Predictor's device before
+    detection; with ``grid_meta`` and ``lat`` each track's labels are
     masked to the species seen around (lat, lng) in ``month``
     (``infer/ebirdgrid.apply_species_mask``)."""
     import torch
 
-    from audio_training_tpu_torch.corpus.audioio import load_recording
+    from audio_training_tpu_torch.corpus.audioio import load_recording, resample
     from audio_training_tpu_torch.infer.ebirdgrid import apply_species_mask
 
     frames, sr = load_recording(path, target_sr=predictor.cfg.sr)
+    speech_score = None
+    if speech_scorer is not None:
+        speech_score = speech_scorer.speech_score(
+            resample(frames, sr, speech_scorer.sample_rate))
     if denoise:
         from audio_training_tpu_torch.ops.denoise import spectral_gate
 
@@ -172,15 +204,24 @@ def predict_file(predictor, path: Path, grid_meta=None, lat=None, lng=None,
             r.confidences = [round(float(masked[i]) * 100) for i in kept]
     # the metas are read after the mask (the JAX CLI reads them before it,
     # so its output keeps the unmasked labels)
-    return [t.get_meta() for t in tracks]
+    return [t.get_meta() for t in tracks], speech_score
 
 
 def main(argv=None) -> int:
     init_logging()
     args = parse_args(argv)
-    predictor, meta = load_predictor(Path(args.model), args.weights,
-                                  args.aggregation, args.threshold,
-                                  device=args.device)
+    predictor, meta = load_predictor(
+        Path(args.model), args.weights, args.aggregation, args.threshold,
+        embedding_model=args.embedding_model,
+        embedding_kind=args.embedding_kind, device=args.device)
+    speech_scorer = None
+    if args.yamnet_model:
+        from audio_training_tpu_torch.infer.embeddings import YamnetModel
+
+        speech_scorer = YamnetModel(args.yamnet_model)
+        if not speech_scorer.available:
+            logging.error("could not load YAMNet from %s", args.yamnet_model)
+            return 1
     grid_meta = None
     if args.grid:
         grid_meta = json.loads(Path(args.grid).read_text())
@@ -235,9 +276,10 @@ def main(argv=None) -> int:
 
     all_results = {}
     for f in files:
-        track_meta = predict_file(
+        track_meta, speech_score = predict_file(
             predictor, f, grid_meta, args.lat, args.lng, args.month,
-            threshold, denoise=bool(args.denoise))
+            threshold, denoise=bool(args.denoise),
+            speech_scorer=speech_scorer)
         for tm in track_meta:
             for p in tm["predictions"]:
                 logging.info(
@@ -246,6 +288,9 @@ def main(argv=None) -> int:
                     p["labels"] or p.get("raw_tag"),
                     p["confidences"] or p.get("raw_confidence"),
                 )
+        if speech_score is not None:
+            logging.info("%s speech score %.3f", f.name, speech_score)
+            track_meta = {"speech_score": speech_score, "tracks": track_meta}
         all_results[str(f)] = track_meta
     if args.json_out:
         Path(args.json_out).write_text(json.dumps(all_results, indent=2))

@@ -7,9 +7,10 @@ unless given ``--device cpu``).  Every model name trains: the mel families,
 ``dual-badwinner2`` (two band-limited views on K2), ``merge`` (K1's mel
 tower with the stored short / mid features), ``cnn-features`` and
 ``embeddings`` (stored vectors, no featurizer) and ``rf-features`` (a
-scikit-learn random forest on the host).  A run that needs what the port
-has not ported yet (``--backbone-weights``) exits 2 with a message naming
-the ROADMAP.md item that ports it.
+scikit-learn random forest on the host).  ``--backbone-weights`` starts a
+keras.applications backbone from a local Keras weight file: TensorFlow
+builds the source graph, so it needs TensorFlow where the run builds its
+model, as in the JAX package.
 
 ``--data-shards N`` trains data-parallel over N ranks, as JAX's flag does
 over N chips.  Under a launcher (``torchrun``'s or JAX's environment
@@ -87,8 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-w", "--weights", default=None,
                         help="Weights file (.pt) to fine-tune from")
     parser.add_argument("--backbone-weights", default=None,
-                        help="Local keras.applications weight file (not "
-                             "ported yet: exits 2)")
+                        help="Local keras.applications weight file (e.g. a "
+                             "'notop' ImageNet h5) to initialize a "
+                             "pretrained-backbone model from")
     parser.add_argument("--backbone-weights-custom", action="store_true",
                         help="With --backbone-weights: the weight file came "
                              "from a weights=None keras graph")
@@ -154,15 +156,9 @@ def main(argv=None) -> int:
     parser = build_parser()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    from audio_training_tpu_torch.train.harness import (
-        trains_on_one_device,
-        unported_reason,
-    )
+    from audio_training_tpu_torch.train.harness import trains_on_one_device
 
     train_cfg = train_config(args)
-    reason = unported_reason(train_cfg, args.backbone_weights)
-    if reason is not None:
-        parser.error(f"not ported yet: {reason}")
     if train_cfg.num_data_shards > 1:
         from audio_training_tpu_torch.parallel import initialize_distributed
         from audio_training_tpu_torch.parallel.multihost import local_rank
@@ -251,6 +247,8 @@ def run(args, train_cfg: TrainConfig) -> int:
         only_features=bool(args.only_features),
         morepork_model=args.morepork_model,
         weights=args.weights,
+        backbone_weights=args.backbone_weights,
+        backbone_imagenet_stats=not args.backbone_weights_custom,
         device=args.device,
     )
     if train_cfg.model_name == "rf-features":

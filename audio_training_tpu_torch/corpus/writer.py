@@ -14,8 +14,9 @@ less gzip.  ``store_spectrogram=True`` restores byte-level schema parity.
 The build is host code: the stored spectrogram's clip is min-max
 normalized on a CPU tensor (the JAX package does it through XLA), and the
 writer processes are spawned, never forked (see ``create_tf_records``).
-There is no embedder: ``embedding_model`` names a TensorFlow saved model
-(the JAX package's ``infer/embeddings.PerchModel``), so it raises.
+``embedding_model`` is a local Perch saved model
+(``infer/embeddings.PerchModel``): it needs TensorFlow where the build
+runs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,18 +32,13 @@ from audio_training_tpu_torch.config import FeaturizerConfig
 from audio_training_tpu_torch.corpus.audioio import (
     load_recording,
     probe_duration,
+    resample,
 )
 from audio_training_tpu_torch.corpus.dataset import AudioDataset, Recording
 from audio_training_tpu_torch.data.schema import SampleRecord, encode_sample
 from audio_training_tpu_torch.data.tfrecord import TFRecordWriter
 
 log = logging.getLogger(__name__)
-
-# why ``embedding_model`` raises and ``cli/build --embedding-model`` exits 2
-EMBEDDING_REFUSAL = (
-    "loads a TensorFlow saved model (the JAX package's "
-    "infer/embeddings.PerchModel), and the port does not depend on "
-    "TensorFlow")
 
 @dataclass
 class SampleData:
@@ -119,15 +115,17 @@ def process_recording(
     cfg: FeaturizerConfig,
     store_spectrogram: bool = False,
     check_duration: bool = True,
+    embedder=None,
     add_features: bool = False,
     add_buttered: bool = False,
 ) -> list[bytes]:
     """Decode one recording and serialize its samples
     (audiowriter.process_job + save_data, audiowriter.py:239-311,360-488).
 
-    The JAX package's ``embedder`` argument (the reference's DO_EMBEDDING
-    path, audiowriter.py:212,248-253,440-453) is left out: its embedders
-    are TensorFlow saved models (see the module docstring).
+    ``embedder`` (an ``infer.embeddings.EmbeddingModel``, e.g. a local
+    Perch saved model) stores one embedding vector per sample — the
+    reference's DO_EMBEDDING path (audiowriter.py:212,248-253,440-453),
+    which reached tensorflow_hub instead.
 
     ``add_buttered`` stores a Butterworth band-passed variant of each
     sample whose track carries frequency bounds, feeding the pipeline's
@@ -146,6 +144,7 @@ def process_recording(
                 f"vs decoded {loaded:.1f}s"
             )
     out = []
+    pending_embed: list = []
     for sample in rec.samples:
         try:
             data = load_data(cfg, sample.start, frames, sr,
@@ -190,6 +189,8 @@ def process_recording(
                 and np.isfinite(band).all()
             ):
                 record.buttered = band.astype(np.float32)
+        if embedder is not None and embedder.available:
+            pending_embed.append((record, data.raw))
         if add_features:
             # hand-crafted short/mid features (audiowriter add_features,
             # audiowriter.py:370 + audiodataset.load_features)
@@ -199,15 +200,35 @@ def process_recording(
             record.short_features = short_f.astype(np.float32)
             record.mid_features = mid_f.astype(np.float32)
         out.append(record)
+    if pending_embed:
+        # ONE batched saved-model call per recording (per-sample calls pay
+        # TF dispatch ~n_samples times)
+        need = int(embedder.WINDOW_S * embedder.sample_rate) \
+            if hasattr(embedder, "WINDOW_S") else None
+        windows = []
+        for _, raw in pending_embed:
+            w = resample(raw, sr, embedder.sample_rate)
+            if need is not None:
+                w = np.pad(w, (0, max(need - len(w), 0)))[:need]
+            windows.append(w)
+        if need is not None:
+            embs, _ = embedder.embed(np.concatenate(windows))
+            for (record, _), e in zip(pending_embed, embs):
+                record.embeddings = e
+        else:
+            for record, w in pending_embed:
+                record.embeddings = embedder.embed_window(w)
     return [encode_sample(r) for r in out]
 
 
 def _worker(job_queue, out_dir: Path, worker_i: int, cfg: FeaturizerConfig,
             shards_per_worker: int, store_spectrogram: bool,
+            embedding_model: str | None = None,
             add_features: bool = False,
             add_buttered: bool = False):
     """One writer process: round-robin over its own shard files
     (audiowriter.py:239-311)."""
+    embedder = _make_embedder(embedding_model)
     writers = [
         TFRecordWriter(out_dir / f"{worker_i:02d}-{s}.tfrecord")
         for s in range(shards_per_worker)
@@ -220,7 +241,8 @@ def _worker(job_queue, out_dir: Path, worker_i: int, cfg: FeaturizerConfig,
         try:
             for record in process_recording(
                 rec, cfg, store_spectrogram=store_spectrogram,
-                add_features=add_features, add_buttered=add_buttered,
+                embedder=embedder, add_features=add_features,
+                add_buttered=add_buttered,
             ):
                 writers[i % shards_per_worker].write(record)
                 i += 1
@@ -228,6 +250,18 @@ def _worker(job_queue, out_dir: Path, worker_i: int, cfg: FeaturizerConfig,
             log.error("error processing %s", rec.filename, exc_info=True)
     for w in writers:
         w.close()
+
+
+def _make_embedder(embedding_model: str | None):
+    if not embedding_model:
+        return None
+    from audio_training_tpu_torch.infer.embeddings import PerchModel
+
+    embedder = PerchModel(embedding_model)
+    if not embedder.available:
+        log.error("embedding model not loadable: %s", embedding_model)
+        return None
+    return embedder
 
 
 def create_tf_records(
@@ -244,14 +278,12 @@ def create_tf_records(
 ) -> int:
     """Write a dataset split to GZIP TFRecord shards
     (audiowriter.create_tf_records, audiowriter.py:578-642).
-    ``embedding_model`` (a Perch saved-model path in the JAX package)
-    raises ``NotImplementedError``: see the module docstring.
+    ``embedding_model``: local Perch saved-model path — stores a per-sample
+    embedding alongside the raw audio (DO_EMBEDDING parity).
 
     Returns the number of records written on the in-process path
     (``num_workers <= 1``) and the number of recordings queued on the
     multiprocess path, as the JAX package does."""
-    if embedding_model:
-        raise NotImplementedError(f"embedding_model {EMBEDDING_REFUSAL}")
     cfg = cfg or FeaturizerConfig()
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -259,13 +291,15 @@ def create_tf_records(
 
     if num_workers <= 1:
         # in-process path (small datasets / tests)
+        embedder = _make_embedder(embedding_model)
         writer = TFRecordWriter(out_dir / "00-0.tfrecord")
         n = 0
         for rec in recs:
             try:
                 for record in process_recording(
                     rec, cfg, store_spectrogram=store_spectrogram,
-                    add_features=add_features, add_buttered=add_buttered,
+                    embedder=embedder, add_features=add_features,
+                    add_buttered=add_buttered,
                 ):
                     writer.write(record)
                     n += 1
@@ -287,7 +321,8 @@ def create_tf_records(
         ctx.Process(
             target=_worker,
             args=(job_queue, out_dir, w, cfg, shards_per_worker,
-                  store_spectrogram, add_features, add_buttered),
+                  store_spectrogram, embedding_model, add_features,
+                  add_buttered),
         )
         for w in range(num_workers)
     ]

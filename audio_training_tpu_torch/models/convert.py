@@ -78,8 +78,11 @@ def state_dict_from_flax(model: nn.Module, variables, what: str | None = None,
     shapes to ``load_state_dict`` (a template model of the right names)."""
     what = what or type(model).__name__
     leaves = flax_leaf_map(model)
+    # an empty collection is no variable: the JAX package's checkpoints and
+    # load_predictor carry ``batch_stats: {}`` for models without BatchNorm
     flat = dict(_flatten({k: v for k, v in variables.items()
-                          if k in ("params", "batch_stats")}))
+                          if k in ("params", "batch_stats")
+                          and not (isinstance(v, Mapping) and not v)}))
     missing = sorted("/".join(k) for k in leaves.keys() - flat.keys())
     extra = sorted("/".join(k) for k in flat.keys() - leaves.keys())
     if missing or extra:

@@ -10,10 +10,11 @@ callback suite of the reference (audiomodel.checkpoints,
 audiomodel.py:878-950).  Like the JAX package's checkpoints, they hold no
 optimizer state.
 
-The JAX package checkpoints with orbax, which cannot be read without JAX;
-reading those directories is queued in ROADMAP.md.  Until then a JAX run's
-weights reach the port through ``models.convert`` (Flax variables ->
-``state_dict``) and this file.
+The JAX package checkpoints with orbax, and ``import orbax.checkpoint``
+loads JAX, which the port never imports: the port does not read those
+directories.  A JAX run's weights reach the port through ``models.convert``
+(Flax variables -> ``state_dict``, in a process that has JAX) and this
+file.
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ vector-input ``cnn-features`` / ``embeddings`` runs
 families data-parallel over that many ranks of the process group, as JAX
 does over its mesh: :func:`train_run` builds the mesh before it dispatches,
 the merge run refuses it with JAX's message and the vector runs train on
-one device.  The backbone transplant raises ``NotImplementedError`` naming
-its ROADMAP.md item (:func:`unported_reason`); nothing is silently dropped.
+one device.  ``backbone_weights`` starts a keras.applications backbone from
+a local Keras weight file (``models/transplant``), which needs TensorFlow
+where the run builds its model, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,7 +90,6 @@ from audio_training_tpu_torch.train.step import (
 
 log = logging.getLogger(__name__)
 
-_FAMILIES_ITEM = 'ROADMAP.md queue 1, "Model families"'
 # the run kinds whose models take stored vectors, not a mel image
 _VECTOR_MODELS = ("embeddings", "cnn-features")
 
@@ -98,17 +98,6 @@ def trains_on_one_device(model_name: str) -> bool:
     """Whether a run kind trains on one device whatever ``num_data_shards``
     says, as in JAX: ``rf-features`` and the vector-input models."""
     return model_name.lower() in ("rf-features", *_VECTOR_MODELS)
-
-
-def unported_reason(train_cfg: TrainConfig,
-                    backbone_weights=None) -> str | None:
-    """Why :func:`train_run` cannot take this run yet, naming the ROADMAP.md
-    item that ports it; None when it can."""
-    if backbone_weights is not None:
-        return (f"backbone weights (models/transplant.py) load a Keras model, "
-                f"and the port does not depend on TensorFlow; they come with "
-                f"{_FAMILIES_ITEM}")
-    return None
 
 
 def init_labels(
@@ -501,6 +490,7 @@ def train_run(
     weight_labels: list[str] | None = None,
     split_shards: dict[str, list[Path]] | None = None,
     backbone_weights: str | Path | None = None,
+    backbone_imagenet_stats: bool = True,
     device: str | torch.device | None = None,
     mesh_devices: list | None = None,
 ) -> TrainRunResult:
@@ -511,9 +501,13 @@ def train_run(
     the train/validation/test subdirectory discovery — used by the k-fold CV
     path, which partitions the pooled shard files itself
     (audiomodel.py:227-233).  ``weights`` is a port weights file (``.pt``);
-    ``backbone_weights`` (the backbone transplant) is not ported and
-    raises.  The JAX function's ``keep_excluded`` (unused there) and
-    ``backbone_imagenet_stats`` (the transplant's) are left out.
+    ``backbone_weights`` a local keras.applications weight file whose
+    weights the mel families' backbone starts from (JAX
+    ``harness.py:725-770``: the model is rebuilt with the file's
+    ``backbone_args``, created, transplanted, then ``weights`` restored;
+    ``backbone_imagenet_stats`` as ``models/transplant.load_keras_backbone``
+    takes it).  The JAX function's ``keep_excluded`` (unused there) is left
+    out.
 
     The run kind follows the model's inputs, as in the JAX function:
     ``("mel", "mel2")`` (dual-badwinner2) takes the two-view preprocess,
@@ -537,9 +531,6 @@ def train_run(
     (:func:`trains_on_one_device`): rank 0 trains, the others wait.
     """
     train_cfg = train_cfg or TrainConfig()
-    reason = unported_reason(train_cfg, backbone_weights)
-    if reason is not None:
-        raise NotImplementedError(reason)
     if train_cfg.model_name.lower() == "rf-features":
         return on_rank_zero(lambda: train_random_forest(
             data_dirs, run_name, checkpoint_root, train_cfg=train_cfg,
@@ -748,10 +739,38 @@ def train_run(
         )
         geo_masks = build_geo_masks(labels, ontology.all_birds)
 
+    keras_backbone = None
+    if backbone_weights is not None:
+        # pretrained-backbone import from a LOCAL keras weight file
+        # (audiomodel.get_base_model weights="imagenet",
+        # audiomodel.py:972-1141; TensorFlow builds the source graph)
+        from audio_training_tpu_torch.models.transplant import (
+            load_keras_backbone,
+        )
+
+        keras_backbone, backbone_args = load_keras_backbone(
+            train_cfg.model_name, backbone_weights,
+            input_shape=(cfg.n_mels, cfg.mel_frames, channels),
+            imagenet_stats=backbone_imagenet_stats,
+        )
+        if backbone_args:
+            spec = build_model(
+                train_cfg.model_name, num_labels=len(labels),
+                multi_label=train_cfg.multi_label, logits_only=True,
+                dtype=dtype, n_mels=cfg.n_mels, mel_frames=cfg.mel_frames,
+                in_channels=channels, backbone_args=backbone_args,
+            )
     state = create_train_state(
         spec.module, learning_rate=train_cfg.learning_rate,
         seed=train_cfg.seed, device=device,
     )
+    if keras_backbone is not None:
+        from audio_training_tpu_torch.models.transplant import (
+            transplant_backbone_into_classifier,
+        )
+
+        transplant_backbone_into_classifier(state.model, keras_backbone)
+        log.info("Imported backbone weights from %s", backbone_weights)
     state = _maybe_restore(state, weights, weight_labels, labels)
     if mesh is not None:
         replicated(mesh)(state.model)

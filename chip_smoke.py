@@ -257,7 +257,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    / ``cuda:1`` where the machine has two cards.  ``cli/train
    --data-shards`` starts one rank a card and so needs two cards: not run
    on one.  The ranks' K1 launches join the training, exact and centered
-   records.
+   records;
+17. the TensorFlow bridges (``models/transplant``, ``infer/embeddings``).
+   The card's machine has no TensorFlow, so the Keras models are
+   stand-ins built here (:func:`keras_stand_in`: plain objects whose class
+   names are Keras's layer names, holding a seeded port model's tensors in
+   Keras's layouts, in its call order): (a) badwinner2 at the production
+   geometry transplanted into a model of other seeded weights, every
+   tensor bitwise its source's, served through K1's folded exact chain
+   (3 requests of B=256, one min-max and one folded mel launch each), the
+   folded mel against its plain version on the CPU (phase 3's limit) and
+   the f32 logits against the CPU's plain path of the same state (1e-4);
+   (b) an EfficientNetV2-B3 trunk transplanted into the PCEN classifier at
+   full width (its backbone bitwise the source's, PCEN and head kept), one
+   train step at B=32 (one K1 "default" launch) and the chain at B=512
+   (K1 "default" + PCEN, one launch each, held to their plain versions at
+   phase 6's and 3's limits); (c) an ``EmbeddingPredictor`` with a numpy
+   Perch stand-in (32 kHz, 5 s windows, 1280-d) and a seeded
+   ``LinearEmbeddings`` head on the card over phase 4's recording: tracks
+   equal to the CPU run's, probabilities within 1e-5, recording-s/s and
+   the host's share; (d) without TensorFlow, ``load_keras_backbone``,
+   ``PerchModel``, ``cli/predict --embedding-model`` and ``cli/train
+   --backbone-weights`` fail as the JAX package's do (where TensorFlow
+   imports, the real ``load_keras_backbone`` path runs instead).  Its K1
+   launches join the exact-folded, "default" and PCEN records.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -3727,6 +3750,495 @@ def data_parallel_phase(dev, cfg, card) -> dict[str, int]:
     return counts
 
 
+class KerasWeight:
+    """Stand-in of a Keras variable: ``.numpy()`` and ``.name``."""
+
+    def __init__(self, value, name: str = "w"):
+        self.value, self.name = value, name
+
+    def numpy(self):
+        return self.value
+
+
+class KerasModel:
+    """Stand-in of a Keras functional model: its ``.layers``."""
+
+    def __init__(self, layers: list):
+        self.layers = layers
+
+
+def keras_layer(kind: str, weights: list, **attrs):
+    """A stand-in Keras layer of class name ``kind`` (the transplant reads a
+    layer's kind from its class name) holding ``weights``."""
+    layer = type(kind, (), {})()
+    layer.weights = weights
+    layer.__dict__.update(attrs)
+    return layer
+
+
+def keras_stand_in(module, scalar_mag: bool = False) -> KerasModel:
+    """The Keras model whose weights are ``module``'s: one stand-in layer a
+    transplant slot, in the module's creation (Keras call) order, each in
+    Keras's layout: Conv2D kernels HWIO, DepthwiseConv2D (k, k, C, 1),
+    Dense (in, out), BatchNormalization's gamma / beta / moving_mean /
+    moving_variance, MagTransform's exponent (a scalar with ``scalar_mag``,
+    as badwinner v1 stores it), PCEN's gain / bias / root / smooth."""
+    from audio_training_tpu_torch.models.convert import flax_leaf_map
+    from audio_training_tpu_torch.models.transplant import (
+        flax_tree, module_slots)
+
+    tree, leaf_map = flax_tree(module), flax_leaf_map(module)
+    order = {path: i for i, path in enumerate(leaf_map)}
+
+    def full(path):
+        return path if path[0] == "batch_stats" else ("params", *path)
+
+    def value(path):
+        node = tree
+        for k in full(path):
+            node = node[k]
+        return node
+
+    def weight(slot, key):
+        return KerasWeight(value(slot[key])) if key in slot else None
+
+    layers = []  # (slot, layer)
+    slots = module_slots(module)
+    for slot in slots["conv"] + slots["dense"]:
+        kernel, bias = value(slot["kernel"]), weight(slot, "bias")
+        owner = leaf_map[full(slot["kernel"])][0].rsplit(".", 1)[0]
+        kind = "Dense" if slot in slots["dense"] else "Conv2D"
+        if getattr(module.get_submodule(owner), "groups", 1) > 1:
+            kind, kernel = "DepthwiseConv2D", kernel.transpose(0, 1, 3, 2)
+        layers.append((slot, keras_layer(kind, [KerasWeight(kernel), bias],
+                                         use_bias=True, bias=bias)))
+    for slot in slots["bn"]:
+        w = {k: weight(slot, k) for k in ("scale", "bias", "mean", "var")}
+        layers.append((slot, keras_layer(
+            "BatchNormalization", [v for v in w.values() if v is not None],
+            gamma=w["scale"], beta=w["bias"], moving_mean=w["mean"],
+            moving_variance=w["var"])))
+    for slot in slots["mag"]:
+        a = value(slot["a"])
+        layers.append((slot, keras_layer(
+            "MagTransform", [KerasWeight(a.reshape(()) if scalar_mag else a)])))
+    for slot in slots["pcen"]:
+        layers.append((slot, keras_layer("PCEN", [
+            KerasWeight(value(path), f"pcen/{name}:0")
+            for name, path in slot.items()])))
+    layers.sort(key=lambda sl: min(order[full(p)] for p in sl[0].values()))
+    return KerasModel([layer for _, layer in layers])
+
+
+class StandInPerch:
+    """A numpy Perch stand-in (``infer/embeddings.PerchModel``'s contract):
+    5 s windows at 32 kHz -> 1280-d embeddings, the log-compressed RMS of
+    each of 1280 equal pieces of the window, and 10 "logits"."""
+
+    name = "perch"
+    sample_rate = 32000
+    WINDOW_S = 5.0
+    available = True
+
+    def __init__(self):
+        self.host_s = 0.0  # time spent embedding
+
+    def embed(self, frames):
+        import numpy as np
+
+        t0 = time.perf_counter()
+        window = int(self.WINDOW_S * self.sample_rate)
+        n = len(frames) // window
+        pieces = frames[: n * window].reshape(n, 1280, -1).astype(np.float64)
+        emb = np.log1p(10.0 * np.sqrt((pieces**2).mean(-1))).astype(
+            np.float32)
+        self.host_s += time.perf_counter() - t0
+        return emb, emb[:, :10]
+
+    def embed_window(self, window):
+        import numpy as np
+
+        need = int(self.WINDOW_S * self.sample_rate)
+        if len(window) < need:
+            window = np.pad(window, (0, need - len(window)))
+        return self.embed(window[:need])[0][0]
+
+
+def tf_bridges_phase(dev, cfg, card) -> dict[str, int]:
+    """Phase 17: the TensorFlow bridges with stand-in Keras models; see the
+    module docstring.  Returns its K1 launches by kernel record."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audio_training_tpu_torch.cli import predict as cli_predict
+    from audio_training_tpu_torch.cli import train as cli_train
+    from audio_training_tpu_torch.config import InferenceConfig
+    from audio_training_tpu_torch.corpus.audioio import save_wav
+    from audio_training_tpu_torch.data.preprocess import make_preprocess_fn
+    from audio_training_tpu_torch.infer.embeddings import (
+        EmbeddingPredictor, PerchModel)
+    from audio_training_tpu_torch.infer.fused import make_fused_infer_fn
+    from audio_training_tpu_torch.models import build_model
+    from audio_training_tpu_torch.models.transplant import (
+        load_keras_backbone, transplant_backbone_into_classifier,
+        transplant_keras_weights)
+    from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
+    from audio_training_tpu_torch.ops.features import (
+        build_mel_weights, normalize_rows)
+    from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
+    from audio_training_tpu_torch.taxonomy import load_ontology
+    from audio_training_tpu_torch.train import (
+        create_train_state, fresh_metrics, make_train_step, save_metadata)
+    from audio_training_tpu_torch.train.checkpoints import save_state_dict
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = REPO / "build" / "chip_smoke_tf"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def clips(batch: int) -> torch.Tensor:
+        return torch.randn(batch, cfg.samples_per_clip, generator=gen,
+                           device=dev)
+
+    def reset() -> None:
+        torch.cuda.synchronize()
+        ffz.reset_launch_counts()
+
+    def counts() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {k: v for k, v in ffz.launch_counts().items() if v}
+
+    def rel(got, want) -> float:
+        got, want = got.float().cpu(), want.float().cpu()
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    def bitwise(got: dict, want: dict) -> bool:
+        return got.keys() == want.keys() and all(
+            torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+
+    def seeded(name: str, seed: int, dtype=None, **kw):
+        return build_model(name, NUM_LABELS, logits_only=True, dtype=dtype,
+                           n_mels=cfg.n_mels, mel_frames=cfg.mel_frames,
+                           generator=torch.Generator().manual_seed(seed),
+                           **kw).module
+
+    mel_np = build_mel_weights(cfg)
+    mel_w = torch.as_tensor(mel_np, device=dev)
+    fz = {t: ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length,
+                                 precision=t, device=dev)
+          for t in ("highest", "default")}
+    fz_cpu = ffz.FusedFeaturizer(mel_np, cfg.n_fft, cfg.hop_length,
+                                 device="cpu")
+    launches: dict[str, int] = {}
+
+    # ---- (a) badwinner2 at 160 x 513 through K1's folded exact chain -----
+    source = seeded("badwinner2", SEED + 170)
+    with torch.no_grad():  # a frontend whose BatchNorm neither vanishes
+        source.mag.a_power.fill_(-0.7)  # nor centres, as phase 8's
+        g = 1.0 / (1.0 + np.exp(0.7))
+        rows = (fz["highest"](normalize_rows(clips(CHECK_BATCH)), pcen=False)
+                ** g).transpose(0, 1).reshape(cfg.n_mels, -1)
+        source.mel_bn.running_mean.copy_(rows.mean(1).cpu())
+        source.mel_bn.running_var.copy_(rows.var(1).cpu())
+    keras = keras_stand_in(source)
+    t0 = time.perf_counter()
+    model = transplant_keras_weights(seeded("badwinner2", SEED + 171), keras)
+    transplant_s = time.perf_counter() - t0
+    kinds = {}
+    for layer in keras.layers:
+        kinds[type(layer).__name__] = kinds.get(type(layer).__name__, 0) + 1
+    log(f"path transplant badwinner2 ({cfg.n_mels} x {cfg.mel_frames}, "
+        f"{NUM_LABELS} labels) from a stand-in Keras model {kinds}: "
+        f"{transplant_s:.3f} s")
+    check(bitwise(model.state_dict(), source.state_dict()),
+          "a transplanted badwinner2 tensor differs from its source")
+    frontend_params = (model.mag.a_power.item(),
+                       model.mel_bn.running_mean.numpy().copy(),
+                       model.mel_bn.running_var.numpy().copy())
+    trunk = {k: v for k, v in model.state_dict().items()
+             if not k.startswith(("mag.", "mel_bn."))}
+
+    def folded(dtype):
+        m = seeded("badwinner2", 0, dtype, external_frontend=True)
+        m.load_state_dict(trunk)
+        return m.to(dev).eval()
+
+    folded16 = folded(torch.bfloat16)
+
+    @torch.no_grad()
+    def chain(raw, m=folded16, out_dtype=torch.bfloat16):
+        img = fz["highest"](raw, pcen=False, normalize_waveform=True,
+                            frontend_params=frontend_params,
+                            out_dtype=out_dtype)
+        return m(img[..., None])
+
+    requests = [clips(BATCH) for _ in range(REQUESTS)]
+    reset()
+    answers = [chain(r) for r in requests]
+    got = counts()
+    log(f"path transplanted badwinner2 folded chain: {REQUESTS} requests "
+        f"of B={BATCH}, launches {got}")
+    check(got == {"clip_minmax": REQUESTS,
+                  "fused_featurizer_mel_folded": REQUESTS},
+          "the transplanted chain did not launch one min-max and one folded "
+          "mel kernel per request, and nothing else")
+    check(all(tuple(a.shape) == (BATCH, NUM_LABELS)
+              and bool(torch.isfinite(a).all()) for a in answers),
+          "transplanted badwinner2 logits not finite")
+    launches.update(got)
+    del answers
+    raw8 = clips(CHECK_BATCH)
+    img_k = fz["highest"](raw8, pcen=False, normalize_waveform=True,
+                          frontend_params=frontend_params)
+    img_p = fz_cpu(raw8.cpu(), pcen=False, normalize_waveform=True,
+                   frontend_params=frontend_params)
+    mel_rel = rel(img_k, img_p)
+    with torch.no_grad():
+        logits_k = folded(None)(img_k[..., None])
+        logits_p = model.eval()(fz_cpu(normalize_rows(raw8.cpu()),
+                                       pcen=False)[..., None])
+    logit_rel = rel(logits_k, logits_p)
+    log(f"check transplanted badwinner2 B={CHECK_BATCH}: folded exact mel "
+        f"vs its plain version on the CPU, global rel err {mel_rel:.3e} "
+        f"(limit {MEL_REL_TOL}); f32 logits of the card's folded chain vs "
+        f"the CPU's plain path of the same state, rel {logit_rel:.3e} "
+        f"(limit {LOGIT_REL_TOL})")
+    check(mel_rel < MEL_REL_TOL, "the folded mel disagrees with plain")
+    check(logit_rel < LOGIT_REL_TOL,
+          "the transplanted chain's logits disagree with the CPU's")
+    chain_ms = time_ms(lambda: chain(requests[0]))
+    log(f"time transplanted badwinner2 folded chain B={BATCH}: "
+        f"{chain_ms:.3f} ms, "
+        f"{BATCH * cfg.segment_length / (chain_ms / 1e3):.0f} audio-s/s "
+        f"{card}")
+    del folded16, requests, model, source
+    torch.cuda.empty_cache()
+
+    # ---- (b) EfficientNetV2-B3 trunk into the PCEN classifier ------------
+    src = seeded("efficientnetv2b3", SEED + 172).backbone
+    keras = keras_stand_in(src)
+    train_model = seeded("efficientnetv2b3", SEED + 173, torch.bfloat16)
+    kept = {k: v.clone() for k, v in train_model.state_dict().items()
+            if not k.startswith("backbone.")}
+    t0 = time.perf_counter()
+    transplant_backbone_into_classifier(train_model, keras)
+    transplant_s = time.perf_counter() - t0
+    sd = train_model.state_dict()
+    log(f"path transplant EfficientNetV2-B3 trunk ({len(keras.layers)} "
+        f"stand-in layers) into BackboneClassifier(efficientnetv2b3) with "
+        f"its PCEN frontend: {transplant_s:.3f} s")
+    check(bitwise({k[len("backbone."):]: v for k, v in sd.items()
+                   if k.startswith("backbone.")}, src.state_dict()),
+          "a transplanted B3 backbone tensor differs from its source")
+    check(bitwise({k: v for k, v in sd.items()
+                   if not k.startswith("backbone.")}, kept),
+          "the transplant changed the classifier's PCEN frontend or head")
+    serve = seeded("efficientnetv2b3", 0, torch.bfloat16,
+                   external_frontend=True)
+    serve.load_state_dict({k: v for k, v in sd.items()
+                           if not k.startswith("pcen.")})
+    serve = serve.to(dev).eval()
+    # one train step at B=32 (K1's "default" training tier)
+    x, y = tone_band_batch(B3_TRAIN_BATCH, NUM_LABELS, cfg.samples_per_clip,
+                           cfg.sr, SEED + 17)
+    x2, y2 = tone_band_batch(B3_TRAIN_BATCH, NUM_LABELS,
+                             cfg.samples_per_clip, cfg.sr, SEED + 18)
+    pre = make_preprocess_fn(cfg, augment=True, channels=3, device=dev)
+    state = create_train_state(train_model, learning_rate=TRAIN_LR,
+                               device=dev)
+    reset()
+    mel, yy = pre(x, y, x2, y2, torch.Generator(device=dev).manual_seed(SEED))
+    state, metrics = make_train_step()(
+        state, fresh_metrics(dev), mel, yy,
+        torch.Generator(device=dev).manual_seed(SEED + 1))
+    got = counts()
+    loss = float(metrics["loss_sum"]) / B3_TRAIN_BATCH
+    log(f"path transplanted B3 train step B={B3_TRAIN_BATCH}: loss "
+        f"{loss:.6f}, launches {got}")
+    check(got == {"fused_featurizer_mel_bf16": 1} and np.isfinite(loss),
+          "the B3 train step did not launch K1's default tier once, or its "
+          "loss is not finite")
+    launches["fused_featurizer_mel_bf16"] = got.get(
+        "fused_featurizer_mel_bf16", 0)
+    del state, mel, train_model
+    torch.cuda.empty_cache()
+    # the serving chain at B=512
+    infer = make_fused_infer_fn(serve, cfg, use_pcen=True, channels=3,
+                                precision="default", device=dev,
+                                out_dtype=torch.bfloat16)
+    raw = clips(BATCH_PCEN)
+    reset()
+    logits = infer(raw)
+    got = counts()
+    log(f"path transplanted PCEN -> EfficientNetV2-B3 chain B={BATCH_PCEN}: "
+        f"launches {got}")
+    check(got == {"fused_featurizer_mel_bf16": 1, "fused_featurizer_pcen": 1}
+          and tuple(logits.shape) == (BATCH_PCEN, NUM_LABELS)
+          and bool(torch.isfinite(logits).all()),
+          "the transplanted B3 chain did not launch K1's default tier and "
+          "PCEN once each, or its logits are not finite")
+    launches["fused_featurizer_mel_bf16 at B=512"] = got.get(
+        "fused_featurizer_mel_bf16", 0)
+    launches["fused_featurizer_pcen at B=512"] = got.get(
+        "fused_featurizer_pcen", 0)
+    fzd = fz["default"]
+    mel_k = fzd(raw, pcen=False)
+    mel_p = ffz.fused_featurizer_plain(raw, mel_w, cfg.hop_length,
+                                       precision="default")
+    rms = (torch.linalg.norm(mel_k - mel_p) / torch.linalg.norm(mel_p)).item()
+    mel_rel = rel(mel_k, mel_p)
+    want = normalize_minmax_global(pcen(mel_k, *fzd.pcen_params, time_axis=2,
+                                        normalize=False))
+    pcen_err = (fzd(raw, pcen=True) - want).abs().max().item()
+    log(f"check B={BATCH_PCEN} transplanted B3 chain's kernels: K1 default "
+        f"tier vs plain relative RMS {rms:.3e} (limit {BF16_RMS_REL}), "
+        f"global rel err {mel_rel:.3e} (limit {BF16_STEP:.3e}); PCEN on its "
+        f"mel vs plain max abs err {pcen_err:.3e} (limit {PCEN_ABS_TOL})")
+    check(rms < BF16_RMS_REL and mel_rel < BF16_STEP,
+          "K1 default disagrees with plain on the B3 chain")
+    check(pcen_err < PCEN_ABS_TOL, "PCEN disagrees with plain on the B3 chain")
+    b3_ms = time_ms(lambda: infer(raw), iters=3, warmup=1)
+    log(f"time transplanted B3 chain B={BATCH_PCEN}: {b3_ms:.3f} ms, "
+        f"{BATCH_PCEN * cfg.segment_length / (b3_ms / 1e3):.0f} audio-s/s "
+        f"{card}")
+    del serve, infer, raw, mel_k, mel_p, want, logits
+    torch.cuda.empty_cache()
+
+    # ---- (c) embedding-model inference ----------------------------------
+    recording = synthetic_recording(RECORDING_S, cfg.sr, SEED)
+    head = build_model("embeddings", NUM_LABELS, logits_only=True,
+                       generator=torch.Generator().manual_seed(SEED + 174)
+                       ).module
+    labels = [f"l{i}" for i in range(NUM_LABELS)]
+
+    class Recorded(EmbeddingPredictor):
+        """Keeps each batch of embeddings and its probabilities."""
+
+        def _probs(self, embs):
+            out = super()._probs(embs)
+            self.seen.append((embs, out))
+            return out
+
+    runs = {}
+    for device in ("cpu", dev):
+        embedder = StandInPerch()
+        pred = Recorded(embedder, copy.deepcopy(head), labels, cfg,
+                        InferenceConfig(threshold=0.0), device=device)
+        pred.seen = []
+        t0 = time.perf_counter()
+        tracks, _ = pred.predict_recording(recording, cfg.sr)
+        torch.cuda.synchronize()
+        runs[str(device)] = (pred, [t.get_meta() for t in tracks],
+                             time.perf_counter() - t0, embedder.host_s)
+    cpu_tracks = runs["cpu"][1]
+    pred, tracks, wall, embed_s = runs[str(dev)]
+    probs = np.concatenate([p for _, p in pred.seen])
+    err = float(np.abs(probs - np.concatenate(
+        [p for _, p in runs["cpu"][0].seen])).max())
+    log(f"path EmbeddingPredictor (numpy Perch stand-in, LinearEmbeddings on "
+        f"{dev}) over a {RECORDING_S:.0f} s recording: {len(tracks)} tracks, "
+        f"{len(probs)} windows; probabilities vs the CPU run max abs err "
+        f"{err:.3e} (limit 1e-5)")
+    def same_track(got: dict, want: dict) -> bool:
+        """Equal but for the detection's running id, labels equal and
+        rounded percentages within 1."""
+        def rest(meta):
+            return {k: v for k, v in meta.items()
+                    if k not in ("id", "predictions")}
+
+        gp, wp = got["predictions"], want["predictions"]
+        return (rest(got) == rest(want) and len(gp) == len(wp)
+                and all(g["labels"] == w["labels"]
+                        and len(g["confidences"]) == len(w["confidences"])
+                        and all(abs(a - b) <= 1 for a, b in zip(
+                            g["confidences"], w["confidences"]))
+                        for g, w in zip(gp, wp)))
+
+    check(len(tracks) == len(cpu_tracks) > 0
+          and all(map(same_track, tracks, cpu_tracks)),
+          "the card's embedding tracks differ from the CPU run's")
+    check(err < 1e-5, "the card's embedding probabilities disagree")
+    embs = np.concatenate([e for e, _ in pred.seen])
+    head_ms = time_ms(lambda: pred._probs(embs))
+    pred.seen.clear()
+    log(f"time EmbeddingPredictor: {wall:.3f} s wall, "
+        f"{RECORDING_S / wall:.1f} recording-s/s; the stand-in's embedding "
+        f"{embed_s:.3f} s; the head on {len(embs)} embeddings {head_ms:.3f} "
+        f"ms (host copy in and out included); host share "
+        f"{1.0 - head_ms / 1e3 / wall:.4f} {card}")
+
+    # ---- (d) without TensorFlow ------------------------------------------
+    notop = out_dir / "notop.weights.h5"
+    notop.write_bytes(b"")
+    if importlib.util.find_spec("tensorflow") is None:
+        failures = {}
+        try:
+            load_keras_backbone("mobilenet", notop,
+                                (cfg.n_mels, cfg.mel_frames, 3))
+        except RuntimeError as e:
+            failures["load_keras_backbone"] = str(e)
+        perch = PerchModel(out_dir)
+        if not perch.available:
+            failures["PerchModel"] = f"{perch.name} not available"
+        run = out_dir / "embeddings-run"
+        save_metadata(run, "embeddings", labels, cfg, load_ontology())
+        save_state_dict(run / "val-loss.pt", head.state_dict())
+        wav = out_dir / "rec.wav"
+        save_wav(wav, recording[: 10 * cfg.sr], cfg.sr)
+        try:
+            cli_predict.main([str(run), "--file", str(wav),
+                              "--embedding-model", str(out_dir)])
+        except RuntimeError as e:
+            failures["cli/predict --embedding-model"] = str(e)
+        try:
+            cli_train.main([
+                "tf", "-d", str(REPO / "build" / "chip_smoke_corpus"),
+                "--checkpoint-dir", str(out_dir / "runs"), "--model-name",
+                "mobilenet", "--backbone-weights", str(notop), "--device",
+                str(dev)])
+        except RuntimeError as e:
+            failures["cli/train --backbone-weights"] = str(e)
+        for what, msg in failures.items():
+            log(f"check without TensorFlow, {what} fails: {msg}")
+        want_msgs = {
+            "load_keras_backbone": "requires tensorflow",
+            "PerchModel": "not available",
+            "cli/predict --embedding-model": "needs --embedding-model",
+            "cli/train --backbone-weights": "requires tensorflow"}
+        check(all(w in failures.get(k, "") for k, w in want_msgs.items()),
+              f"the no-TensorFlow failures are not JAX's: {failures}")
+    else:
+        import tensorflow as tf
+
+        shape = (96, 96, 3)
+        km = tf.keras.applications.MobileNetV2(
+            weights=None, include_top=False, input_shape=shape)
+        km.save_weights(str(out_dir / "mobilenet.weights.h5"))
+        km, args = load_keras_backbone("mobilenet",
+                                       out_dir / "mobilenet.weights.h5",
+                                       shape)
+        trunk = seeded("mobilenet", 0, backbone_args=args).backbone
+        transplant_keras_weights(trunk, km)
+        x = np.random.default_rng(SEED).normal(size=(2, *shape)).astype(
+            np.float32)
+        with torch.no_grad():
+            got = trunk.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+        err = float(np.abs(got.permute(0, 2, 3, 1).numpy()
+                           - km.predict(x, verbose=0)).max())
+        log(f"check load_keras_backbone(mobilenet) with TensorFlow: trunk vs "
+            f"Keras max abs err {err:.3e} (limit 1e-3)")
+        check(err < 1e-3, "the transplanted trunk disagrees with Keras")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 17 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4823,6 +5335,13 @@ def main() -> None:
         record["launches"] += dp_counts[name]
         log(f"record {name}: {record['launches']} launches with phase 16's "
             f"{dp_counts[name]}")
+    # ---- 17. the TensorFlow bridges ------------------------------------------
+    # the transplanted chains' K1 launches join the same kernels' records
+    for name, n in tf_bridges_phase(dev, cfg, card).items():
+        record = next(k for k in kernels if k["name"] == name)
+        record["launches"] += n
+        log(f"record {name}: {record['launches']} launches with phase 17's "
+            f"{n}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,8 +7,9 @@ same Flax variables.  Both read the same WAV (the small 8 kHz, n_fft=512
 geometry of tests/test_infer.py::test_predictor_end_to_end, so the JAX
 Predictor runs K2 in interpret mode).  Tracks must match exactly; labels
 and tags exactly; confidences, rounded percentages of probabilities that
-agree to 1e-4, to within 1.  Each flag of the JAX CLI that the port leaves
-out must exit 2 with its reason.  ``--test-split`` (``predict_on_test``)
+agree to 1e-4, to within 1.  The parser knows every flag of the JAX CLI
+(the embedding route's are tests/test_torch_embeddings_infer.py's).
+``--test-split`` (``predict_on_test``)
 gives JAX's confusion on a pinned test split.  A MobileNetV2 run
 (PCEN frontend, 3 channels) loads through both packages' ``load_predictor``
 (the JAX side from an orbax checkpoint of the same Flax variables) and its
@@ -201,22 +202,6 @@ def test_test_split_flags(run, test_split, tmp_path, monkeypatch, case):
     with fixed_randomness(0):
         assert predict.main(argv) == 0
     np.testing.assert_array_equal(np.load(out), want_cm)
-
-
-@pytest.mark.parametrize("flags,reason", [
-    (["--embedding-model", "m"], "TensorFlow saved model"),
-    (["--embedding-kind", "yamnet"], "TensorFlow saved model"),
-    (["--yamnet-model", "m"], "TensorFlow saved model"),
-])
-def test_unported_flags_exit_non_zero(run, capsys, flags, reason):
-    """The JAX CLI's flags that the port leaves out exit 2 with their
-    reason; the parser knows every JAX flag (none is unrecognized)."""
-    with pytest.raises(SystemExit) as exc:
-        predict.parse_args([str(run[0]), "--file", "x.wav", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flags[0] in err and reason in err
-    assert "unrecognized" not in err
 
 
 def test_parser_knows_every_jax_flag():

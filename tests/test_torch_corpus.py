@@ -602,15 +602,6 @@ def test_create_tf_records_return_matches_jax(corpus30, tmp_path, workers):
         assert got == want
 
 
-def test_create_tf_records_embedding_model_raises(tmp_path):
-    from audio_training_tpu_torch.corpus import AudioDataset, create_tf_records
-
-    with pytest.raises(NotImplementedError, match="TensorFlow"):
-        create_tf_records(AudioDataset("x"), tmp_path, num_workers=1,
-                          embedding_model="perch")
-    assert not any(tmp_path.iterdir())
-
-
 # ---------------------------------------------------------------------------
 # cli/build end to end
 # ---------------------------------------------------------------------------
@@ -722,19 +713,3 @@ def test_build_cli_matches_jax(raw_dirs, tmp_path, case):
         assert meta["recs"] == {"train": [f"rec{i}" for i in range(6)],
                                 "validation": ["rec6", "rec7"],
                                 "test": ["rec8"]}
-
-
-def test_build_embedding_model_exits_2(raw_dirs, tmp_path, capsys):
-    """Every JAX build flag is known; ``--embedding-model`` exits 2 with
-    its reason and writes nothing."""
-    from audio_training_tpu.cli.build import parse_args as jax_parse_args
-    from audio_training_tpu_torch.cli import build
-
-    argv = [str(tmp_path / "out"), "-d", str(raw_dirs / "raw")]
-    assert vars(build.parse_args(argv)) == vars(jax_parse_args(argv))
-    with pytest.raises(SystemExit) as exc:
-        build.main(argv + ["--embedding-model", "perch"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "--embedding-model" in err and "TensorFlow" in err
-    assert not (tmp_path / "out").exists()

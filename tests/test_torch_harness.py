@@ -215,34 +215,30 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--backbone-weights", "notop.h5"], "Model families"),
-    (["--data-shards", "2"], "Data parallel"),
+    # the id it had beside the backbone transplant's case
+    pytest.param(["--data-shards", "2"], "Data parallel",
+                 id="flags1-Data parallel"),
 ])
 def test_cli_exits_2_naming_the_item(flags, item, capsys, tmp_path, corpus,
                                      one_step_run):
-    """The backbone transplant exits 2 naming its ROADMAP.md item; data
-    parallel, once refused the same way, trains: ``--data-shards 2 --device
-    cpu`` starts two gloo ranks, and its one run directory's history is the
-    single-device run's (:func:`assert_history_matches`)."""
-    if item == "Data parallel":
-        conf = tmp_path / "train.json"
-        conf.write_text(json.dumps({"compute_dtype": "float32",
-                                    "bn_reestimate": True}))
-        assert cli.main(["dp", "-d", str(corpus), "--checkpoint-dir",
-                         str(tmp_path), "--batch-size", "4", "--lr", "0.001",
-                         "--epochs", "1", "--steps-per-epoch", "1",
-                         "--epoch-confusion", "-c", str(conf), "--device",
-                         "cpu"] + flags) == 0
-        assert [p.name for p in tmp_path.iterdir() if p.is_dir()] == ["dp"]
-        hist = json.loads((tmp_path / "dp" / "history.json").read_text())
-        assert_history_matches(hist, one_step_run.history)
-        meta = metadata.load_metadata(tmp_path / "dp")
-        assert meta["test_samples"] == SPLITS["test"]
-        return
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["run", "-d", str(tmp_path)] + flags)
-    assert exc.value.code == 2
-    assert item in capsys.readouterr().err
+    """Data parallel, once refused with exit 2 naming its ROADMAP.md item,
+    trains: ``--data-shards 2 --device cpu`` starts two gloo ranks, and its
+    one run directory's history is the single-device run's
+    (:func:`assert_history_matches`).  (``--backbone-weights``, refused the
+    same way until it was ported, is tests/test_torch_transplant.py's.)"""
+    conf = tmp_path / "train.json"
+    conf.write_text(json.dumps({"compute_dtype": "float32",
+                                "bn_reestimate": True}))
+    assert cli.main(["dp", "-d", str(corpus), "--checkpoint-dir",
+                     str(tmp_path), "--batch-size", "4", "--lr", "0.001",
+                     "--epochs", "1", "--steps-per-epoch", "1",
+                     "--epoch-confusion", "-c", str(conf), "--device",
+                     "cpu"] + flags) == 0
+    assert [p.name for p in tmp_path.iterdir() if p.is_dir()] == ["dp"]
+    hist = json.loads((tmp_path / "dp" / "history.json").read_text())
+    assert_history_matches(hist, one_step_run.history)
+    meta = metadata.load_metadata(tmp_path / "dp")
+    assert meta["test_samples"] == SPLITS["test"]
 
 
 def write_feature_corpus(root, cfg, seed=0):
@@ -325,8 +321,7 @@ def test_train_run_refuses_unported_configs(corpus, tmp_path, one_step_run):
     """``num_data_shards=2``, once refused, trains on two gloo ranks: every
     rank returns the single-device run's history (as
     :func:`assert_history_matches` holds it) and the same test metrics, and
-    the run directory holds every artifact.  The backbone transplant still
-    raises."""
+    the run directory holds every artifact."""
     from audio_training_tpu_torch.parallel.multihost import run_ranks
 
     import torch_dp_ranks
@@ -343,9 +338,6 @@ def test_train_run_refuses_unported_configs(corpus, tmp_path, one_step_run):
     for name in ("chkpt.pt", "history.json", "confusion.npy",
                  "epoch-confusion/epoch_000.npy", "metadata.txt"):
         assert name in results[0]["files"], name
-    with pytest.raises(NotImplementedError, match="Model families"):
-        harness.train_run([corpus], "x", checkpoint_root=tmp_path,
-                          device="cpu", backbone_weights="notop.h5")
 
 
 def test_cli_trains_from_the_corpus(corpus, tmp_path):

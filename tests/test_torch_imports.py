@@ -1,7 +1,10 @@
 """The PyTorch port imports nothing of JAX, Flax or the JAX package, nor
 scikit-learn, TensorFlow or orbax; matplotlib only inside the functions
-that plot, and h5py, filelock and requests only inside the corpus tools'
-functions that use them."""
+that plot, h5py, filelock and requests only inside the corpus tools'
+functions that use them, and TensorFlow only inside the two functions that
+load Keras / saved models (``models/transplant.load_keras_backbone`` and
+``infer/embeddings.EmbeddingModel.__init__``): importing TensorFlow loads
+JAX (Keras 3 does), so no module may import it at its top."""
 
 import ast
 import json
@@ -65,10 +68,51 @@ def test_port_modules_import_without_jax():
                  "corpus.signal_data", "cli.build", "corpus.enrich",
                  "corpus.otherdata", "corpus.tools", "corpus.downloaders",
                  "cli.ingest", "utils.logging", "utils.debug", "cli.debug",
-                 "data.augmented", "cli.augment", "utils.profiling"):
+                 "data.augmented", "cli.augment", "utils.profiling",
+                 "models.transplant", "infer.embeddings"):
         assert f"audio_training_tpu_torch.{name}" in result["imported"]
     leaked = [m for m in result["modules"]
               if _forbidden(m) or m.split(".")[0] in ABSENT]
+    assert not leaked, leaked
+
+
+def test_tensorflow_bridges_run_without_tensorflow_or_jax():
+    """In a fresh interpreter, the TensorFlow bridges' TF-free paths (a
+    transplant from stand-in Keras layers, a missing embedding model, an
+    ``EmbeddingPredictor`` over a numpy embedder) leave jax and tensorflow
+    out of sys.modules."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np, torch\n"
+        "from chip_smoke import StandInPerch, keras_stand_in\n"
+        "from audio_training_tpu_torch.config import FeaturizerConfig\n"
+        "from audio_training_tpu_torch.infer.embeddings import (\n"
+        "    EmbeddingPredictor, PerchModel, YamnetModel)\n"
+        "from audio_training_tpu_torch.models import build_model\n"
+        "from audio_training_tpu_torch.models.transplant import (\n"
+        "    transplant_keras_weights)\n"
+        "src = build_model('wr-resnet', 3).module\n"
+        "dst = transplant_keras_weights(build_model('wr-resnet', 3).module,\n"
+        "                               keras_stand_in(src))\n"
+        "assert all(torch.equal(a, b) for a, b in zip(\n"
+        "    src.state_dict().values(), dst.state_dict().values()))\n"
+        "assert not PerchModel(None).available\n"
+        "assert not YamnetModel('/nonexistent').available\n"
+        "pred = EmbeddingPredictor(StandInPerch(),\n"
+        "    build_model('embeddings', 3, logits_only=True).module,\n"
+        "    ['a', 'b', 'c'], FeaturizerConfig(), device='cpu')\n"
+        "p = pred.predict_windows(np.ones((2, 48000), np.float32))\n"
+        "assert p.shape == (2, 3)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, check=True,
+        capture_output=True, text=True,
+    ).stdout
+    modules = json.loads(out.strip().splitlines()[-1])
+    leaked = [m for m in modules
+              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tensorflow",
+                                     "keras")]
     assert not leaked, leaked
 
 
@@ -92,21 +136,26 @@ def test_port_sources_and_chip_smoke_name_no_jax_import():
 
 
 def test_port_names_absent_packages_only_inside_functions():
-    """No import of TensorFlow or orbax anywhere in the port; matplotlib,
-    h5py, filelock and requests only inside a function body; scikit-learn
-    only inside ``models/registry.build_random_forest`` (``rf-features``'
-    forest, as in the JAX package)."""
+    """No import of orbax anywhere in the port; matplotlib, h5py, filelock
+    and requests only inside a function body; scikit-learn only inside
+    ``models/registry.build_random_forest`` (``rf-features``' forest, as in
+    the JAX package); TensorFlow only inside
+    ``models/transplant.load_keras_backbone`` and
+    ``infer/embeddings.EmbeddingModel.__init__``."""
     bad = []
     for path in sorted((REPO / "audio_training_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text())
         inside = {id(n) for f in ast.walk(tree)
                   if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
                   for n in ast.walk(f)}
-        in_forest = {id(n) for f in ast.walk(tree)
-                     if isinstance(f, ast.FunctionDef)
-                     and f.name == "build_random_forest"
-                     and path.name == "registry.py"
-                     for n in ast.walk(f)}
+        def inside_of(name, file):
+            return {id(n) for f in ast.walk(tree)
+                    if isinstance(f, ast.FunctionDef) and f.name == name
+                    and path.name == file for n in ast.walk(f)}
+
+        in_forest = inside_of("build_random_forest", "registry.py")
+        in_bridges = (inside_of("load_keras_backbone", "transplant.py")
+                      | inside_of("__init__", "embeddings.py"))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -118,7 +167,7 @@ def test_port_names_absent_packages_only_inside_functions():
                 top = n.split(".")[0]
                 allowed = {"matplotlib": inside, "sklearn": in_forest,
                            "h5py": inside, "filelock": inside,
-                           "requests": inside}
+                           "requests": inside, "tensorflow": in_bridges}
                 if top in ABSENT and id(node) not in allowed.get(top, ()):
                     bad.append((path.name, n))
     assert not bad, bad
