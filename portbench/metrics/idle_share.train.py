@@ -1,0 +1,8 @@
+"""idle_share.train: percent of the traced window with no operation on the
+card."""
+
+from portbench import readers
+
+
+def read(view):
+    return readers.idle_share(view, "train")

@@ -1,0 +1,8 @@
+"""k1_roofline.serve: K1's least time by counts/k1.py over its measured
+time, percent."""
+
+from portbench import readers
+
+
+def read(view):
+    return readers.k1_roofline(view, "serve")

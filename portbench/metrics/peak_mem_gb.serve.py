@@ -1,0 +1,7 @@
+"""peak_mem_gb.serve: the allocator's peak over the window, GB."""
+
+from portbench import readers
+
+
+def read(view):
+    return readers.peak_mem_gb(view, "serve")
