@@ -31,6 +31,7 @@ from audio_training_tpu_torch.ops.features import (
     spec_augment,
 )
 from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
+from audio_training_tpu_torch.utils.profiling import setup_span, span
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -65,6 +66,7 @@ def make_dual_mel(cfg: FeaturizerConfig,
         device=device)
 
 
+@setup_span("setup.make_preprocess_fn")
 def make_preprocess_fn(
     cfg: FeaturizerConfig,
     augment: bool = False,
@@ -120,22 +122,24 @@ def make_preprocess_fn(
     if augment:
 
         def preprocess(raw, y, raw2, y2, generator: torch.Generator):
-            mixed, y = mix_up(
-                generator, _tensor(raw, device), _tensor(y, device),
-                _tensor(raw2, device), _tensor(y2, device),
-                alpha=mixup_alpha, chance=mixup_chance,
-                single_label=single_label_mix,
-            )
-            mel = to_image(normalize_rows(mixed))
-            if use_spec_augment and not dual:
-                mel = spec_augment(generator, mel)
-            return mel, y
+            with span("preprocess"):
+                mixed, y = mix_up(
+                    generator, _tensor(raw, device), _tensor(y, device),
+                    _tensor(raw2, device), _tensor(y2, device),
+                    alpha=mixup_alpha, chance=mixup_chance,
+                    single_label=single_label_mix,
+                )
+                mel = to_image(normalize_rows(mixed))
+                if use_spec_augment and not dual:
+                    mel = spec_augment(generator, mel)
+                return mel, y
 
         return preprocess
 
     def preprocess_eval(raw, y):
-        return (to_image(normalize_rows(_tensor(raw, device))),
-                _tensor(y, device))
+        with span("preprocess"):
+            return (to_image(normalize_rows(_tensor(raw, device))),
+                    _tensor(y, device))
 
     return preprocess_eval
 

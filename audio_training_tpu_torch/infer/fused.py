@@ -21,8 +21,10 @@ from torch import nn
 
 from audio_training_tpu_torch.config import FeaturizerConfig
 from audio_training_tpu_torch.ops.featurizer_select import make_mel_fn
+from audio_training_tpu_torch.utils.profiling import setup_span, span
 
 
+@setup_span("setup.make_fused_infer_fn")
 def make_fused_infer_fn(
     module: nn.Module,
     cfg: FeaturizerConfig,
@@ -50,13 +52,14 @@ def make_fused_infer_fn(
 
     @torch.no_grad()
     def infer(raw: torch.Tensor | np.ndarray) -> torch.Tensor:
-        raw = torch.as_tensor(raw, dtype=torch.float32, device=device)
-        x = mel_fn(raw)[..., None]  # (B, M, T, 1), NHWC
-        if channels > 1:
-            x = x.repeat_interleave(channels, dim=-1)
-        out = module(x)
-        if probabilities:
-            out = torch.sigmoid(out)
-        return out
+        with span("infer"):
+            raw = torch.as_tensor(raw, dtype=torch.float32, device=device)
+            x = mel_fn(raw)[..., None]  # (B, M, T, 1), NHWC
+            if channels > 1:
+                x = x.repeat_interleave(channels, dim=-1)
+            out = module(x)
+            if probabilities:
+                out = torch.sigmoid(out)
+            return out
 
     return infer

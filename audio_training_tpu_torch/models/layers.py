@@ -16,6 +16,10 @@ the TPU's dgrad emitter and is the same function as the plain conv's
 gradient; here autograd (cuDNN on the card) computes it, held against the
 JAX custom VJP by tests/test_torch_train_step.py.
 
+``Conv`` and ``KerasBatchNorm`` run as the profiling regions ``cnn.conv``
+and ``cnn.norm`` (``utils/profiling.region``): spans of their forward and
+backward while a profiler records, a plain call otherwise.
+
 Each layer that holds Flax variables names its Flax kind (``flax_kind``,
 the Flax class name that numbers its scope) and its leaves
 (``flax_leaves``: collection, path below the scope, torch tensor, layout
@@ -35,6 +39,7 @@ from audio_training_tpu_torch.ops.features import mag_transform
 from audio_training_tpu_torch.ops.pcen import pcen
 from audio_training_tpu_torch.parallel.collectives import all_reduce_sum
 from audio_training_tpu_torch.parallel.mesh import active_mesh, local_rows
+from audio_training_tpu_torch.utils.profiling import region
 
 # Keras BatchNormalization defaults
 BN_EPS = 1e-3
@@ -144,16 +149,19 @@ class KerasBatchNorm(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
-    def _affine(self, x, mean, var, shape):
+    def _affine(self, x, mean, var, shape, weight, bias):
         mul = torch.rsqrt(var + self.eps)
-        if self.weight is not None:
-            mul = mul * self.weight
+        if weight is not None:
+            mul = mul * weight
         y = (x - mean.view(shape)) * mul.view(shape)
-        if self.bias is not None:
-            y = y + self.bias.view(shape)
+        if bias is not None:
+            y = y + bias.view(shape)
         return y.to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return region("cnn.norm", self._norm, x, self.weight, self.bias)
+
+    def _norm(self, x, weight, bias):
         shape = [1] * x.ndim
         shape[self.feature_dim] = -1
         if self.training:
@@ -178,11 +186,12 @@ class KerasBatchNorm(nn.Module):
                                         + (1.0 - BN_MOMENTUM) * mean)
                 self.running_var.copy_(BN_MOMENTUM * self.running_var
                                        + (1.0 - BN_MOMENTUM) * var)
-            return self._affine(xf, mean, var, shape).to(x.dtype)
+            return self._affine(xf, mean, var, shape, weight, bias).to(x.dtype)
         if self.feature_dim == 1:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        return self._affine(x, self.running_mean, self.running_var, shape)
+                                weight, bias, False, 0.0, self.eps)
+        return self._affine(x, self.running_mean, self.running_var, shape,
+                            weight, bias)
 
 
 class MagTransform(nn.Module):
@@ -314,7 +323,9 @@ class Conv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self.weight, self.bias
+        return region("cnn.conv", self._conv, x, self.weight, self.bias)
+
+    def _conv(self, x, w, b):
         if self.dtype is not None:
             x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
         pad = (0, 0)

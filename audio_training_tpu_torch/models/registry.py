@@ -41,6 +41,7 @@ from audio_training_tpu_torch.models.layers import (
 )
 from audio_training_tpu_torch.models.wr_resnet import WRResNet
 from audio_training_tpu_torch.models.wr_resnet_bird import WRResNetBird
+from audio_training_tpu_torch.utils.profiling import setup_span
 
 EMBEDDING_DIM = 1280  # Perch (tfdatasetembeddings.py:70)
 
@@ -249,6 +250,7 @@ class BackboneClassifier(nn.Module):
         return _head(x, self.logits_only, self.multi_label)
 
 
+@setup_span("setup.build_model")
 def build_model(
     model_name: str,
     num_labels: int,

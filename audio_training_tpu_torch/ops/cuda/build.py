@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from audio_training_tpu_torch.utils.profiling import setup_span
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -82,6 +84,7 @@ def build_libraries(names: list[str]) -> dict[str, Path]:
     return paths
 
 
+@setup_span("setup.load_library")
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build_libraries([name])[name]))

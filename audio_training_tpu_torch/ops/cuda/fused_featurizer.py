@@ -50,6 +50,7 @@ from audio_training_tpu_torch.ops.stft import (
     num_frames_centered,
     num_frames_tf,
 )
+from audio_training_tpu_torch.utils import profiling
 
 N_FFT = 4096
 MAX_BINS = 1024  # bins 0..1023: the kernel computes no bin above these
@@ -63,17 +64,17 @@ FRONTEND_EPS = 1e-3  # the Keras BatchNorm epsilon of badwinner2's mel BN
 _MEL_COUNTERS = [f"fused_featurizer_mel{tier}{mode}"
                  for tier in ("", "_bf16", "_bf16x3")
                  for mode in ("", "_centered", "_folded")]
-_LAUNCHES = {**dict.fromkeys(_MEL_COUNTERS, 0), "fused_featurizer_pcen": 0,
-             "clip_minmax": 0}
+profiling.register_counters(
+    "fused_featurizer", [*_MEL_COUNTERS, "fused_featurizer_pcen",
+                         "clip_minmax"])
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return profiling.counts("fused_featurizer")
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    profiling.reset_counts("fused_featurizer")
 
 
 def geometry_error(mel_weights: np.ndarray, n_fft: int) -> str | None:
@@ -666,7 +667,7 @@ def clip_minmax(raw: torch.Tensor) -> torch.Tensor:
         _check(_library().ff_clip_minmax(
             raw.data_ptr(), batch, samples, out.data_ptr(), _stream(),
         ), "clip min-max")
-    _LAUNCHES["clip_minmax"] += 1
+    profiling.count("fused_featurizer", "clip_minmax")
     return out
 
 
@@ -743,6 +744,7 @@ class FusedFeaturizer:
     2048 zeros both sides, ``1 + n//hop`` frames), in the kernel without a
     padded copy, at every tier."""
 
+    @profiling.setup_span("setup.FusedFeaturizer")
     def __init__(
         self,
         mel_weights: np.ndarray,
@@ -919,8 +921,9 @@ class FusedFeaturizer:
                     *fold_args, mel.data_ptr(),
                     int(mel_dtype == torch.bfloat16), _stream())
         _check(err, f"{self.precision} mel")
-        _LAUNCHES[mel_counter(self.precision, self.center,
-                              normalize_waveform or frontend is not None)] += 1
+        profiling.count("fused_featurizer", mel_counter(
+            self.precision, self.center,
+            normalize_waveform or frontend is not None))
         if pcen_params is None:
             return mel
         return pcen_rows(mel, pcen_params, out_dtype)
@@ -954,5 +957,5 @@ def pcen_rows(
             mel.data_ptr(), rows, frames, *pcen_params, out.data_ptr(),
             int(out_dtype == torch.bfloat16), _stream(),
         ), "pcen")
-    _LAUNCHES["fused_featurizer_pcen"] += 1
+    profiling.count("fused_featurizer", "fused_featurizer_pcen")
     return out

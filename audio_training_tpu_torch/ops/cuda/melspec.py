@@ -28,6 +28,7 @@ import torch
 
 from audio_training_tpu_torch.ops.cuda.build import load_library
 from audio_training_tpu_torch.ops.mel import band_tables
+from audio_training_tpu_torch.utils import profiling
 
 # csrc/melspec.cu's tile: ROWS STFT rows per block, staged as ROWS x support
 # f32, and RPT rows per thread in the band walk
@@ -35,16 +36,15 @@ ROWS, RPT = 16, 8
 MAX_SUPPORT = 232448 // (4 * ROWS)  # bins of support one block can stage
 
 # Launches of the kernel since the last reset, counted where it launches.
-_LAUNCHES = {"power_mel": 0}
+profiling.register_counters("melspec", ["power_mel"])
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return profiling.counts("melspec")
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    profiling.reset_counts("melspec")
 
 
 @functools.cache
@@ -197,5 +197,5 @@ def _launch(re: int, im: int, stride: int, shape: torch.Size,
         )
     if err != 0:
         raise RuntimeError(f"power_mel launch failed: cudaError {err}")
-    _LAUNCHES["power_mel"] += 1
+    profiling.count("melspec", "power_mel")
     return out

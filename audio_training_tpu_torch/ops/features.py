@@ -18,6 +18,7 @@ from audio_training_tpu_torch.ops.mel import mel_filterbank
 from audio_training_tpu_torch.ops.stft import stft_centered, stft_tf_style
 from audio_training_tpu_torch.parallel.collectives import global_extrema
 from audio_training_tpu_torch.parallel.mesh import active_mesh, local_rows
+from audio_training_tpu_torch.utils.profiling import span
 
 
 def mag_transform(x: torch.Tensor, a: torch.Tensor | float) -> torch.Tensor:
@@ -60,9 +61,10 @@ def normalize_rows(x: torch.Tensor) -> torch.Tensor:
     """Per-last-axis min-max used after mixup (tfdataset.normalize,
     tfdataset.py:1916-1934): subtract row min, divide by row max (of the
     shifted data), add 1e-6, then map to [-1, 1]."""
-    x = x - x.amin(dim=-1, keepdim=True)
-    x = x / x.amax(dim=-1, keepdim=True) + 0.000001
-    return (x - 0.5) * 2.0
+    with span("normalize"):
+        x = x - x.amin(dim=-1, keepdim=True)
+        x = x / x.amax(dim=-1, keepdim=True) + 0.000001
+        return (x - 0.5) * 2.0
 
 
 def normalize_waveform(x: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from audio_training_tpu_torch.ops.cuda.build import load_library
+from audio_training_tpu_torch.utils import profiling
 
 ITERS = 16
 REPEATS = 3
@@ -44,17 +45,17 @@ DOT_TILE = 64  # the dot kernel's output tile (64 x 64) and operand tiles
 _SHIFT_MIN_LANES = {"shift1": 513, "roll": OUT_COLS, "pool3": 507,
                     "copyblk": OUT_COLS}
 
-_LAUNCHES = {**{f"probe_dot_{m}": 0 for m in DOT_MODES},
-             **{f"probe_shift_{m}": 0 for m in SHIFT_MODES}}
+profiling.register_counters(
+    "probe_megakernel", [*(f"probe_dot_{m}" for m in DOT_MODES),
+                         *(f"probe_shift_{m}" for m in SHIFT_MODES)])
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_LAUNCHES)
+    return profiling.counts("probe_megakernel")
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    profiling.reset_counts("probe_megakernel")
 
 
 @functools.cache
@@ -227,7 +228,7 @@ def _dot_launch(salt: float, a: torch.Tensor, b: torch.Tensor, ndots: int,
             ndots, blocks, plan.data_ptr(), DOT_MODES.index(mode),
             scratch.data_ptr(), out.data_ptr(), _stream()),
             f"dot probe ({mode})")
-    _LAUNCHES[f"probe_dot_{mode}"] += 1
+    profiling.count("probe_megakernel", f"probe_dot_{mode}")
     return out, scratch
 
 
@@ -346,7 +347,7 @@ def shift_probe(salt: float, x: torch.Tensor, nops: int, grid: int = 8,
             plan.x_lanes, plan.threads, plan.blocks, plan.smem_rows,
             out.data_ptr(), _stream()),
             f"shift probe ({mode})")
-    _LAUNCHES[f"probe_shift_{mode}"] += 1
+    profiling.count("probe_megakernel", f"probe_shift_{mode}")
     return out
 
 

@@ -16,6 +16,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from audio_training_tpu_torch.utils.profiling import setup_span
+
 
 def make_optimizer(params, learning_rate: float = 0.01) -> torch.optim.Adam:
     """Adam at lr 0.01 (audiomodel.py:149, optimizer(), :1226-1240)."""
@@ -58,6 +60,7 @@ def init_weights(module: nn.Module, seed: int) -> nn.Module:
     return module
 
 
+@setup_span("setup.create_train_state")
 def create_train_state(
     module: nn.Module,
     learning_rate: float = 0.01,

@@ -37,6 +37,7 @@ from audio_training_tpu_torch.parallel.mesh import Mesh
 from audio_training_tpu_torch.train.losses import get_loss
 from audio_training_tpu_torch.train.metrics import metrics_init, metrics_update
 from audio_training_tpu_torch.train.state import TrainState
+from audio_training_tpu_torch.utils.profiling import span
 
 # NZ bounding box [lng_min, lat_max, lng_max, lat_min] (tfdataset.py:35)
 NZ_BOX = (166.509144322, -34.4506617165, 178.517093541, -46.641235447)
@@ -248,22 +249,25 @@ def make_train_step(
 
     def step(state: TrainState, metrics, mel, y, generator=None,
              possible=None, latlng=None):
-        model = state.model.train()
-        inputs = mel if isinstance(mel, tuple) else (mel,)
-        # the forward, the loss and the backward (whose remat recompute
-        # replays the BatchNorm all-reduces) run inside the mesh
-        with mesh if parallel else contextlib.nullcontext():
-            logits = forward(model, inputs, generator)
-            loss = loss_of(logits, y, possible, latlng)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        with torch.no_grad():
-            metrics = metrics_update(metrics, loss.detach(),
-                                     _probs(logits.detach(), multi_label), y,
-                                     multi_label)
-        return state, metrics
+        with span("train.step"):
+            model = state.model.train()
+            inputs = mel if isinstance(mel, tuple) else (mel,)
+            # the forward, the loss and the backward (whose remat recompute
+            # replays the BatchNorm all-reduces) run inside the mesh
+            with mesh if parallel else contextlib.nullcontext():
+                with span("train.forward"):
+                    logits = forward(model, inputs, generator)
+                loss = loss_of(logits, y, possible, latlng)
+                state.optimizer.zero_grad(set_to_none=True)
+                with span("train.backward"):
+                    loss.backward()
+            state.optimizer.step()
+            state.step += 1
+            with torch.no_grad():
+                metrics = metrics_update(metrics, loss.detach(),
+                                         _probs(logits.detach(), multi_label),
+                                         y, multi_label)
+            return state, metrics
 
     return step
 

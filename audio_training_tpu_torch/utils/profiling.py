@@ -17,10 +17,30 @@ Each helper keeps its JAX counterpart's claim on the card:
   module, and the trace links each kernel to the launch inside them);
 * :func:`state_memory_bytes` and :func:`log_memory_stats` count a train
   state's tensors and read the card's allocator.
+
+The program's own spans and counters live here too:
+
+* :func:`span` is a ``record_function`` range while a ``torch.profiler``
+  records and a shared null context otherwise, so the program's spans sit
+  in the profiler's trace beside the card's activity, and cost one check
+  when nothing records;
+* :func:`region` records a layer's forward as a span and its backward as
+  ``<name>.backward``, from the gradient reaching the layer's output to
+  its leaving the layer's inputs (inserted only while a profiler records);
+* :func:`setup_span` times a one-off set-up call on ``CLOCK_BOOTTIME``
+  whether a profiler records or not, read back by :func:`setup_spans`;
+* the counter registry (:func:`register_counters`, :func:`count`,
+  :func:`counts`, :func:`reset_counts`) holds the kernels' launch counts,
+  one group a module (``fused_featurizer``, ``melspec``,
+  ``probe_megakernel``).
+
+``MODULE_RANGE``'s forward hooks are :func:`fusion_layer_map`'s offline
+tool and push no range otherwise.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import logging
@@ -28,9 +48,11 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
 log = logging.getLogger(__name__)
 
@@ -38,6 +60,120 @@ MODULE_RANGE = "module::"  # prefix of the ranges fusion_layer_map pushes
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 _PRE_ROLL = 128  # fills in trace's warm-up step, past the kernels it loses
+_SETUP_KEPT = 1024  # set-up spans kept, the newest
+_recording = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+_setup: collections.deque = collections.deque(maxlen=_SETUP_KEPT)
+_counters: dict[str, dict[str, int]] = {}
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else a
+    shared null context: one check of the profiler's state."""
+    return record_function(name) if _recording() else _NULL
+
+
+def _close(ranges: list) -> None:
+    while ranges:
+        ranges.pop().__exit__(None, None, None)
+
+
+class _Out(torch.autograd.Function):
+    """The identity at a region's output; its backward opens the region's
+    backward range (and queues its closing at the end of the backward
+    pass, should the gradient never leave the region's inputs)."""
+
+    @staticmethod
+    def forward(ctx, ranges, name, x):
+        ctx.ranges, ctx.name = ranges, name
+        return x.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        rf = record_function(ctx.name)
+        rf.__enter__()
+        ctx.ranges.append(rf)
+        torch.autograd.Variable._execution_engine.queue_callback(
+            lambda: _close(ctx.ranges))
+        return None, None, g
+
+
+class _In(torch.autograd.Function):
+    """The identity at a region's inputs (the tensors that need a
+    gradient, its parameters among them); its backward, run once every one
+    of their gradients is computed, closes the region's backward range."""
+
+    @staticmethod
+    def forward(ctx, ranges, *xs):
+        ctx.ranges = ranges
+        return tuple(x.detach() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _close(ctx.ranges)
+        return (None, *grads)
+
+
+def region(name: str, fn: Callable[..., torch.Tensor], *xs):
+    """``fn(*xs)`` (one tensor out), recorded while a profiler records as
+    the span ``name`` and, where it needs a gradient, its backward as the
+    span ``name + ".backward"``.  Pass every tensor ``fn`` differentiates,
+    the layer's parameters too: the backward range closes when the last
+    of their gradients leaves the region.  Otherwise ``fn(*xs)`` with the
+    autograd graph it has alone.  The identities at the boundary return
+    detached aliases that share their input's version counter, so an
+    in-place change of the output is checked as it is without them."""
+    if not _recording():
+        return fn(*xs)
+    grads = torch.is_grad_enabled() and [
+        i for i, x in enumerate(xs)
+        if isinstance(x, torch.Tensor) and x.requires_grad]
+    ranges: list = []
+    if grads:
+        xs = list(xs)
+        for i, x in zip(grads, _In.apply(ranges, *(xs[i] for i in grads))):
+            xs[i] = x
+    with record_function(name):
+        out = fn(*xs)
+    if grads and out.requires_grad:
+        out = _Out.apply(ranges, name + ".backward", out)
+    return out
+
+
+@contextlib.contextmanager
+def setup_span(name: str):
+    """Time the enclosed one-off set-up (also as a decorator) on
+    ``CLOCK_BOOTTIME``, whether a profiler records or not; the newest
+    ``_SETUP_KEPT`` are kept for :func:`setup_spans`."""
+    start = time.clock_gettime(time.CLOCK_BOOTTIME)
+    try:
+        yield
+    finally:
+        _setup.append((name, start, time.clock_gettime(time.CLOCK_BOOTTIME)))
+
+
+def setup_spans() -> list[tuple[str, float, float]]:
+    """The set-up spans so far, as (name, start, end) in seconds on
+    ``CLOCK_BOOTTIME``, in the order they ended."""
+    return list(_setup)
+
+
+def register_counters(group: str, names) -> None:
+    """Counters ``names`` of ``group``, each at 0."""
+    _counters[group] = dict.fromkeys(names, 0)
+
+
+def count(group: str, name: str) -> None:
+    _counters[group][name] += 1
+
+
+def counts(group: str) -> dict[str, int]:
+    """The counts of ``group`` since its last reset."""
+    return dict(_counters[group])
+
+
+def reset_counts(group: str) -> None:
+    _counters[group] = dict.fromkeys(_counters[group], 0)
 
 
 @contextlib.contextmanager

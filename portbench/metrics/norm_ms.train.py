@@ -1,0 +1,12 @@
+"""norm_ms.train: device ms a step launched inside the program's cnn.norm
+and cnn.norm.backward spans (models/layers.py KerasBatchNorm, train mode,
+forward and backward), each operation counted once."""
+
+SPANS = ("cnn.norm", "cnn.norm.backward")
+
+
+def read(view):
+    if view.kind != "train":
+        return None
+    ops = {id(o): o for name in SPANS for o in view.launched_in(name)}
+    return view.ms_per_unit(ops.values()) if ops else None
