@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audio_training_tpu_torch.ops.cuda.batch_norm import train_batch_norm
 from audio_training_tpu_torch.ops.features import mag_transform
 from audio_training_tpu_torch.ops.pcen import pcen
 from audio_training_tpu_torch.parallel.collectives import all_reduce_sum
@@ -116,6 +117,12 @@ class KerasBatchNorm(nn.Module):
     of ``x`` and ``x^2`` and the row count are all-reduced in f32, in one
     call whose backward all-reduces the gradient (``SyncBatchNorm`` keeps
     PyTorch's unbiased running variance and momentum, not Flax's rule).
+
+    Training mode on a CUDA tensor runs the hand-written kernels of
+    ``ops/cuda/batch_norm.py`` (bf16 or f32, dense layouts; anything else
+    raises); :meth:`train_plain` is their plain version, which training on
+    a CPU tensor takes.  Eval mode is ``F.batch_norm`` (``feature_dim=1``)
+    or :meth:`_affine`.
     """
 
     flax_kind = "KerasBatchNorm"
@@ -162,36 +169,48 @@ class KerasBatchNorm(nn.Module):
         return region("cnn.norm", self._norm, x, self.weight, self.bias)
 
     def _norm(self, x, weight, bias):
-        shape = [1] * x.ndim
-        shape[self.feature_dim] = -1
         if self.training:
-            dims = [d for d in range(x.ndim) if d != self.feature_dim]
-            xf = x if x.dtype == torch.float64 else x.float()
-            mesh = active_mesh()
-            if mesh is None:
-                mean = xf.mean(dims)
-                ex2 = (xf * xf).mean(dims)
-            else:
-                # the global batch's moments: [sum x, sum x^2, rows] in one
-                # all-reduce that carries the gradient
-                c = xf.shape[self.feature_dim]
-                rows = torch.full((1,), xf.numel() / c, dtype=xf.dtype,
-                                  device=xf.device)
-                sums = all_reduce_sum(mesh, torch.cat(
-                    [xf.sum(dims), (xf * xf).sum(dims), rows]))
-                mean, ex2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-            var = (ex2 - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1.0 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1.0 - BN_MOMENTUM) * var)
-            return self._affine(xf, mean, var, shape, weight, bias).to(x.dtype)
+            if x.device.type == "cuda":
+                return train_batch_norm(x, self.feature_dim, weight, bias,
+                                        self.running_mean, self.running_var,
+                                        self.eps, BN_MOMENTUM, active_mesh())
+            return self.train_plain(x, weight, bias)
         if self.feature_dim == 1:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0, self.eps)
+        shape = [1] * x.ndim
+        shape[self.feature_dim] = -1
         return self._affine(x, self.running_mean, self.running_var, shape,
                             weight, bias)
+
+    def train_plain(self, x, weight, bias):
+        """The plain version of the training kernels, on any device: the
+        batch's moments, the running update and the affine, as autograd
+        ops in f32 (f64 for an f64 input)."""
+        shape = [1] * x.ndim
+        shape[self.feature_dim] = -1
+        dims = [d for d in range(x.ndim) if d != self.feature_dim]
+        xf = x if x.dtype == torch.float64 else x.float()
+        mesh = active_mesh()
+        if mesh is None:
+            mean = xf.mean(dims)
+            ex2 = (xf * xf).mean(dims)
+        else:
+            # the global batch's moments: [sum x, sum x^2, rows] in one
+            # all-reduce that carries the gradient
+            c = xf.shape[self.feature_dim]
+            rows = torch.full((1,), xf.numel() / c, dtype=xf.dtype,
+                              device=xf.device)
+            sums = all_reduce_sum(mesh, torch.cat(
+                [xf.sum(dims), (xf * xf).sum(dims), rows]))
+            mean, ex2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = (ex2 - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1.0 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1.0 - BN_MOMENTUM) * var)
+        return self._affine(xf, mean, var, shape, weight, bias).to(x.dtype)
 
 
 class MagTransform(nn.Module):

@@ -8,6 +8,11 @@ and of the flags, so an edited source or header rebuilds; ``.gitignore``
 lists ``build/``.  ``nvcc -Xptxas -v`` output (registers, shared memory, spills)
 is kept beside each library as ``<name>-<hash>.log``.
 
+The model paths' libraries (:data:`PATH_LIBRARIES`) are built together:
+the first :func:`load_library` of any of them builds every one not yet
+built in one batch of nvcc processes, so a cold set-up waits for the
+slowest build once, and a warm one builds nothing.
+
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -30,6 +35,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The libraries the training and inference paths load
+PATH_LIBRARIES = ("batch_norm", "fused_featurizer", "melspec")
 
 
 def nvcc_path() -> str:
@@ -86,8 +94,10 @@ def build_libraries(names: list[str]) -> dict[str, Path]:
 
 @setup_span("setup.load_library")
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build_libraries([name])[name]))
+    """Build (if needed) and load ``csrc/<name>.cu``; a library of
+    :data:`PATH_LIBRARIES` is built in one batch with the others."""
+    names = sorted({name, *PATH_LIBRARIES}) if name in PATH_LIBRARIES else [name]
+    return ctypes.CDLL(str(build_libraries(names)[name]))
 
 
 def build_log(name: str) -> str:

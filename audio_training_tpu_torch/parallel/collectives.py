@@ -7,7 +7,9 @@ batch; a per-rank PyTorch program would compute them over its rows:
 * train-mode BatchNorm's moments: :func:`all_reduce_sum` carries a
   gradient (a SUM all-reduce whose backward is a SUM all-reduce), which
   ``torch.distributed.all_reduce`` does not, so every rank's input gradient
-  holds the other ranks' share of the mean;
+  holds the other ranks' share of the mean (on the card, the kernels of
+  ``ops/cuda/batch_norm.py`` all-reduce the same sums forward and their
+  two gradient sums backward through :func:`all_reduce_sum_`);
 * the PCEN chain's min-max: :func:`global_extrema` sends the summed
   gradient of the global minimum and maximum only to the elements equal to
   them, split among ties counted over all ranks, as JAX's ``reduce_max``
@@ -53,6 +55,14 @@ class _AllReduceSum(torch.autograd.Function):
         grad = grad.contiguous().clone()
         _all_reduce(ctx.mesh, grad)
         return grad, None
+
+
+def all_reduce_sum_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the mesh's ranks, in place and without a
+    gradient: for a kernel whose own backward all-reduces what it needs
+    (``ops/cuda/batch_norm.py``)."""
+    _all_reduce(mesh, t)
+    return t
 
 
 def all_reduce_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:

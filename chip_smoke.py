@@ -242,7 +242,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    tier against the single-process step on the same weights and batch
    (TF32 off): |loss difference|, the largest relative gradient and
    running-statistic differences, the two ranks' parameters after Adam
-   (identical); a later step's all-reduced elements (counted by
+   (identical), each rank's BatchNorm kernel launches (a statistics
+   finalize before and one after the all-reduce of the sums); each of the
+   step's BatchNorms alone (phase 5's layouts) at B=8, the ranks' rows on
+   the kernels under the mesh against one process of the same kernels on
+   the whole batch at the card tests' limits (y, dx, the summed parameter
+   gradients, each rank's running statistics, its launches); the same
+   step in float64 on CPU ranks against one CPU process; a later step's all-reduced elements (counted by
    ``parallel.audit``) against the audit's budget and JAX's 4,729,891
    (``MULTICHIP_r05.json``); each rank's step ms beside the single
    process's (two ranks share one card: no scaling is measured); the
@@ -281,6 +287,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    --backbone-weights`` fail as the JAX package's do (where TensorFlow
    imports, the real ``load_keras_backbone`` path runs instead).  Its K1
    launches join the exact-folded, "default" and PCEN records.
+18. train-mode BatchNorm (``ops/cuda/batch_norm.py``, run after phase 9)
+   at the training cell's BatchNorms as phase 5's step runs them
+   (badwinner2 at B=128; shape, strides and dtype read by a hook on each
+   ``KerasBatchNorm``): ``mel_bn`` (f32, per mel row), five conv
+   BatchNorms (bf16 channels-last) and the head's two (bf16 NCHW), each
+   forward and backward against ``KerasBatchNorm.train_plain`` on the same
+   input (tests/test_torch_gpu.py's limits), each kernel's launches
+   (counted around one pass, times the step's BatchNorms of that layout),
+   its error (the running statistics of the statistics kernel, y of the
+   apply, the parameter gradients of the backward reduce, dx of the
+   backward apply) and its device time from a profile against its byte
+   bound and against PyTorch's own kernel for the same work (the family
+   SyncBatchNorm builds: ``torch.batch_norm_stats`` and its three
+   siblings), the pass against the plain version's and the library's.
+   Phase 5 checks a badwinner2 training step's launches: each kernel once
+   a BatchNorm, 8 in all.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -348,7 +370,8 @@ PROFILE_CHAIN_REL = 0.10
 # the gradients' largest relative difference printed: f32 train-mode
 # BatchNorm gradients of the seeded badwinner2 are themselves up to 5.8e-2
 # of a tensor's max from float64 ones (the CPU at B=4, one process or two
-# alike), so the gradients are held in float64 at B=8 (4 a rank), where
+# alike), so the gradients are held in float64 at B=8 (4 a rank), on the
+# CPU (the card's train-mode BatchNorm kernels take bf16 and f32), where
 # only summation order and the f32 logits separate the two runs (the CPU
 # rehearsal at B=4: 7.8e-7): gradients and statistics to 1e-5 of each
 # tensor's max, and Adam's update to 1e-3 of lr wherever the gradient is
@@ -361,6 +384,7 @@ DP_BATCH = TRAIN_BATCH
 DP_WINDOWS = 67
 DP_TIMED_STEPS = 5
 DP_F64_BATCH = 8
+DP_BN_BATCH = 8  # the BatchNorm kernels under the mesh: 4 rows a rank
 DP_LOSS_REL = 1e-5
 DP_STAT_REL = 1e-4
 DP_F64_REL = 1e-5
@@ -446,6 +470,14 @@ MUFU_S = SMS * 16 * SM_CLOCK_HZ
 # (about 9) at the fp32 peak
 PCEN_TRANSCENDENTALS = 4
 PCEN_FLOPS = 12
+BN_SOURCE = "audio_training_tpu_torch/csrc/batch_norm.cu"
+# phases 16 and 18 take the training step's BatchNorms as phase 5 finds
+# them (shape, strides, dtype, feature dim, scale and bias); the limits are
+# tests/test_torch_gpu.py's
+BN_BF16_STEP = 2.0 ** -7
+BN_BF16_OFF = 0.01
+BN_F32_REL = 1e-5
+BN_GRAD_REL = 1e-4
 KERNEL_SOURCE = "audio_training_tpu_torch/csrc/fused_featurizer.cu"
 TPU_KERNEL = "audio_training_tpu/ops/pallas/fused_featurizer.py:286"
 MELSPEC_SOURCE = "audio_training_tpu_torch/csrc/melspec.cu"
@@ -646,6 +678,310 @@ def kernel_record(name: str, source: str, replaces: str, launches: int,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library_ms}
+
+
+def bn_spec(name: str, module, x) -> dict:
+    """What phases 16 and 18 need of one BatchNorm call of the training
+    step: the module's name, its input's shape, strides and dtype, the
+    feature dim, scale and bias."""
+    return {"name": name, "shape": tuple(x.shape), "strides": x.stride(),
+            "dtype": str(x.dtype).removeprefix("torch."),
+            "feature_dim": module.feature_dim,
+            "scale": module.weight is not None,
+            "bias": module.bias is not None}
+
+
+def bn_groups(specs: list[dict]) -> list[tuple[dict, list[str]]]:
+    """The step's BatchNorm calls grouped by all but their names, in the
+    step's order: ``(spec, names)``."""
+    groups: dict[tuple, tuple[dict, list[str]]] = {}
+    for spec in specs:
+        key = tuple((k, v) for k, v in spec.items() if k != "name")
+        groups.setdefault(key, (spec, []))[1].append(spec["name"])
+    return list(groups.values())
+
+
+def bn_case(spec: dict, batch: int, dev):
+    """A train-mode KerasBatchNorm of ``spec`` on ``dev`` (seeded scale and
+    bias), an input of ``batch`` rows (per-channel offsets and scales) and
+    an output gradient, both laid out in memory as the step's input."""
+    import torch
+
+    from audio_training_tpu_torch.models.layers import KerasBatchNorm
+
+    fdim, dtype = spec["feature_dim"], getattr(torch, spec["dtype"])
+    shape = (batch, *spec["shape"][1:])
+    c = shape[fdim]
+    g = torch.Generator().manual_seed(SEED)
+    m = KerasBatchNorm(c, fdim, spec["scale"], spec["bias"]).to(dev).train()
+    with torch.no_grad():
+        for t in (m.weight, m.bias):
+            if t is not None:
+                t.copy_(torch.rand(c, generator=g) + (0.5 if t is m.weight
+                                                      else -0.5))
+    view = [1] * len(shape)
+    view[fdim] = c
+    order = sorted(range(len(shape)), key=lambda d: -spec["strides"][d])
+    back = [order.index(d) for d in range(len(shape))]
+
+    def laid(t):
+        return (t.to(dtype).permute(order).contiguous().permute(back)
+                .to(dev))
+
+    x = laid(torch.randn(shape, generator=g)
+             * (torch.rand(c, generator=g) + 0.5).view(view)
+             + (torch.rand(c, generator=g) - 0.5).view(view))
+    return m, x, laid(torch.randn(shape, generator=g))
+
+
+def bn_pass(m, x, dy, plain: bool = False) -> dict:
+    """One forward and backward of a copy of ``m``: its kernels, or the
+    ``plain`` version (``KerasBatchNorm.train_plain``).  Returns y, dx,
+    the parameter gradients and the running statistics after it."""
+    import torch
+
+    m = copy.deepcopy(m)
+    xr = x.detach().requires_grad_()
+    params = [t for t in (m.weight, m.bias) if t is not None]
+    y = m.train_plain(xr, m.weight, m.bias) if plain else m(xr)
+    dx, *grads = torch.autograd.grad(y, [xr, *params], dy)
+    return {"y": y, "dx": dx, "grads": grads,
+            "stats": [m.running_mean, m.running_var]}
+
+
+def bn_errors(got: dict, want: dict) -> dict:
+    """Each output's largest error relative to the max of ``want``'s (the
+    parameter gradients' and the running statistics' largest of their
+    tensors; None without parameters), and the share of y and dx values
+    that differ at all."""
+    def rel(a, b):
+        b = b.to(a.device).float()
+        return ((a.float() - b).abs().max() / b.abs().max()).item()
+
+    def off(a, b):
+        return (a.float() != b.to(a.device).float()).float().mean().item()
+
+    return {"y": rel(got["y"], want["y"]), "dx": rel(got["dx"], want["dx"]),
+            "grads": max((rel(a, b) for a, b in zip(got["grads"],
+                                                    want["grads"])),
+                         default=None),
+            "stats": max(rel(a, b) for a, b in zip(got["stats"],
+                                                   want["stats"])),
+            "y_off": off(got["y"], want["y"]),
+            "dx_off": off(got["dx"], want["dx"])}
+
+
+def bn_within(errs: dict, dtype: str) -> tuple[bool, str]:
+    """Whether ``bn_errors``' numbers keep the card tests' limits, and the
+    numbers beside their limits."""
+    bf16 = dtype == "bfloat16"
+    out_lim = BN_BF16_STEP if bf16 else BN_F32_REL
+    ok = (errs["y"] <= out_lim and errs["dx"] <= out_lim
+          and (errs["grads"] is None or errs["grads"] <= BN_GRAD_REL)
+          and errs["stats"] <= BN_F32_REL
+          and (not bf16 or max(errs["y_off"], errs["dx_off"]) <= BN_BF16_OFF))
+    grads = "none" if errs["grads"] is None else f"{errs['grads']:.2e}"
+    text = (f"y {errs['y']:.2e}, dx {errs['dx']:.2e} (limit {out_lim}), "
+            f"parameter gradients {grads} (limit {BN_GRAD_REL}), running "
+            f"statistics {errs['stats']:.2e} (limit {BN_F32_REL}) of the "
+            f"max" + (f"; share of y and dx off {errs['y_off']:.2e} / "
+                      f"{errs['dx_off']:.2e} (limit {BN_BF16_OFF})"
+                      if bf16 else ""))
+    return ok, text
+
+
+# PyTorch's own kernels for each BatchNorm kernel's work (SyncBatchNorm's
+# family), found by a substring of the kernel's name
+BN_LIBRARY_KERNELS = {"statistics": "collect_statistics",
+                      "apply": "transform_input",
+                      "backward_reduce": "backward_reduce",
+                      "backward_apply": "backward_elemt"}
+
+
+def bn_library_run(m, x, dy):
+    """The same forward and backward by PyTorch's own train-mode BatchNorm
+    kernels, the family SyncBatchNorm builds (``torch.batch_norm_stats``,
+    ``batch_norm_elemt``, ``batch_norm_backward_reduce``,
+    ``batch_norm_backward_elemt``), with Flax's running update: a function
+    of no arguments returning y and dx.  Their variance is Welford's, not
+    Flax's fast one, so phase 18 times them beside the kernels."""
+    import torch
+
+    from audio_training_tpu_torch.models.layers import BN_MOMENTUM
+
+    fdim = m.feature_dim
+    xm, dym = x.movedim(fdim, 1), dy.movedim(fdim, 1)
+    count = torch.full((1,), x.numel() // x.shape[fdim], dtype=torch.int32,
+                       device=x.device)
+    w, b = m.weight, m.bias
+    rm, rv = m.running_mean.clone(), m.running_var.clone()
+
+    def run():
+        mean, invstd = torch.batch_norm_stats(xm, m.eps)
+        rm.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        rv.mul_(BN_MOMENTUM).add_(invstd.pow(-2) - m.eps,
+                                  alpha=1.0 - BN_MOMENTUM)
+        y = torch.batch_norm_elemt(xm, w, b, mean, invstd, m.eps)
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+            dym, xm, mean, invstd, w, True, w is not None, b is not None)
+        dx = torch.batch_norm_backward_elemt(dym, xm, mean, invstd, w,
+                                             sum_dy, sum_dy_xmu, count)
+        return y.movedim(1, fdim), dx.movedim(1, fdim)
+
+    return run
+
+
+def profile_device_ms(fn, reps: int) -> dict[str, float]:
+    """Device ms a call of ``fn`` by kernel name, from a profile of
+    ``reps`` calls after one warm-up (the profiler's own ``ProfilerStep*``
+    range, which spans the kernels, left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=1),
+                 on_trace_ready=lambda p: events.extend(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            torch.zeros(1, device="cuda")
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out: dict[str, float] = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")):
+            out[e.key] = (out.get(e.key, 0.0)
+                          + e.self_device_time_total / 1e3 / reps)
+    return out
+
+
+def batch_norm_phase(dev, card, step_bns: list[dict]) -> list[dict]:
+    """Phase 18: train-mode BatchNorm's kernels at the training cell's
+    BatchNorms as phase 5's step ran them (``step_bns``, badwinner2 at
+    B=128: the per-mel-row ``mel_bn`` in f32, five conv BatchNorms in bf16
+    channels-last, the head's two in bf16 NCHW): each against its plain
+    version (``KerasBatchNorm.train_plain``) at the card tests' limits,
+    each kernel's launches (counted around one pass, times the step's
+    BatchNorms of that layout) and device time (a profile of 3 forward and
+    backward passes) against its byte bound and PyTorch's own kernel for
+    the same work, and the whole forward and backward against the plain
+    version's and the library's.  Returns a kernel record a kernel and
+    layout."""
+    import torch
+
+    from audio_training_tpu_torch.ops.cuda import batch_norm as bn_ops
+
+    records, total, total_plain, total_lib, total_bound = [], 0.0, 0.0, 0.0, 0.0
+    for spec, names in bn_groups(step_bns):
+        times, label = len(names), " / ".join(names)
+        m, x, dy = bn_case(spec, spec["shape"][0], dev)
+        check(bn_ops.layout(x.shape, x.stride(), spec["feature_dim"])
+              == bn_ops.layout(spec["shape"], spec["strides"],
+                               spec["feature_dim"]),
+              f"phase 18's {label} is not laid out as the step's")
+        bn_ops.reset_launch_counts()
+        got = bn_pass(m, x, dy)
+        torch.cuda.synchronize()
+        per_pass = bn_ops.launch_counts()
+        errs = bn_errors(got, bn_pass(m, x, dy, plain=True))
+        ok, text = bn_within(errs, spec["dtype"])
+        log(f"check BatchNorm {label} {spec['shape']} {spec['dtype']} "
+            f"feature_dim {spec['feature_dim']}, (outer, C, inner) "
+            f"{bn_ops.layout(x.shape, x.stride(), spec['feature_dim'])}: "
+            f"{text}; launches a pass {per_pass}")
+        check(ok, f"BatchNorm kernels disagree with plain at {label}")
+        check(per_pass == dict.fromkeys(bn_ops.COUNTERS, 1),
+              f"not one launch of each BatchNorm kernel a pass at {label}")
+        # each kernel's error: the running statistics of the statistics
+        # kernel and its finalize, y of the apply, the parameter gradients
+        # of the backward reduce and finalize (dx where there are none:
+        # the sums feed dx alone), dx of the backward apply
+        kernel_err = {"statistics": errs["stats"], "apply": errs["y"],
+                      "backward_reduce": (errs["dx"] if errs["grads"] is None
+                                          else errs["grads"]),
+                      "backward_apply": errs["dx"]}
+
+        def run(plain=False):
+            xr = x.detach().requires_grad_()
+            params = [t for t in (m.weight, m.bias) if t is not None]
+            y = (m.train_plain(xr, m.weight, m.bias) if plain else m(xr))
+            return torch.autograd.grad(y, [xr, *params], dy)
+
+        reps, dev_ms = 3, {}
+        for key, ms in profile_device_ms(run, reps).items():
+            key = key.replace(" ", "")
+            bwd = key.split(">")[0].endswith("true")
+            for stem, kname in (("reduce_", ("statistics", "backward_reduce")),
+                                ("apply_", ("apply", "backward_apply")),
+                                ("finalize", ("finalize", "finalize"))):
+                if f"::{stem}" in key:
+                    dev_ms[kname[bwd]] = dev_ms.get(kname[bwd], 0.0) + ms
+        n, es = x.numel(), x.element_size()
+        nbytes = {"statistics": n * es, "apply": 2 * n * es,
+                  "backward_reduce": 2 * n * es, "backward_apply": 3 * n * es}
+        check(all(k in dev_ms for k in nbytes),
+              f"the profile of BatchNorm {label} misses a kernel: {dev_ms}")
+        pass_ms = time_ms(run, iters=5)
+        plain_ms = time_ms(lambda: run(plain=True), iters=3)
+        # PyTorch's own kernels for the same work
+        lib_ms, lib_pass_ms = {}, None
+        try:
+            lib = bn_library_run(m, x, dy)
+            y_lib, dx_lib = lib()
+            lib_err = [((a.float() - b.float()).abs().max()
+                        / b.float().abs().max()).item()
+                       for a, b in zip((y_lib, dx_lib), (got["y"], got["dx"]))]
+            del y_lib, dx_lib
+            lib_kernels = profile_device_ms(lib, reps)
+            for key, ms in lib_kernels.items():
+                for kname, stem in BN_LIBRARY_KERNELS.items():
+                    if stem in key:
+                        lib_ms[kname] = lib_ms.get(kname, 0.0) + ms
+                lib_ms["all"] = lib_ms.get("all", 0.0) + ms
+            for key, ms in sorted(lib_kernels.items(), key=lambda kv: -kv[1]):
+                log(f"  library kernel {ms:9.4f} ms {key[:100]}")
+            lib_pass_ms = time_ms(lib, iters=5)
+            lib_text = (f"PyTorch's kernels (SyncBatchNorm's family) "
+                        f"{lib_pass_ms:.4f} ms a pass, device "
+                        f"{lib_ms['all']:.4f} ms: "
+                        + ", ".join(f"{k} {lib_ms.get(k, 0.0):.4f}"
+                                    for k in nbytes)
+                        + f"; their y and dx {lib_err[0]:.2e} / "
+                        f"{lib_err[1]:.2e} of the max from the kernels'")
+        except RuntimeError as e:  # a dtype or layout the library refuses
+            lib_text = (f"PyTorch's kernels refused it: "
+                        f"{str(e).splitlines()[0]}")
+        total += times * pass_ms
+        total_plain += times * plain_ms
+        total_lib += times * (lib_pass_ms or 0.0)
+        total_bound += times * sum(nbytes.values()) / PEAK_BYTES_S * 1e3
+        bound = sum(nbytes.values()) / PEAK_BYTES_S * 1e3
+        log(f"time BatchNorm {label} {spec['shape']} ({times} in the step): "
+            f"forward and backward {pass_ms:.4f} ms (bound {bound:.4f}, "
+            f"share {bound / pass_ms:.3f}), plain {plain_ms:.4f} ms; by "
+            f"kernel "
+            + ", ".join(f"{k} {dev_ms[k]:.4f} ms (bound "
+                        f"{nbytes[k] / PEAK_BYTES_S * 1e3:.4f})"
+                        for k in nbytes)
+            + f", finalizes {dev_ms.get('finalize', 0.0):.4f} ms; "
+            f"{lib_text} {card}")
+        for kname, nb in nbytes.items():
+            records.append(kernel_record(
+                f"batch_norm {kname} {label}", BN_SOURCE,
+                "none (Flax's BatchNorm is left to XLA)",
+                per_pass[kname] * times, kernel_err[kname], dev_ms[kname],
+                plain_ms, (nb / PEAK_BYTES_S * 1e3, "bytes"),
+                lib_ms.get(kname)))
+        del x, dy, m, got
+        torch.cuda.empty_cache()
+    log(f"time BatchNorm, the step's {len(step_bns)} at B={TRAIN_BATCH}: "
+        f"kernels {total:.3f} ms, bound {total_bound:.3f} ms, plain "
+        f"{total_plain:.3f} ms, PyTorch's kernels {total_lib:.3f} ms {card}")
+    return records
 
 
 def folded_chain_phase(dev, cfg, mel_np, fz, clips, card) -> list[dict]:
@@ -3297,13 +3633,36 @@ def corpus_tools_phase(dev, cfg, card, model, chain, requests,
 
 
 
-def dp_sizes(corpus: Path, run_root: Path) -> dict:
+def dp_sizes(corpus: Path, run_root: Path, step_bns: list[dict]) -> dict:
     """Phase 16's sizes and paths, handed to the ranks (spawned processes
-    import this script anew)."""
+    import this script anew), and phase 5's BatchNorms."""
     return {"batch": DP_BATCH, "windows": DP_WINDOWS,
             "steps": DP_TIMED_STEPS, "window_batch": WINDOW_BATCH,
             "f64_batch": DP_F64_BATCH, "corpus": str(corpus),
-            "run_root": str(run_root)}
+            "run_root": str(run_root),
+            "bn_specs": [spec for spec, _ in bn_groups(step_bns)]}
+
+
+def dp_bn_rows(spec: dict, mesh, dev) -> dict:
+    """The BatchNorm kernels of ``spec`` on this rank's rows of
+    :func:`bn_case`'s batch of DP_BN_BATCH under ``mesh``: y and dx of the
+    rows, this rank's parameter gradients and running statistics, on the
+    host, and the kernels' launches."""
+    import torch
+
+    from audio_training_tpu_torch.ops.cuda import batch_norm as bn_ops
+    from audio_training_tpu_torch.parallel import batch_sharding
+
+    m, x, dy = bn_case(spec, DP_BN_BATCH, dev)
+    rows = batch_sharding(mesh).rows(DP_BN_BATCH)
+    bn_ops.reset_launch_counts()
+    with mesh:
+        got = bn_pass(m, x[rows], dy[rows])
+    torch.cuda.synchronize()
+    return {"y": got["y"].cpu(), "dx": got["dx"].cpu(),
+            "grads": [g.cpu() for g in got["grads"]],
+            "stats": [t.cpu() for t in got["stats"]],
+            "counts": bn_ops.launch_counts()}
 
 
 def dp_batch(cfg, n: int):
@@ -3453,6 +3812,7 @@ def dp_rank(rank: int, repo: str, devices: list, weights_path: str,
     from audio_training_tpu_torch.config import (
         FeaturizerConfig, InferenceConfig)
     from audio_training_tpu_torch.infer import Predictor
+    from audio_training_tpu_torch.ops.cuda import batch_norm as bn_ops
     from audio_training_tpu_torch.ops.cuda import fused_featurizer as ffz
     from audio_training_tpu_torch.parallel import (
         make_mesh, replicated, shard_batch)
@@ -3473,13 +3833,15 @@ def dp_rank(rank: int, repo: str, devices: list, weights_path: str,
                      shard_batch(mesh, *dp_batch(cfg, sizes["batch"])), mesh,
                      dev)
     ffz.reset_launch_counts()
+    bn_ops.reset_launch_counts()
     state, metrics = one()
     sync()
     step_counts = ffz.launch_counts()
     with mesh:
         loss = metrics_compute(metrics)["loss"]
     out = {"backend": mesh.backend, "device": str(dev), "loss": loss,
-           "step_counts": step_counts, **dp_tensors(state.model)}
+           "step_counts": step_counts, "bn_counts": bn_ops.launch_counts(),
+           **dp_tensors(state.model)}
     with counting() as inv:
         one()
         sync()
@@ -3498,7 +3860,14 @@ def dp_rank(rank: int, repo: str, devices: list, weights_path: str,
     else:
         out["step_ms"] = (time.perf_counter() - t0) * 1e3 / sizes["steps"]
     del one, state
-    out["f64"] = dp_f64_step(cfg, weights, dev, mesh, sizes["f64_batch"])
+    # float64 on the CPU ranks: the card's train-mode BatchNorm kernels
+    # take bf16 and f32 only
+    cpu_mesh = make_mesh(num_data=len(devices),
+                         devices=["cpu"] * len(devices))
+    out["f64"] = dp_f64_step(cfg, weights, torch.device("cpu"), cpu_mesh,
+                             sizes["f64_batch"])
+    # the BatchNorm kernels alone under the card's mesh
+    out["bn"] = [dp_bn_rows(spec, mesh, dev) for spec in sizes["bn_specs"]]
     # the sharded Predictor from the phase's starting weights
     module = dp_model(cfg, weights, dev).model
     pred = Predictor(module, [f"l{i}" for i in range(NUM_LABELS)], cfg,
@@ -3520,7 +3889,8 @@ def dp_rank(rank: int, repo: str, devices: list, weights_path: str,
     return out
 
 
-def data_parallel_phase(dev, cfg, card) -> dict[str, int]:
+def data_parallel_phase(dev, cfg, card,
+                        step_bns: list[dict]) -> dict[str, int]:
     """Phase 16: data parallel over two ranks on one card (gloo), and over
     two cards (NCCL) where the machine has them; see the module docstring.
     Returns the ranks' K1 launches by counter, for the kernel records."""
@@ -3568,7 +3938,8 @@ def data_parallel_phase(dev, cfg, card) -> dict[str, int]:
     single_ms = time_ms(one, iters=DP_TIMED_STEPS, warmup=1)
     single_peak = torch.cuda.max_memory_allocated() / 1e9
     del one, state, batch
-    single64 = dp_f64_step(cfg, weights, dev, None, DP_F64_BATCH)
+    single64 = dp_f64_step(cfg, weights, torch.device("cpu"), None,
+                           DP_F64_BATCH)
     module = dp_model(cfg, weights, dev).model
     probs_1 = Predictor(module, [f"l{i}" for i in range(NUM_LABELS)], cfg,
                         InferenceConfig(max_window_batch=WINDOW_BATCH),
@@ -3675,7 +4046,8 @@ def data_parallel_phase(dev, cfg, card) -> dict[str, int]:
             moved = max(moved, float(((f64["after"][n] - single64["after"][n])
                                       .abs() / TRAIN_LR)[clear].max()))
         loss64 = abs(f64["loss"] - single64["loss"]) / abs(single64["loss"])
-        log(f"check DP step {label} in float64, B={DP_F64_BATCH}: loss "
+        log(f"check DP step {label} in float64 on the CPU, B="
+            f"{DP_F64_BATCH}: loss "
             f"{loss64:.3e} relative, gradients {rel64['grads']:.3e}, running "
             f"statistics {rel64['after']:.3e} of each tensor's max (limits "
             f"{DP_F64_REL}); Adam's update where the gradient is clear "
@@ -3707,6 +4079,40 @@ def data_parallel_phase(dev, cfg, card) -> dict[str, int]:
             check(r["probs"].shape == (DP_WINDOWS, NUM_LABELS) and ok,
                   f"the sharded Predictor ({label}) differs from unsharded")
         compare_runs([r["run"] for r in results], label)
+        # the BatchNorm kernels under the mesh: two statistics finalizes
+        # a BatchNorm (the local sums, then the all-reduced ones)
+        bn_want = {k: 8 for k in results[0]["bn_counts"]}
+        bn_want["statistics_finalize"] = 16
+        log(f"check DP step {label}: BatchNorm kernel launches a rank "
+            f"{[r['bn_counts'] for r in results]} (want {bn_want})")
+        check(all(r["bn_counts"] == bn_want for r in results),
+              f"a rank's BatchNorm kernels ({label}) are not the mesh's")
+        # each BatchNorm alone: the ranks' rows under the mesh against one
+        # process of the same kernels on the whole batch
+        pass_want = dict.fromkeys(bn_want, 1)
+        pass_want["statistics_finalize"] = 2
+        for i, (spec, names) in enumerate(bn_groups(step_bns)):
+            m, x, dy = bn_case(spec, DP_BN_BATCH, dev)
+            want = bn_pass(m, x, dy)
+            rs = [r["bn"][i] for r in results]
+            errs = [bn_errors(
+                {"y": torch.cat([q["y"] for q in rs]).to(dev),
+                 "dx": torch.cat([q["dx"] for q in rs]).to(dev),
+                 "grads": [sum(gs).to(dev) for gs in
+                           zip(*(q["grads"] for q in rs))],
+                 "stats": [t.to(dev) for t in r["stats"]]}, want)
+                for r in rs]
+            worst = {k: (None if errs[0][k] is None
+                         else max(e[k] for e in errs)) for k in errs[0]}
+            ok, text = bn_within(worst, spec["dtype"])
+            log(f"check DP BatchNorm kernels {label}, {' / '.join(names)} "
+                f"at B={DP_BN_BATCH} global ({spec['dtype']}, strides as "
+                f"the step's): the ranks' rows against one process of the "
+                f"same kernels: {text}; launches a rank "
+                f"{[q['counts'] for q in rs]}")
+            check(ok and all(q["counts"] == pass_want for q in rs),
+                  f"the DP BatchNorm kernels ({label}) at "
+                  f"{' / '.join(names)} differ from one process's")
         counts: dict[str, int] = {}
         for r in results:
             check(r["step_counts"]["fused_featurizer_mel_bf16"] == 1
@@ -3731,14 +4137,16 @@ def data_parallel_phase(dev, cfg, card) -> dict[str, int]:
     t0 = time.perf_counter()
     results = run_ranks(dp_rank, DP_RANKS, args=(
         str(REPO), [str(dev)] * DP_RANKS, str(weights_path),
-        dp_sizes(corpus, run_root)), backend="gloo", timeout_s=DP_TIMEOUT_S)
+        dp_sizes(corpus, run_root, step_bns)), backend="gloo",
+        timeout_s=DP_TIMEOUT_S)
     log(f"phase 16: {DP_RANKS} ranks on {dev} over {results[0]['backend']} "
         f"in {time.perf_counter() - t0:.1f} s")
     counts = compare(results, f"gloo, {DP_RANKS} ranks on one card")
     if dev.type == "cuda" and torch.cuda.device_count() >= DP_RANKS:
         results = run_ranks(dp_rank, DP_RANKS, args=(
             str(REPO), [f"cuda:{i}" for i in range(DP_RANKS)],
-            str(weights_path), dp_sizes(corpus, run_root)), backend="nccl",
+            str(weights_path), dp_sizes(corpus, run_root, step_bns)),
+            backend="nccl",
             timeout_s=DP_TIMEOUT_S)
         check(results[0]["backend"] == "nccl", "the cards' mesh is not NCCL")
         for k, v in compare(results, f"nccl, {DP_RANKS} cards").items():
@@ -4955,6 +5363,28 @@ def main() -> None:
     log(f"time train step (preprocess + fwd/bwd + Adam) B={TRAIN_BATCH}: "
         f"{step_ms:.3f} ms, {TRAIN_BATCH / (step_ms / 1e3):.1f} samples/s, "
         f"peak memory {train_peak_gb:.2f} GB {card}")
+    from audio_training_tpu_torch.models.layers import KerasBatchNorm
+    from audio_training_tpu_torch.ops.cuda import batch_norm as bn_ops
+
+    # the step's BatchNorm calls as they run, for phases 16 and 18
+    step_bns = []
+    hooks = [mod.register_forward_pre_hook(
+                 lambda mod, args, name=name: step_bns.append(
+                     bn_spec(name, mod, args[0])))
+             for name, mod in state.model.named_modules()
+             if isinstance(mod, KerasBatchNorm)]
+    bn_ops.reset_launch_counts()
+    train_iter()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    bn_counts = bn_ops.launch_counts()
+    log(f"path train step: BatchNorm kernel launches {bn_counts} (want 8 "
+        f"each: the 7 conv BatchNorms and mel_bn); the BatchNorms' inputs "
+        + "; ".join(f"{b['name']} {b['shape']} {b['dtype']} strides "
+                    f"{b['strides']}" for b in step_bns))
+    check(bn_counts == dict.fromkeys(bn_ops.COUNTERS, 8),
+          "not one launch of each BatchNorm kernel a BatchNorm in the step")
 
     # the step's phases, CUDA events around each (synchronized between)
     phases = {"preprocess (K1 bf16 tier)": 0.0, "forward": 0.0,
@@ -5296,6 +5726,8 @@ def main() -> None:
     # ---- 8. the folded badwinner2 chain; 9. the megakernel probe --------
     kernels += folded_chain_phase(dev, cfg, mel_np, fz, clips, card)
     kernels += probe_phase(dev, card)
+    # ---- 18. train-mode BatchNorm at the training cell's shapes ----------
+    kernels += batch_norm_phase(dev, card, step_bns)
     # ---- 10. training from a built corpus --------------------------------
     run_dir = corpus_train_phase(dev, cfg, card, step_ms, fit_s)
     # ---- 11. evaluation and deployment of the trained run ---------------
@@ -5328,7 +5760,7 @@ def main() -> None:
         f"phase 15's {n}")
     # ---- 16. data parallel --------------------------------------------------
     # the ranks' K1 launches join the training, exact and centered records
-    dp_counts = data_parallel_phase(dev, cfg, card)
+    dp_counts = data_parallel_phase(dev, cfg, card, step_bns)
     for name in ("fused_featurizer_mel_bf16", "fused_featurizer_mel",
                  "fused_featurizer_mel_centered"):
         record = next(k for k in kernels if k["name"] == name)

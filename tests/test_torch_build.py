@@ -53,3 +53,22 @@ def test_the_repository_sources_share_one_header():
             definition = re.compile(rf"__forceinline__ \w+ {helper}\(")
             assert definition.search(header), helper
             assert not definition.search(source), (name, helper)
+
+
+def test_a_path_library_builds_with_the_others(monkeypatch):
+    """The first load of a model path's library builds every one of them in
+    the same nvcc batch; a probe's library builds alone."""
+    asked = []
+
+    def record(names):
+        asked.append(list(names))
+        return {n: build.BUILD_DIR / f"{n}.so" for n in names}
+
+    monkeypatch.setattr(build, "build_libraries", record)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    assert build.load_library("batch_norm").endswith("batch_norm.so")
+    build.load_library("probe_megakernel")
+    assert asked == [["batch_norm", "fused_featurizer", "melspec"],
+                     ["probe_megakernel"]]
+    for name in build.PATH_LIBRARIES:
+        assert (build.CSRC_DIR / f"{name}.cu").exists()

@@ -30,7 +30,25 @@ its blocks; the PCEN kernel at its edge cases (smooth 0 / 0.04 / 1, 1 to
 7,300 frames, 15 rows) within 1e-4 after the global min-max, and from a
 mel off the 16-byte grid bitwise as from an aligned copy.  TF32 is off
 for the plain versions' einsums and the CNN.
+
+Train-mode BatchNorm's kernels (``ops/cuda/batch_norm.py``) against their
+plain version (``KerasBatchNorm.train_plain``) on the same CUDA input, the
+two differing in the order of their f32 sums only: bf16 outputs (y, dx)
+compared in bf16, within one bf16 step of the tensor's max (2^-7) and with
+at most 1% of the values off (a reordered sum flips a rounding to bf16 now
+and then); f32 outputs (y, dx of the f32 layouts) and the running
+statistics within 1e-5 of the tensor's max; the parameter gradients (f32
+sums over every row) within 1e-4 of their max.  Two runs of the kernels on
+one input are bitwise equal (no atomics).  Under a mesh of two ranks on
+the card (gloo), the kernels on each rank's half of the batch against one
+process of the same kernels on the whole batch, which differ in the order
+of their f32 sums alone, at the same limits: y and dx of the rows, the two
+ranks' parameter gradients summed, each rank's running statistics, and
+each rank's launches (two statistics finalizes: the local sums, then the
+all-reduced ones).
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -1188,3 +1206,242 @@ def test_log_memory_stats_reports_the_card():
     assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
     assert stats["bytes_limit"] == torch.cuda.get_device_properties(
         0).total_memory
+
+
+# ---- train-mode BatchNorm --------------------------------------------------
+
+BN_BF16_STEP = 2.0 ** -7  # one bf16 step of the tensor's max
+BN_BF16_OFF = 0.01  # share of bf16 values a flipped rounding may move
+BN_F32_REL = 1e-5
+BN_GRAD_REL = 1e-4
+B8 = 8  # badwinner2's shapes, the batch cut from 128 for time
+
+
+def _bn_case(dev, shape, feature_dim=1, dtype=torch.bfloat16,
+             channels_last=True, scale=True, bias=True, seed=0,
+             constant=None):
+    """A train-mode KerasBatchNorm on the card, an input (per-channel
+    offsets and scales, channel ``constant`` held at one value) and a
+    gradient of the output."""
+    from audio_training_tpu_torch.models.layers import KerasBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    c = shape[feature_dim]
+    m = KerasBatchNorm(c, feature_dim, scale, bias).to(dev).train()
+    with torch.no_grad():
+        if m.weight is not None:
+            m.weight.copy_(torch.rand(c, generator=g) + 0.5)
+        if m.bias is not None:
+            m.bias.copy_(torch.rand(c, generator=g) - 0.5)
+        m.running_mean.copy_(torch.rand(c, generator=g) - 0.5)
+        m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
+    view = [1] * len(shape)
+    view[feature_dim] = c
+    x = (torch.randn(shape, generator=g)
+         * (torch.rand(c, generator=g) * 1.5 + 0.5).view(view)
+         + (torch.rand(c, generator=g) * 2 - 1).view(view))
+    if constant is not None:
+        x.select(feature_dim, constant).fill_(0.3)
+    dy = torch.randn(shape, generator=g)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x, dy = (t.to(dev, dtype).contiguous(memory_format=fmt) for t in (x, dy))
+    return m, x, dy
+
+
+def _bn_run(m, x, dy, plain=False):
+    """y, dx, the parameter gradients and the running statistics of one
+    forward and backward of a copy of ``m``: its kernels, or ``plain``."""
+    m = copy.deepcopy(m)
+    xr = x.detach().clone().requires_grad_()
+    y = m.train_plain(xr, m.weight, m.bias) if plain else m(xr)
+    params = [p for p in (m.weight, m.bias) if p is not None]
+    dx, *dp = torch.autograd.grad(y, [xr, *params], dy)
+    return y, dx, dp, m.running_mean, m.running_var
+
+
+def _bn_close(got, want, rel):
+    if got.dtype == torch.bfloat16:
+        off = (got.float() - want.float()).abs()
+        return bool(off.max() <= BN_BF16_STEP * want.float().abs().max()
+                    and (off > 0).float().mean() <= BN_BF16_OFF)
+    return _rel(got.float(), want.float()) < rel
+
+
+def _bn_check(m, x, dy):
+    from audio_training_tpu_torch.ops.cuda import batch_norm as bn
+
+    bn.reset_launch_counts()
+    got = _bn_run(m, x, dy)
+    torch.cuda.synchronize()
+    counts = bn.launch_counts()
+    want = _bn_run(m, x, dy, plain=True)
+    y, dx = got[0], got[1]
+    assert y.dtype == dx.dtype == x.dtype
+    assert y.stride() == x.stride() and dx.stride() == x.stride()
+    assert _bn_close(y, want[0], BN_F32_REL)
+    assert _bn_close(dx, want[1], BN_F32_REL)
+    assert len(got[2]) == len(want[2])
+    for g, w in zip(got[2], want[2]):
+        assert _bn_close(g, w, BN_GRAD_REL)
+    for g, w in zip(got[3:], want[3:]):
+        assert _bn_close(g, w, BN_F32_REL)
+    assert counts == dict.fromkeys(counts, 1), counts
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [
+    ("bns.0", (B8, 64, 158, 511)),
+    ("bns.1", (B8, 64, 156, 509)),
+    ("bns.2", (B8, 128, 50, 167)),
+    ("bns.3", (B8, 128, 48, 165)),
+    ("bns.4 (condense)", (B8, 128, 5, 163)),
+    ("the head's shape channels-last, C=1024", (B8, 1024, 1, 46)),
+])
+def test_batch_norm_kernels_at_badwinner2s_shapes(name, shape):
+    dev = _card()
+    _bn_check(*_bn_case(dev, shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,kwargs", [
+    ("mel_bn, per-mel-row f32", (B8, 1, 160, 513),
+     dict(feature_dim=2, dtype=torch.float32, channels_last=False,
+          scale=False, bias=False)),
+    ("NCHW-contiguous f32", (B8, 32, 40, 50),
+     dict(dtype=torch.float32, channels_last=False)),
+    ("NCHW-contiguous bf16", (3, 24, 7, 9), dict(channels_last=False)),
+    ("bns.5 / bns.6 (head) NCHW, as badwinner2 runs it", (B8, 1024, 1, 46),
+     dict(channels_last=False)),
+    ("rows no block divides, C=24", (7, 24, 13, 17), {}),
+    ("C=20: one channel a thread", (5, 20, 11, 13), {}),
+    ("f32 channels-last C=1024", (3, 1024, 1, 37),
+     dict(dtype=torch.float32)),
+    ("C=3000: chunks of 256 groups", (2, 3000, 3, 5), {}),
+    ("scale off, bias on", (4, 64, 9, 11), dict(scale=False)),
+    ("scale on, bias off", (4, 64, 9, 11), dict(bias=False)),
+])
+def test_batch_norm_kernels_in_each_layout(name, shape, kwargs):
+    dev = _card()
+    _bn_check(*_bn_case(dev, shape, **kwargs))
+
+
+@pytest.mark.gpu
+def test_batch_norm_kernels_on_a_constant_channel():
+    """A constant channel: its variance is 0 or rounds below it (the clamp
+    active), its output the bias up to the mean's rounding times rstd."""
+    dev = _card()
+    m, x, dy = _bn_case(dev, (B8, 64, 20, 30), constant=5)
+    y = _bn_check(m, x, dy)[0]
+    off = (y[:, 5].float() - m.bias[5]).abs().max()
+    assert off <= 1e-3, off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,kwargs", [
+    ("bns.0", (B8, 64, 158, 511), {}),
+    ("mel_bn", (B8, 1, 160, 513),
+     dict(feature_dim=2, dtype=torch.float32, channels_last=False,
+          scale=False, bias=False)),
+])
+def test_batch_norm_kernels_are_bitwise_repeatable(name, shape, kwargs):
+    dev = _card()
+    m, x, dy = _bn_case(dev, shape, **kwargs)
+    first, second = _bn_run(m, x, dy), _bn_run(m, x, dy)
+    for a, b in zip((*first[:2], *first[2], *first[3:]),
+                    (*second[:2], *second[2], *second[3:])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_badwinner2_step_launches_each_batch_norm_kernel_8_times():
+    """The 7 conv BatchNorms and mel_bn: each kernel once a BatchNorm in
+    a training step (no mesh: one statistics finalize each)."""
+    from audio_training_tpu_torch.ops.cuda import batch_norm as bn
+    from audio_training_tpu_torch.train import fresh_metrics, make_train_step
+
+    dev = _card()
+    state, pre, batch = _train_setup(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mel, yy = pre(*batch, gen)
+    step = make_train_step()
+    bn.reset_launch_counts()
+    state, _ = step(state, fresh_metrics(dev), mel, yy, gen)
+    torch.cuda.synchronize()
+    assert bn.launch_counts() == dict.fromkeys(bn.COUNTERS, 8)
+
+
+BN_MESH_CASES = [
+    ("bns.2", (B8, 128, 50, 167), {}),
+    ("bns.4 (condense)", (B8, 128, 5, 163), {}),
+    ("bns.5 / bns.6 (head) NCHW, as badwinner2 runs it", (B8, 1024, 1, 46),
+     dict(channels_last=False)),
+    ("mel_bn, per-mel-row f32", (B8, 1, 160, 513),
+     dict(feature_dim=2, dtype=torch.float32, channels_last=False,
+          scale=False, bias=False)),
+    ("NCHW-contiguous f32", (B8, 32, 40, 50),
+     dict(dtype=torch.float32, channels_last=False)),
+    ("rows no block divides, C=24", (6, 24, 13, 17), {}),
+    ("scale off, bias on", (4, 64, 9, 11), dict(scale=False)),
+]
+
+
+@pytest.fixture(scope="module")
+def bn_mesh():
+    """BN_MESH_CASES' modules and inputs on the card, and each rank's
+    results under a mesh of two ranks on the card (one group for all)."""
+    import torch_dp_ranks as ranks
+
+    from audio_training_tpu_torch.parallel.multihost import run_ranks
+
+    dev = _card()
+    cases = [_bn_case(dev, shape, **kw) for _, shape, kw in BN_MESH_CASES]
+    payload = [({k: t.cpu() for k, t in m.state_dict().items()},
+                m.feature_dim, m.weight is not None, m.bias is not None,
+                x.cpu(), dy.cpu()) for m, x, dy in cases]
+    return cases, run_ranks(ranks.batch_norm_kernels_rank, 2,
+                            args=(payload,), timeout_s=300.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(BN_MESH_CASES)),
+                         ids=[name for name, _, _ in BN_MESH_CASES])
+def test_batch_norm_kernels_under_a_two_rank_mesh(bn_mesh, case):
+    """The mesh's all-reduces, forward of [sum x, sum x^2, rows] and
+    backward of [sum dy, sum dy (x - mean)], make each rank's rows come
+    out as the one-process batch's."""
+    (m, x, dy), results = bn_mesh[0][case], bn_mesh[1]
+    want = _bn_run(m, x, dy)
+    y = torch.cat([r[case]["y"] for r in results]).to(x.device)
+    dx = torch.cat([r[case]["dx"] for r in results]).to(x.device)
+    assert _bn_close(y, want[0], BN_F32_REL)
+    assert _bn_close(dx, want[1], BN_F32_REL)
+    grads = [sum(gs).to(x.device)
+             for gs in zip(*(r[case]["grads"] for r in results))]
+    assert len(grads) == len(want[2])
+    for g, w in zip(grads, want[2]):
+        assert _bn_close(g, w, BN_GRAD_REL)
+    launches = {"statistics": 1, "statistics_finalize": 2, "apply": 1,
+                "backward_reduce": 1, "backward_finalize": 1,
+                "backward_apply": 1}
+    for r in results:
+        for g, w in zip(r[case]["stats"], want[3:]):
+            assert _bn_close(g.to(x.device), w, BN_F32_REL)
+        assert r[case]["counts"] == launches
+
+
+@pytest.mark.gpu
+def test_batch_norm_kernels_refuse_what_they_do_not_take():
+    from audio_training_tpu_torch.models.layers import KerasBatchNorm
+
+    dev = _card()
+    m = KerasBatchNorm(8).to(dev).train()
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        m(torch.zeros(2, 8, 3, 3, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        m.double()(torch.zeros(2, 8, 3, 3, device=dev, dtype=torch.float64))
+    m = KerasBatchNorm(8).to(dev).train()
+    with pytest.raises(ValueError, match="dense"):
+        m(torch.zeros(2, 8, 3, 6, device=dev)[..., ::2])
+    with pytest.raises(ValueError, match="dense"):
+        m(torch.zeros(1, 8, 3, 3, device=dev).expand(4, 8, 3, 3))

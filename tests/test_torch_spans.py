@@ -240,6 +240,8 @@ COUNTERS = {
         for mode in ("", "_centered", "_folded")]
     + ["fused_featurizer_pcen", "clip_minmax"],
     "melspec": ["power_mel"],
+    "batch_norm": ["statistics", "statistics_finalize", "apply",
+                   "backward_reduce", "backward_finalize", "backward_apply"],
     "probe_megakernel": [
         "probe_dot_store", "probe_dot_accum", "probe_dot_brot",
         "probe_shift_shift1", "probe_shift_roll", "probe_shift_pool3",
@@ -252,6 +254,7 @@ def test_launch_counters_are_views_of_the_registry(group):
     module = importlib.import_module({
         "fused_featurizer": "audio_training_tpu_torch.ops.cuda.fused_featurizer",
         "melspec": "audio_training_tpu_torch.ops.cuda.melspec",
+        "batch_norm": "audio_training_tpu_torch.ops.cuda.batch_norm",
         "probe_megakernel": "audio_training_tpu_torch.probes.probe_megakernel",
     }[group])
     module.reset_launch_counts()

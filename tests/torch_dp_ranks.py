@@ -14,6 +14,7 @@ from audio_training_tpu_torch.models import build_model
 from audio_training_tpu_torch.models.layers import KerasBatchNorm, PCENLayer
 from audio_training_tpu_torch.ops.features import normalize_minmax
 from audio_training_tpu_torch.parallel import (
+    batch_sharding,
     global_batch_from_local,
     initialize_distributed,
     make_mesh,
@@ -210,6 +211,38 @@ def parallel_checks(rank: int, p: dict) -> dict:
             "jax_step": check_jax_step(mesh, p),
             "augmented": check_augmented_step(mesh, p),
             "predictor": check_predictor(mesh, p)}
+
+
+def batch_norm_kernels_rank(rank: int, cases: list) -> list[dict]:
+    """Train-mode BatchNorm's CUDA kernels under a mesh of two ranks on
+    one card (gloo), for tests/test_torch_gpu.py: for each ``(state,
+    feature_dim, use_scale, use_bias, x, dy)`` case of the whole batch, a
+    KerasBatchNorm forward and backward on this rank's rows; returns y and
+    dx of the rows, the parameter gradients (this rank's sums), the running
+    statistics and the kernels' launches, on the host."""
+    from audio_training_tpu_torch.ops.cuda import batch_norm as bn
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(num_data=2, devices=[dev, dev])
+    out = []
+    for state, feature_dim, scale, bias, x, dy in cases:
+        m = KerasBatchNorm(x.shape[feature_dim], feature_dim, scale, bias)
+        m.load_state_dict(state)
+        m = m.to(dev).train()
+        rows = batch_sharding(mesh).rows(x.shape[0])
+        xl, dyl = (t[rows].to(dev) for t in (x, dy))
+        xl.requires_grad_(True)
+        params = [p for p in (m.weight, m.bias) if p is not None]
+        bn.reset_launch_counts()
+        with mesh:
+            y = m(xl)
+            dx, *dp = torch.autograd.grad(y, [xl, *params], dyl)
+        torch.cuda.synchronize()
+        out.append({"y": y.cpu(), "dx": dx.cpu(),
+                    "grads": [g.cpu() for g in dp],
+                    "stats": [m.running_mean.cpu(), m.running_var.cpu()],
+                    "counts": bn.launch_counts()})
+    return out
 
 
 def train_run_rank(rank: int, data_dirs, root, train_kwargs: dict,
