@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 from functools import partial
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,7 +34,14 @@ from audio_training_tpu_torch.models.layers import (
     max_pool,
     relu6,
     same_avg_pool3,
+    same_pads,
+    silu,
     zero_pad,
+)
+from audio_training_tpu_torch.utils.profiling import (
+    count,
+    region,
+    register_counters,
 )
 
 RESNET_BN_EPS = 1.001e-5  # keras.applications' ResNets and DenseNet
@@ -67,6 +75,9 @@ EFFICIENTNET_V2_STEM = {"b0": 32, "b3": 40, "s": 24, "m": 24}
 EFFICIENTNET_V2_HEAD = {"b0": 1280, "b3": 1536, "s": 1280, "m": 1280}
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_VAR = (0.229**2, 0.224**2, 0.225**2)
+
+# EfficientNet blocks run, by kind, and squeeze-excite gates applied
+register_counters("efficientnet", ("fused", "mbconv", "se"))
 
 
 def _cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
@@ -369,8 +380,12 @@ class SqueezeExcite(nn.Module):
                            dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        count("efficientnet", "se")
+        return region("cnn.se", self._gate, x)
+
+    def _gate(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean((2, 3), keepdim=True)
-        s = self.expand(F.silu(self.reduce(s)))
+        s = self.expand(silu(self.reduce(s)))
         return x * torch.sigmoid(s)
 
 
@@ -419,11 +434,12 @@ class MBConv(nn.Module):
             self.project_bn = KerasBatchNorm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        count("efficientnet", "fused" if self.depthwise is None else "mbconv")
         y = x
         if self.expand is not None:
-            y = F.silu(self.expand_bn(self.expand(y)))
+            y = silu(self.expand_bn(self.expand(y)))
         if self.depthwise is not None:
-            y = F.silu(self.depthwise_bn(self.depthwise(y)))
+            y = silu(self.depthwise_bn(self.depthwise(y)))
         if self.se is not None:
             y = self.se(y)
         if self.project is not None:
@@ -443,9 +459,83 @@ def _round_repeats(r: int, depth: float) -> int:
     return int(math.ceil(r * depth))
 
 
-def _channel_constant(values, x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=x.dtype, device=x.device).view(
-        1, -1, 1, 1)
+def _taps(size: int, kernel: int, stride: int, lo: int,
+          like: torch.Tensor) -> torch.Tensor:
+    """(outputs, kernel) of a SAME-padded conv along one axis, ``lo`` the
+    padding before the input: 1 where a tap reads the input, 0 where it
+    reads the padding."""
+    at = (torch.arange(-(-size // stride), device=like.device)[:, None]
+          * stride + torch.arange(kernel, device=like.device) - lo)
+    return ((at >= 0) & (at < size)).to(like.dtype)
+
+
+def _by_channel(w: torch.Tensor, values: tuple) -> list[torch.Tensor]:
+    """``w[:, c] * values[c]`` for each input channel of the kernel ``w``
+    (one value serves them all), by Python scalars: no constant tensor
+    is copied to the card."""
+    if len(values) == 1:
+        values = values * w.shape[1]
+    return [w[:, c] * v for c, v in enumerate(values)]
+
+
+def folded_stem(x: torch.Tensor, conv: Conv, bn: KerasBatchNorm,
+                scale: tuple, shift: tuple) -> torch.Tensor:
+    """``bn(conv(x * scale + shift))``: the baked preprocessing affine
+    (``scale`` and ``shift`` per input channel of the stem's kernel, or one
+    of each for all), the SAME-padded stem conv and its BatchNorm, as the
+    profiling region ``cnn.stem``.
+
+    The affine maps the PCEN image's [-1, 1] to a narrow band (ImageNet's
+    ``(x / 255 - 0.485) / 0.229`` to [-2.135, -2.101], ``x / 128 - 1`` to
+    [-1.008, -0.992]), and the conv's output is a constant part about 123
+    times the image's signal until the BatchNorm subtracts its running
+    mean.  bf16 (steps of 2^-6 there) keeps 3 to 5 values of the band, TF32
+    about 17.  So the affine is folded exactly into the conv: its kernel
+    scaled by ``scale`` runs on the image itself, zero-padded, and the
+    constant part, the bias plus ``shift`` times the taps that read the
+    image and not the padding (padding the affine's output with zeros is
+    padding ``x`` with ``-shift / scale``), is a (channels, H', W') map
+    built in the parameters' dtype.  No tensor of the compute dtype ever
+    holds the constant before the BatchNorm has taken it off: in eval mode
+    the BatchNorm folds into the kernel and the map, which is then of the
+    output's own order and is added to the conv's output in the compute
+    dtype; in training the conv's output is widened to the parameters'
+    dtype, the map added and the BatchNorm module (its region ``cnn.norm``
+    inside ``cnn.stem``) run there before the cast back.  The fold runs the
+    stem's conv in the compute dtype on the tensor cores, with no pass over
+    the image, and keeps the image to the precision of the products, TF32
+    included; running the affine, the conv and the BatchNorm in float32
+    instead (with TF32 off for that conv) would write the stem's output in
+    float32, 3.4 GB a 512-clip request at 160 x 513, and read it back.
+
+    A 1-channel image against per-channel constants (EfficientNet's
+    ``norm_mean`` broadcast to the kernel's 3 channels) takes the kernel
+    summed over its channels.  Without a compute dtype the conv runs in
+    the parameters' dtype, as Flax promotes."""
+    return region("cnn.stem", partial(_stem, conv, bn, scale, shift), x,
+                  conv.weight, conv.bias)
+
+
+def _stem(conv, bn, scale, shift, x, w, b):
+    kernel = torch.stack(_by_channel(w, scale), 1)
+    if x.shape[1] != w.shape[1]:
+        kernel = kernel.sum(1, keepdim=True)
+    rows, cols = (
+        _taps(size, k, s, same_pads(size, k, s)[0], w)
+        for size, k, s in zip(x.shape[2:], conv.kernel, conv.stride))
+    constant = sum(_by_channel(w, shift))  # (out, kh, kw)
+    constant = b[:, None, None] + (
+        (constant[:, None] * rows[:, :, None]).sum(2)[:, :, None]
+        * cols).sum(-1)
+    x = x.to(conv.dtype or w.dtype)
+    if bn.training:
+        y = conv._conv(x, kernel, None)
+        return bn(y.to(w.dtype) + constant).to(y.dtype)
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    constant = ((constant - bn.running_mean[:, None, None])
+                * mul[:, None, None] + bn.bias[:, None, None])
+    y = conv._conv(x, kernel * mul[:, None, None, None], None)
+    return y + constant.to(y.dtype)
 
 
 class EfficientNet(nn.Module):
@@ -463,7 +553,7 @@ class EfficientNet(nn.Module):
                  norm_mean: tuple = (), norm_var: tuple = (),
                  extra_rescale: tuple = (), dtype=None, generator=None):
         super().__init__()
-        self.dtype, self.rescale = dtype, rescale
+        self.rescale = rescale
         self.norm_mean, self.norm_var = tuple(norm_mean), tuple(norm_var)
         self.extra_rescale = tuple(extra_rescale)
         stem_in = max([in_channels] + [len(c) for c in (
@@ -484,19 +574,26 @@ class EfficientNet(nn.Module):
         self.head = conv(ch, self.out_channels, (1, 1))
         self.head_bn = KerasBatchNorm(self.out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _cast(x, self.dtype)
-        if self.rescale:
-            x = x / 255.0
+    def preprocessing(self) -> tuple[tuple, tuple]:
+        """(scale, shift) of the baked preprocessing ``x * scale + shift``,
+        per channel where a constant is given."""
+        scale = np.full(1, 1.0 / 255.0 if self.rescale else 1.0)
+        shift = np.zeros(1)
         if self.norm_mean:
-            x = (x - _channel_constant(self.norm_mean, x)) / torch.sqrt(
-                _channel_constant(self.norm_var, x))
+            std = np.sqrt(np.asarray(self.norm_var, np.float64))
+            scale = scale / std
+            shift = (shift - np.asarray(self.norm_mean, np.float64)) / std
         if self.extra_rescale:
-            x = x * _channel_constant(self.extra_rescale, x)
-        x = F.silu(self.stem_bn(self.stem(x)))
+            extra = np.asarray(self.extra_rescale, np.float64)
+            scale, shift = scale * extra, shift * extra
+        return tuple(scale.tolist()), tuple(shift.tolist())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = silu(folded_stem(x, self.stem, self.stem_bn,
+                             *self.preprocessing()))
         for block in self.blocks:
             x = block(x)
-        return F.silu(self.head_bn(self.head(x)))
+        return silu(self.head_bn(self.head(x)))
 
 
 class EfficientNetV2(nn.Module):
@@ -512,7 +609,7 @@ class EfficientNetV2(nn.Module):
     def __init__(self, in_channels: int = 3, variant: str = "b0",
                  preprocess: bool = True, dtype=None, generator=None):
         super().__init__()
-        self.dtype, self.variant, self.preprocess = dtype, variant, preprocess
+        self.variant, self.preprocess = variant, preprocess
         conv = partial(Conv, padding="SAME", dtype=dtype, generator=generator)
         stem = EFFICIENTNET_V2_STEM[variant]
         self.stem = conv(in_channels, stem, (3, 3), stride=(2, 2))
@@ -529,18 +626,23 @@ class EfficientNetV2(nn.Module):
         self.head = conv(ch, self.out_channels, (1, 1))
         self.head_bn = KerasBatchNorm(self.out_channels)
 
+    def preprocessing(self, channels: int) -> tuple[tuple, tuple]:
+        """(scale, shift) of the baked preprocessing ``x * scale + shift``
+        of a ``channels``-channel image."""
+        if not self.preprocess:
+            return (1.0,), (0.0,)
+        if self.variant.startswith("b") and channels == 3:
+            std = [math.sqrt(v) for v in IMAGENET_VAR]
+            return (tuple(1.0 / (255.0 * s) for s in std),
+                    tuple(-m / s for m, s in zip(IMAGENET_MEAN, std)))
+        return (1.0 / 128.0,), (-1.0,)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _cast(x, self.dtype)
-        if self.preprocess:
-            if self.variant.startswith("b") and x.shape[1] == 3:
-                x = (x / 255.0 - _channel_constant(IMAGENET_MEAN, x)) / (
-                    torch.sqrt(_channel_constant(IMAGENET_VAR, x)))
-            else:
-                x = x / 128.0 - 1.0
-        x = F.silu(self.stem_bn(self.stem(x)))
+        x = silu(folded_stem(x, self.stem, self.stem_bn,
+                             *self.preprocessing(x.shape[1])))
         for block in self.blocks:
             x = block(x)
-        return F.silu(self.head_bn(self.head(x)))
+        return silu(self.head_bn(self.head(x)))
 
 
 # ---------------------------------------------------------------------------

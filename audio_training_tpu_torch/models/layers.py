@@ -17,8 +17,9 @@ gradient; here autograd (cuDNN on the card) computes it, held against the
 JAX custom VJP by tests/test_torch_train_step.py.
 
 ``Conv`` and ``KerasBatchNorm`` run as the profiling regions ``cnn.conv``
-and ``cnn.norm`` (``utils/profiling.region``): spans of their forward and
-backward while a profiler records, a plain call otherwise.
+(``cnn.depthwise`` for a grouped conv) and ``cnn.norm``
+(``utils/profiling.region``), :func:`silu` as ``cnn.act``: spans of their
+forward and backward while a profiler records, a plain call otherwise.
 
 Each layer that holds Flax variables names its Flax kind (``flax_kind``,
 the Flax class name that numbers its scope) and its leaves
@@ -53,6 +54,11 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return F.relu6(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU as the profiling region ``cnn.act``."""
+    return region("cnn.act", F.silu, x)
 
 
 def hwio_to_oihw(a: torch.Tensor) -> torch.Tensor:
@@ -342,11 +348,15 @@ class Conv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return region("cnn.conv", self._conv, x, self.weight, self.bias)
+        name = "cnn.depthwise" if self.groups > 1 else "cnn.conv"
+        return region(name, self._conv, x, self.weight, self.bias)
 
     def _conv(self, x, w, b):
+        """The conv of ``x`` by kernel ``w`` and bias ``b`` (None: none) in
+        the compute dtype, SAME-padded as the layer is."""
         if self.dtype is not None:
-            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+            x, w = x.to(self.dtype), w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
         pad = (0, 0)
         if self.padding == "SAME":
             # the symmetric part of XLA's split is conv2d's own zero pad;

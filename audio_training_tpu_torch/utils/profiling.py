@@ -32,7 +32,8 @@ The program's own spans and counters live here too:
 * the counter registry (:func:`register_counters`, :func:`count`,
   :func:`counts`, :func:`reset_counts`) holds the kernels' launch counts,
   one group a module (``fused_featurizer``, ``melspec``,
-  ``probe_megakernel``).
+  ``probe_megakernel``, ``batch_norm``; ``efficientnet`` counts the
+  EfficientNets' blocks by kind and their squeeze-excite gates).
 
 ``MODULE_RANGE``'s forward hooks are :func:`fusion_layer_map`'s offline
 tool and push no range otherwise.

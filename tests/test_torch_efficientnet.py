@@ -138,14 +138,25 @@ def test_fold_gray_stem_without_preprocessing_matches_jax():
 
 def test_train_mode_matches_flax():
     """BatchNorm on batch moments and Flax's running-statistics update,
-    dropout off: logits and every updated statistic."""
+    dropout off: logits and every updated statistic.  The Flax side runs
+    in float64: the port's stem folds the baked preprocessing into its
+    conv (``backbones.folded_stem``), so its f32 logits sit within 2e-5 of
+    the exact ones, while Flax's f32 batch variance of the stem's output
+    (a constant part about 123 times the signal) carries 9e-5 of its own
+    round-off."""
     shape = (2, 33, 47, 3)
     kw = dict(EXTERNAL, dropout=0.0)
     pair = Pair("efficientnetv2b0", shape, jax_kw=kw)
     x = inputs_for(pair, shape, 1)
     pair.calibrate(x)
-    want, upd = pair.jax.module.apply(pair.variables, jnp.asarray(x[0]),
-                                      train=True, mutable=["batch_stats"])
+    with jax.enable_x64():
+        want, upd = pair.jax.module.apply(
+            jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                   pair.variables),
+            jnp.asarray(x[0], jnp.float64), train=True,
+            mutable=["batch_stats"])
+        want = np.asarray(want)
+        assert want.dtype == np.float64
     model = pair.port.train()
     got = model(torch.from_numpy(x[0])).detach().numpy()
     assert rel(got, want) < F32_REL
