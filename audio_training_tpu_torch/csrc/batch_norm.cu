@@ -44,6 +44,15 @@
 //     computed once into shared memory.  Both carry the column index into
 //     the row instead of dividing at each element.
 //
+// The same file holds the eval-mode conv epilogue (bn_eval_epilogue): the
+// conv's bias, the BatchNorm's affine from its running statistics, SiLU or
+// LeakyReLU and a residual in one pass, on the two layouts above (the rows
+// layout walked flat, each thread on the same channels at every step).  It
+// reads the conv's bias-free output once and writes the block's output
+// once, 4 bytes an element in bf16 (6 with a residual), where PyTorch's
+// eval path runs the bias add, the BatchNorm, the activation and the
+// residual add as a pass each.
+//
 // Plain C interface, loaded with ctypes.  Each entry point launches on the
 // stream it is given and returns cudaGetLastError().
 
@@ -503,6 +512,192 @@ __global__ void __launch_bounds__(THREADS)
   if (dbias) dbias[c] = sg;
 }
 
+// ---- eval conv epilogue ---------------------------------------------------
+//
+// The work after an eval-mode conv in one pass: the conv's bias b, the
+// BatchNorm's running-statistics affine (s = weight * rsqrt(var + eps),
+// t = bias - mean * s), the activation and the residual r, in f32, rounded
+// once to the output's dtype:
+//   activation before the affine (FIRST): z = act(x + b) * s + t + r;
+//   after it:                             z = act(x * s + t') + r, t' = t + b s.
+// The coefficients are computed from the parameters themselves where they
+// are needed (no launch for them, nothing cached between calls); x (and r)
+// are streamed once and z written once.
+
+enum Act { ACT_NONE = 0, ACT_SILU = 1, ACT_LEAKY = 2 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float z, float slope) {
+  if constexpr (ACT == ACT_SILU) {
+    return __fdividef(z, 1.0f + __expf(-z));  // 0 where exp(-z) overflows
+  } else if constexpr (ACT == ACT_LEAKY) {
+    return z > 0.0f ? z : z * slope;
+  } else {
+    return z;
+  }
+}
+
+struct EpilogueArgs {
+  const float* conv_bias;
+  const float* mean;
+  const float* var;
+  const float* weight;
+  const float* bias;
+  float eps, slope;
+};
+
+// One channel's (s, t, b), t folded to t' and b unused after the affine.
+struct EpiCoef {
+  float s, t, b;
+};
+
+template <bool FIRST>
+__device__ __forceinline__ EpiCoef epilogue_coef(int c, const EpilogueArgs& a) {
+  const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(a.var[c], a.eps)));
+  const float s = a.weight ? __fmul_rn(rstd, a.weight[c]) : rstd;
+  const float t = (a.bias ? a.bias[c] : 0.0f) - __fmul_rn(a.mean[c], s);
+  const float b = a.conv_bias ? a.conv_bias[c] : 0.0f;
+  if constexpr (FIRST) {
+    return {s, t, b};
+  } else {
+    return {s, fmaf(b, s, t), 0.0f};
+  }
+}
+
+template <int ACT, bool FIRST>
+__device__ __forceinline__ float epilogue(float x, const EpiCoef& k,
+                                          float slope) {
+  if constexpr (FIRST) {
+    return fmaf(activate<ACT>(x + k.b, slope), k.s, k.t);
+  } else {
+    return activate<ACT>(fmaf(x, k.s, k.t), slope);
+  }
+}
+
+// Rows: (rows, C) with C contiguous, walked flat as n_vec groups of VEC
+// channels, a thread from j = block * THREADS + thread in steps of the
+// grid's threads.  The wrapper makes that step a multiple of C / VEC, so a
+// thread's channels are the same at every step: their coefficients are
+// computed once, into registers, and every thread of the grid works on any
+// channel count.
+template <typename T, int VEC, int ACT, bool FIRST>
+__global__ void __launch_bounds__(THREADS)
+    epilogue_rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                         EpilogueArgs a, long long n_vec, int C,
+                         T* __restrict__ out) {
+  using R = Raw<T, VEC>;
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  long long j = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (j >= n_vec) return;
+  const int g = static_cast<int>(j % (C / VEC));
+  EpiCoef k[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) k[v] = epilogue_coef<FIRST>(g * VEC + v, a);
+  const R* xr = reinterpret_cast<const R*>(x);
+  const R* rr = reinterpret_cast<const R*>(res);
+  R* orow = reinterpret_cast<R*>(out);
+  const bool has_res = res != nullptr;
+  auto one = [&](const R& xv, const R& rv) {
+    float xf[VEC], rf[VEC], o[VEC];
+    to_float<T, VEC>(xv, xf);
+    if (has_res) to_float<T, VEC>(rv, rf);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      o[v] = epilogue<ACT, FIRST>(xf[v], k[v], a.slope);
+      if (has_res) o[v] += rf[v];
+    }
+    return from_float<T, VEC>(o);
+  };
+  for (; j + (UNROLL - 1) * step < n_vec; j += UNROLL * step) {
+    R xv[UNROLL], rv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      xv[u] = xr[j + u * step];
+      rv[u] = has_res ? rr[j + u * step] : xv[u];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) orow[j + u * step] = one(xv[u], rv[u]);
+  }
+  for (; j < n_vec; j += step) orow[j] = one(xr[j], has_res ? rr[j] : xr[j]);
+}
+
+// Middle: (outer, C, inner), inner > 1.  As apply_mid_kernel: a block takes
+// `chunk` consecutive (outer, c) rows at a time, their coefficients into
+// shared memory, and walks the chunk's elements flat, carrying the column
+// into the row.
+template <typename T, int ACT, bool FIRST>
+__global__ void __launch_bounds__(THREADS)
+    epilogue_mid_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                        EpilogueArgs a, long long rows, int C,
+                        long long inner, int chunk, T* __restrict__ out) {
+  __shared__ EpiCoef ks[CHUNK_MAX];
+  const long long d_row = THREADS / inner, d_i = THREADS % inner;
+  const long long row0 = threadIdx.x / inner, i0 = threadIdx.x % inner;
+  for (long long r0 = static_cast<long long>(blockIdx.x) * chunk; r0 < rows;
+       r0 += static_cast<long long>(gridDim.x) * chunk) {
+    const long long nr = rows - r0 < chunk ? rows - r0 : chunk;
+    __syncthreads();  // the previous chunk's coefficients are read
+    for (int q = threadIdx.x; q < nr; q += THREADS)
+      ks[q] = epilogue_coef<FIRST>(static_cast<int>((r0 + q) % C), a);
+    __syncthreads();
+    const long long n = nr * inner, base = r0 * inner;
+    long long row = row0, i = i0;
+#pragma unroll 4
+    for (long long j = threadIdx.x; j < n; j += THREADS) {
+      const long long e = base + j;
+      float o = epilogue<ACT, FIRST>(load1(x + e), ks[row], a.slope);
+      if (res) o += load1(res + e);
+      if constexpr (std::is_same_v<T, float>) {
+        out[e] = o;
+      } else {
+        out[e] = __float2bfloat16_rn(o);
+      }
+      i += d_i;
+      row += d_row;
+      if (i >= inner) {
+        i -= inner;
+        ++row;
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, int ACT, bool FIRST>
+cudaError_t epilogue_launch(const void* x, const void* res,
+                            const EpilogueArgs& a, long long outer, int C,
+                            long long inner, int blocks, int chunk,
+                            void* out, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(res);
+  T* ot = static_cast<T*>(out);
+  if (inner == 1) {
+    epilogue_rows_kernel<T, VEC, ACT, FIRST><<<blocks, THREADS, 0, stream>>>(
+        xt, rt, a, outer * C / VEC, C, ot);
+  } else {
+    epilogue_mid_kernel<T, ACT, FIRST><<<blocks, THREADS, 0, stream>>>(
+        xt, rt, a, outer * C, C, inner, chunk, ot);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t epilogue_by_act(int act, int first, const void* x,
+                            const void* res, const EpilogueArgs& a,
+                            long long outer, int C, long long inner,
+                            int blocks, int chunk, void* out,
+                            cudaStream_t s) {
+  if (act == ACT_SILU) {
+    return first ? epilogue_launch<T, VEC, ACT_SILU, true>(x, res, a, outer, C, inner, blocks, chunk, out, s)
+                 : epilogue_launch<T, VEC, ACT_SILU, false>(x, res, a, outer, C, inner, blocks, chunk, out, s);
+  }
+  if (act == ACT_LEAKY) {
+    return first ? epilogue_launch<T, VEC, ACT_LEAKY, true>(x, res, a, outer, C, inner, blocks, chunk, out, s)
+                 : epilogue_launch<T, VEC, ACT_LEAKY, false>(x, res, a, outer, C, inner, blocks, chunk, out, s);
+  }
+  // no activation: both orders are the same function
+  return epilogue_launch<T, VEC, ACT_NONE, false>(x, res, a, outer, C, inner, blocks, chunk, out, s);
+}
+
 template <typename T, int VEC>
 cudaError_t reduce_launch(bool bwd, const void* x, const void* dy,
                           const float* mean, long long outer, int C,
@@ -608,6 +803,37 @@ int bn_apply(int bwd, int dtype, int vec, const void* x, const void* dy,
   } else {
     err = vec == 8 ? apply_launch<bf16, 8>(bwd, x, dy, stats, weight, bias, sums, outer, C, inner, blocks, chunk, out, s)
                    : apply_launch<bf16, 1>(bwd, x, dy, stats, weight, bias, sums, outer, C, inner, blocks, chunk, out, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The eval conv epilogue, see epilogue_rows_kernel: out = z of x (and res,
+// null for none) in x's (outer, C, inner) layout.  act: 0 none, 1 SiLU,
+// 2 LeakyReLU of `slope`; first: the activation before the affine.
+// conv_bias, weight and bias may be null; mean and var are the running
+// statistics.  vec as bn_apply's (x, res and out 16-byte aligned).
+// blocks: the grid, in the rows layout (inner == 1) a multiple of
+// C / vec / gcd(C / vec, THREADS) (every thread's channels fixed); chunk as
+// bn_apply's.
+int bn_eval_epilogue(int dtype, int vec, int act, int first, const void* x,
+                     const void* res, const float* conv_bias,
+                     const float* mean, const float* var,
+                     const float* weight, const float* bias, float eps,
+                     float slope, long long outer, int C, long long inner,
+                     int blocks, int chunk, void* out, void* stream) {
+  if ((inner > 1 && (chunk < 1 || chunk > CHUNK_MAX))
+      || (inner == 1 && static_cast<long long>(blocks) * THREADS % (C / vec) != 0)
+      || act < 0 || act > ACT_LEAKY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const EpilogueArgs a{conv_bias, mean, var, weight, bias, eps, slope};
+  cudaError_t err;
+  if (dtype == 0) {
+    err = vec == 4 ? epilogue_by_act<float, 4>(act, first, x, res, a, outer, C, inner, blocks, chunk, out, s)
+                   : epilogue_by_act<float, 1>(act, first, x, res, a, outer, C, inner, blocks, chunk, out, s);
+  } else {
+    err = vec == 8 ? epilogue_by_act<bf16, 8>(act, first, x, res, a, outer, C, inner, blocks, chunk, out, s)
+                   : epilogue_by_act<bf16, 1>(act, first, x, res, a, outer, C, inner, blocks, chunk, out, s);
   }
   return static_cast<int>(err);
 }

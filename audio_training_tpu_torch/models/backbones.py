@@ -31,6 +31,7 @@ from torch import nn
 from audio_training_tpu_torch.models.layers import (
     Conv,
     KerasBatchNorm,
+    conv_bn,
     max_pool,
     relu6,
     same_avg_pool3,
@@ -401,7 +402,10 @@ class MBConv(nn.Module):
     * fused with ``expand == 1``: one kxk strided conv straight to
       ``filters`` -> BN -> SiLU, no project.
 
-    The input is added back when the stride is 1 and the width is kept."""
+    The input is added back when the stride is 1 and the width is kept.
+    Each conv with its BatchNorm, SiLU and that residual is one
+    ``layers.conv_bn``: in eval on the card the bias-free conv and one
+    epilogue kernel."""
 
     flax_kind = "MBConv"
 
@@ -435,16 +439,18 @@ class MBConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         count("efficientnet", "fused" if self.depthwise is None else "mbconv")
+        res = x if self.residual else None
         y = x
         if self.expand is not None:
-            y = silu(self.expand_bn(self.expand(y)))
+            y = conv_bn(self.expand, self.expand_bn, y, "silu",
+                        residual=res if self.project is None else None)
         if self.depthwise is not None:
-            y = silu(self.depthwise_bn(self.depthwise(y)))
+            y = conv_bn(self.depthwise, self.depthwise_bn, y, "silu")
         if self.se is not None:
             y = self.se(y)
         if self.project is not None:
-            y = self.project_bn(self.project(y))
-        return y + x if self.residual else y
+            y = conv_bn(self.project, self.project_bn, y, residual=res)
+        return y
 
 
 def _round_filters(f: int, width: float) -> int:
@@ -544,7 +550,8 @@ class EfficientNet(nn.Module):
     preprocessing: ``rescale`` (x / 255), then ``(x - norm_mean) /
     sqrt(norm_var)`` and ``* extra_rescale`` when those per-channel
     constants are given (a weight import sets them; a 1-channel input
-    broadcasts against them to their width, as in JAX)."""
+    broadcasts against them to their width, as in JAX).  The head's conv,
+    BatchNorm and SiLU are one ``layers.conv_bn``."""
 
     flax_kind = "EfficientNet"
 
@@ -593,7 +600,7 @@ class EfficientNet(nn.Module):
                              *self.preprocessing()))
         for block in self.blocks:
             x = block(x)
-        return silu(self.head_bn(self.head(x)))
+        return conv_bn(self.head, self.head_bn, x, "silu")
 
 
 class EfficientNetV2(nn.Module):
@@ -602,7 +609,8 @@ class EfficientNetV2(nn.Module):
     ``include_preprocessing``: the B variants on a 3-channel input apply
     x / 255 and the ImageNet mean and variance; every other input (and the
     S / M variants) ``x / 128 - 1``.  Training at ``channels=1`` takes the
-    second branch, the 3-channel repeat the first."""
+    second branch, the 3-channel repeat the first.  The head's conv,
+    BatchNorm and SiLU are one ``layers.conv_bn``."""
 
     flax_kind = "EfficientNetV2"
 
@@ -642,7 +650,7 @@ class EfficientNetV2(nn.Module):
                              *self.preprocessing(x.shape[1])))
         for block in self.blocks:
             x = block(x)
-        return silu(self.head_bn(self.head(x)))
+        return conv_bn(self.head, self.head_bn, x, "silu")
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from audio_training_tpu_torch.models.layers import (
     KerasBatchNorm,
     LMELayer,
     MagTransform,
+    conv_bn,
     dropout,
     global_avg_pool,
     leaky_relu,
@@ -119,7 +120,10 @@ class BadWinner2(nn.Module):
         )
 
     def _block(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        return self.bns[i](leaky_relu(self.convs[i](x), LEAKY_ALPHA))
+        """``bns[i](leaky_relu(convs[i](x)))``; in eval on the card one
+        epilogue kernel after the bias-free conv (``layers.conv_bn``)."""
+        return conv_bn(self.convs[i], self.bns[i], x, "leaky_relu",
+                       LEAKY_ALPHA, act_first=True)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -21,6 +21,17 @@ JAX custom VJP by tests/test_torch_train_step.py.
 (``utils/profiling.region``), :func:`silu` as ``cnn.act``: spans of their
 forward and backward while a profiler records, a plain call otherwise.
 
+:func:`conv_bn` runs a conv, its BatchNorm, the activation and the residual
+of a block.  Where it can tell that nothing needs the parts (an eval-mode
+BatchNorm, a CUDA tensor, no gradient recorded), the conv runs without its
+bias in ``cnn.conv`` / ``cnn.depthwise`` and one kernel
+(``ops/cuda/conv_epilogue.py``, which raises for a dtype or parameter it
+does not take) applies the bias, the BatchNorm, the activation and the
+residual in ``cnn.norm``; the activation's ``cnn.act`` then holds nothing
+of the block.  Every other call is the modules' composition, counted
+``plain`` in the counter group ``conv_epilogue`` beside the kernel's
+launches.
+
 Each layer that holds Flax variables names its Flax kind (``flax_kind``,
 the Flax class name that numbers its scope) and its leaves
 (``flax_leaves``: collection, path below the scope, torch tensor, layout
@@ -36,12 +47,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audio_training_tpu_torch.ops.cuda import conv_epilogue
 from audio_training_tpu_torch.ops.cuda.batch_norm import train_batch_norm
 from audio_training_tpu_torch.ops.features import mag_transform
 from audio_training_tpu_torch.ops.pcen import pcen
 from audio_training_tpu_torch.parallel.collectives import all_reduce_sum
 from audio_training_tpu_torch.parallel.mesh import active_mesh, local_rows
-from audio_training_tpu_torch.utils.profiling import region
+from audio_training_tpu_torch.utils.profiling import count, region
 
 # Keras BatchNormalization defaults
 BN_EPS = 1e-3
@@ -347,9 +359,12 @@ class Conv(nn.Module):
             lecun_normal_(self.weight, generator=generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """The conv, with its bias or (``bias=False``) without, as the
+        region ``cnn.depthwise`` (groups > 1) or ``cnn.conv``."""
         name = "cnn.depthwise" if self.groups > 1 else "cnn.conv"
-        return region(name, self._conv, x, self.weight, self.bias)
+        return region(name, self._conv, x, self.weight,
+                      self.bias if bias else None)
 
     def _conv(self, x, w, b):
         """The conv of ``x`` by kernel ``w`` and bias ``b`` (None: none) in
@@ -371,6 +386,44 @@ class Conv(nn.Module):
                               h1 - pad[0]))
         return F.conv2d(x, w, b, stride=self.stride, padding=pad,
                         groups=self.groups)
+
+
+def _fusable(conv: Conv, bn: KerasBatchNorm, x: torch.Tensor,
+             residual: torch.Tensor | None) -> bool:
+    """Whether :func:`conv_bn` may hand the work after ``conv`` to the
+    epilogue kernel, which has no backward: an eval-mode BatchNorm over
+    dim 1, a CUDA input and no gradient recorded."""
+    if bn.training or bn.feature_dim != 1 or not x.is_cuda:
+        return False
+    return not torch.is_grad_enabled() or not any(
+        t is not None and t.requires_grad
+        for t in (x, residual, conv.weight, conv.bias, bn.weight, bn.bias))
+
+
+def conv_bn(conv: Conv, bn: KerasBatchNorm, x: torch.Tensor,
+            act: str | None = None, alpha: float = 0.01,
+            act_first: bool = False,
+            residual: torch.Tensor | None = None) -> torch.Tensor:
+    """A block's ``act(bn(conv(x)))`` (``bn(act(conv(x)))`` with
+    ``act_first``), plus ``residual`` when given; ``act`` is None,
+    ``"silu"`` (:func:`silu`) or ``"leaky_relu"`` of slope ``alpha``.
+
+    Where :func:`_fusable` allows, the conv runs without its bias (region
+    ``cnn.conv`` / ``cnn.depthwise``) and the epilogue kernel applies the
+    bias, the BatchNorm's running-statistics affine, the activation and
+    the residual in one pass in f32, rounded once (region ``cnn.norm``).
+    Otherwise (training, CPU tensors, a recorded gradient): the modules'
+    composition, as the models ran it before, counted ``plain``."""
+    if _fusable(conv, bn, x, residual):
+        y = conv(x, bias=False)
+        return region("cnn.norm", conv_epilogue.eval_epilogue, y, conv.bias,
+                      bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                      bn.eps, act, alpha, act_first, residual)
+    count("conv_epilogue", "plain")
+    fn = {None: _identity, "silu": silu,
+          "leaky_relu": lambda t: leaky_relu(t, alpha)}[act]
+    y = bn(fn(conv(x))) if act_first else fn(bn(conv(x)))
+    return y if residual is None else y + residual
 
 
 class Dense(nn.Module):

@@ -303,6 +303,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    siblings), the pass against the plain version's and the library's.
    Phase 5 checks a badwinner2 training step's launches: each kernel once
    a BatchNorm, 8 in all.
+19. the eval conv epilogue (``ops/cuda/conv_epilogue.py``, run after phase
+   12) at badwinner2's ``bns.0`` (256, 64, 158, 511), bf16 channels-last,
+   and ``bns.5-6`` (256, 1024, 1, 46), bf16 NCHW as the training step
+   writes them (the middle layout's kernel, which an NCHW eval input
+   takes), with LeakyReLU before the BatchNorm; B3's expand (512, 160, 40, 129) and head (512, 1536, 5, 17)
+   with SiLU after it and a B3 projection with its residual
+   (512, 40, 40, 129), bf16 channels-last: the kernel against its plain
+   version (tests/test_torch_gpu.py's limits) and its device time from a
+   profile against its byte bound (one read of the conv output and the
+   residual, one write) and against the PyTorch passes it replaces (the
+   bias add, ``F.batch_norm``, the activation and the residual add).  A
+   record's launches are its kernel's, counted where they launch in the
+   serving chains that run its shape: phase 4's badwinner2 request through
+   ``make_fused_infer_fn`` at B=256 (7 epilogues) and phase 12's three B3
+   requests at B=512 (87 each).  Both chains write every conv's output
+   channels-last, so the middle kernel's record counts no launch there.
 
 It prints one JSON line of kernel records, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -471,6 +487,7 @@ MUFU_S = SMS * 16 * SM_CLOCK_HZ
 PCEN_TRANSCENDENTALS = 4
 PCEN_FLOPS = 12
 BN_SOURCE = "audio_training_tpu_torch/csrc/batch_norm.cu"
+PROFILE_PRE_ROLL = 128  # utils/profiling.trace's _PRE_ROLL
 # phases 16 and 18 take the training step's BatchNorms as phase 5 finds
 # them (shape, strides, dtype, feature dim, scale and bias); the limits are
 # tests/test_torch_gpu.py's
@@ -834,7 +851,10 @@ def bn_library_run(m, x, dy):
 def profile_device_ms(fn, reps: int) -> dict[str, float]:
     """Device ms a call of ``fn`` by kernel name, from a profile of
     ``reps`` calls after one warm-up (the profiler's own ``ProfilerStep*``
-    range, which spans the kernels, left out)."""
+    range, which spans the kernels, left out).  The warm-up step starts
+    with :data:`PROFILE_PRE_ROLL` one-element fills, past the kernels a
+    profiler can lose after it is enabled (``utils/profiling.trace``
+    does the same)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -844,8 +864,9 @@ def profile_device_ms(fn, reps: int) -> dict[str, float]:
                                                   active=1),
                  on_trace_ready=lambda p: events.extend(
                      p.key_averages())) as prof:
-        for _ in range(2):
-            torch.zeros(1, device="cuda")
+        for fills in (PROFILE_PRE_ROLL, 1):
+            for _ in range(fills):
+                torch.zeros(1, device="cuda")
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -981,6 +1002,104 @@ def batch_norm_phase(dev, card, step_bns: list[dict]) -> list[dict]:
     log(f"time BatchNorm, the step's {len(step_bns)} at B={TRAIN_BATCH}: "
         f"kernels {total:.3f} ms, bound {total_bound:.3f} ms, plain "
         f"{total_plain:.3f} ms, PyTorch's kernels {total_lib:.3f} ms {card}")
+    return records
+
+
+# phase 19's shapes: (name, conv output, channels-last, activation, slope,
+# activation first, residual, the serving chain that runs the shape)
+EPILOGUE_SHAPES = (
+    ("badwinner2 bns.0", (256, 64, 158, 511), True, "leaky_relu", 0.01,
+     True, False, "badwinner2"),
+    ("badwinner2 bns.5-6", (256, 1024, 1, 46), False, "leaky_relu", 0.01,
+     True, False, "badwinner2"),
+    ("B3 expand", (512, 160, 40, 129), True, "silu", 0.0, False, False,
+     "B3"),
+    ("B3 head", (512, 1536, 5, 17), True, "silu", 0.0, False, False, "B3"),
+    ("B3 project + residual", (512, 40, 40, 129), True, None, 0.0, False,
+     True, "B3"),
+)
+
+
+def conv_epilogue_phase(dev, card,
+                        launches: dict[str, dict[str, int]]) -> list[dict]:
+    """Phase 19: the eval conv epilogue at :data:`EPILOGUE_SHAPES` (bf16):
+    against its plain version at the card tests' limits, its device time
+    (a profile of 3 calls) against its byte bound and the PyTorch passes
+    it replaces.  ``launches`` holds the ``conv_epilogue`` counts of the
+    serving chains (phases 4 and 12) by chain; a record's launches are
+    its kernel's there.  Returns a kernel record a shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_training_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for (name, shape, channels_last, act, slope, first, with_res,
+         chain) in EPILOGUE_SHAPES:
+        c = shape[1]
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        x = torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=fmt)
+        res = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=fmt)
+            if with_res else None)
+        b, mean, w, beta = (torch.randn(c, generator=g, device=dev) * 0.5
+                            for _ in range(4))
+        var = torch.rand(c, generator=g, device=dev) + 0.5
+        w = w.abs() + 0.5
+        args = (b, mean, var, w, beta, 1e-3, act, slope, first, res)
+        got = ce.eval_epilogue(x, *args)
+        want = ce.eval_epilogue_plain(x, *args)
+        off = (got.float() - want.float()).abs()
+        err = (off.max() / want.float().abs().max()).item()
+        share = (off > 0).float().mean().item()
+        del want
+        log(f"check conv epilogue {name} {shape}: {err:.2e} of the max "
+            f"(limit {BN_BF16_STEP}), {share:.2e} of the values off (limit "
+            f"{BN_BF16_OFF})")
+        check(err <= BN_BF16_STEP and share <= BN_BF16_OFF,
+              f"the conv epilogue disagrees with plain at {name}")
+        fn = {None: lambda t: t, "silu": F.silu,
+              "leaky_relu": lambda t: F.leaky_relu(t, slope)}[act]
+        b16 = b.to(torch.bfloat16).view(1, c, 1, 1)
+
+        def library():
+            y = x + b16  # the conv's bias, as F.conv2d adds it
+            y = (F.batch_norm(fn(y), mean, var, w, beta, False, 0.0, 1e-3)
+                 if first else
+                 fn(F.batch_norm(y, mean, var, w, beta, False, 0.0, 1e-3)))
+            return y if res is None else y + res
+
+        lib_err = ((library().float() - got.float()).abs().max()
+                   / got.float().abs().max()).item()
+        reps = 3
+        kernel_ms = sum(profile_device_ms(lambda: ce.eval_epilogue(x, *args),
+                                          reps).values())
+        lib_kernels = profile_device_ms(library, reps)
+        lib_ms = sum(lib_kernels.values())
+        for key, ms in sorted(lib_kernels.items(), key=lambda kv: -kv[1]):
+            log(f"  library kernel {ms:9.4f} ms {key[:100]}")
+        check(kernel_ms > 0 and lib_ms > 0,
+              f"the profile at {name} recorded none of the launches")
+        event_ms = time_ms(lambda: ce.eval_epilogue(x, *args), iters=10)
+        plain_ms = time_ms(lambda: ce.eval_epilogue_plain(x, *args), iters=2)
+        nbytes = x.numel() * x.element_size() * (3 if with_res else 2)
+        bound = nbytes / PEAK_BYTES_S * 1e3
+        kernel = "rows" if channels_last else "mid"
+        log(f"time conv epilogue {name} {shape} ({kernel}): device "
+            f"{kernel_ms:.4f} ms (events {event_ms:.4f}), bound "
+            f"{bound:.4f} ms (bytes, share {bound / kernel_ms:.3f}); "
+            f"PyTorch's {len(lib_kernels)} passes {lib_ms:.4f} ms "
+            f"({lib_ms / kernel_ms:.2f}x), their output {lib_err:.2e} of the "
+            f"max from the kernel's; plain {plain_ms:.4f} ms {card}")
+        records.append(kernel_record(
+            f"conv_epilogue {name}", BN_SOURCE,
+            "none (XLA fuses the bias, BatchNorm and activation)",
+            launches[chain][kernel], err,
+            kernel_ms, plain_ms, (bound, "bytes"), lib_ms))
+        del x, res, got
+        torch.cuda.empty_cache()
     return records
 
 
@@ -2246,7 +2365,9 @@ def evaluate_deploy_phase(dev, cfg, card, run_dir: Path) -> None:
         f"{freeze_s * 1e3:.1f} ms wall {card}")
 
 
-def model_families_phase(dev, cfg, card, mn_ms: float) -> dict[str, int]:
+def model_families_phase(dev, cfg, card,
+                         mn_ms: float) -> tuple[dict[str, int],
+                                                dict[str, int]]:
     """Phase 12: the model families.  The reference's default backbone,
     EfficientNetV2-B3, on the PCEN chain at full width (K1's "default" tier
     with its PCEN epilogue, bf16 image, 3-channel repeat, B=512, three
@@ -2254,7 +2375,8 @@ def model_families_phase(dev, cfg, card, mn_ms: float) -> dict[str, int]:
     other family at B=64, with K1 held against its plain versions at that
     batch; ``cli/train --model-name efficientnetv2b3`` on phase 10's corpus,
     with K1's training tiers held at its batch, and ``cli/predict`` on the
-    run.  Returns the B3 chain's launch counts."""
+    run.  Returns the B3 chain's launch counts of K1's kernels and of the
+    conv epilogue."""
     import math
     import shutil
 
@@ -2274,6 +2396,7 @@ def model_families_phase(dev, cfg, card, mn_ms: float) -> dict[str, int]:
     from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
     from audio_training_tpu_torch.train import harness, load_metadata
     from audio_training_tpu_torch.train import loop
+    from audio_training_tpu_torch.utils import profiling
 
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -2345,8 +2468,15 @@ def model_families_phase(dev, cfg, card, mn_ms: float) -> dict[str, int]:
                                 out_dtype=torch.bfloat16)
     requests = [clips(BATCH_PCEN) for _ in range(REQUESTS)]
     reset()
+    profiling.reset_counts("conv_epilogue")
     answers = [infer(r) for r in requests]
     b3_counts = counts()
+    b3_epilogues = profiling.counts("conv_epilogue")
+    log(f"path PCEN -> EfficientNetV2-B3 chain: conv epilogues "
+        f"{b3_epilogues}")
+    check(b3_epilogues["rows"] + b3_epilogues["mid"] == 87 * REQUESTS
+          and b3_epilogues["plain"] == 0,
+          "the eval B3 forward did not run its 87 epilogues as the kernels")
     want = {k: 0 for k in b3_counts}
     want["fused_featurizer_mel_bf16"] = want["fused_featurizer_pcen"] = (
         REQUESTS)
@@ -2588,7 +2718,7 @@ def model_families_phase(dev, cfg, card, mn_ms: float) -> dict[str, int]:
     log(f"path load_predictor(B3 run, 'chkpt') -> predict_recording "
         f"{RECORDING_S:.0f} s: {len(tracks)} tracks; first window's "
         f"probabilities finite in [{probs.min():.3f}, {probs.max():.3f}]")
-    return b3_counts
+    return b3_counts, b3_epilogues
 
 
 def rest_of_training_phase(dev, cfg, card, fit_step_ms: float,
@@ -4700,6 +4830,7 @@ def main() -> None:
         build_mel_weights, mel_power, normalize_rows)
     from audio_training_tpu_torch.ops.pcen import normalize_minmax_global, pcen
     from audio_training_tpu_torch.ops.stft import stft_centered
+    from audio_training_tpu_torch.utils import profiling
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4888,11 +5019,17 @@ def main() -> None:
     pcen_raw = clips(BATCH)
     torch.cuda.synchronize()
     ffz.reset_launch_counts()
+    profiling.reset_counts("conv_epilogue")
     pcen_logits = pcen_infer(pcen_raw)
     torch.cuda.synchronize()
     pcen_counts = ffz.launch_counts()
+    epilogues = {"badwinner2": profiling.counts("conv_epilogue")}
     log(f"path make_fused_infer_fn(use_pcen=True): B={BATCH}, "
-        f"launches {pcen_counts}")
+        f"launches {pcen_counts}, conv epilogues {epilogues['badwinner2']}")
+    check(epilogues["badwinner2"]["rows"] + epilogues["badwinner2"]["mid"]
+          == 7 and epilogues["badwinner2"]["plain"] == 0,
+          "the eval badwinner2 forward did not run its 7 epilogues as the "
+          "kernels")
     check(pcen_counts["fused_featurizer_mel"] >= 1
           and pcen_counts["fused_featurizer_pcen"] >= 1,
           "the PCEN path did not launch both kernels")
@@ -5735,12 +5872,15 @@ def main() -> None:
     # ---- 12. the model families -------------------------------------------
     # the B3 chain runs phase 7's two kernels at the same shape: one record
     # a shape, its launches those of both chains
-    b3_counts = model_families_phase(dev, cfg, card, mn_chain["default"])
+    b3_counts, epilogues["B3"] = model_families_phase(dev, cfg, card,
+                                                      mn_chain["default"])
     for k in kernels:
         if k["name"].endswith(" at B=512"):
             k["launches"] += b3_counts[k["name"].split(" at ")[0]]
             log(f"record {k['name']}: {k['launches']} launches, the "
                 f"MobileNetV2 and EfficientNetV2-B3 chains' 3 requests each")
+    # ---- 19. the eval conv epilogue, its launches those of phases 4, 12 --
+    kernels += conv_epilogue_phase(dev, card, epilogues)
     # ---- 13. the rest of training -----------------------------------------
     kernels += rest_of_training_phase(dev, cfg, card, step_ms, train_peak_gb)
     # ---- 14. building a corpus ----------------------------------------------

@@ -46,6 +46,16 @@ of their f32 sums alone, at the same limits: y and dx of the rows, the two
 ranks' parameter gradients summed, each rank's running statistics, and
 each rank's launches (two statistics finalizes: the local sums, then the
 all-reduced ones).
+
+The eval conv epilogue (``ops/cuda/conv_epilogue.py``) against its plain
+version on the same input, at the BatchNorm kernels' limits (the two differ
+in f32 rounding order and SiLU's exponential): bf16 and f32, residual on
+and off, channels-last and C-in-the-middle layouts, badwinner2's and B3's
+channel counts and odd ones, off the 16-byte grid, each launch counted
+under its kernel; its refusals, counted as no launch; eval badwinner2 and
+B3 forwards on the card counting 7 and 87 kernel epilogues under no_grad
+and none with a gradient recorded (their f32 logits within 1e-4 of the max
+of each other), an fp16 eval forward raising, a training step none.
 """
 
 import copy
@@ -1445,3 +1455,200 @@ def test_batch_norm_kernels_refuse_what_they_do_not_take():
         m(torch.zeros(2, 8, 3, 6, device=dev)[..., ::2])
     with pytest.raises(ValueError, match="dense"):
         m(torch.zeros(1, 8, 3, 3, device=dev).expand(4, 8, 3, 3))
+
+
+# ---- the eval conv epilogue -------------------------------------------------
+
+EPILOGUE_CASES = [
+    # (name, conv output shape, channels-last, activation, slope, first)
+    ("badwinner2 bns.0: LeakyReLU first", (2, 64, 158, 61), True,
+     "leaky_relu", 0.01, True),
+    ("badwinner2 bns.5: C in the middle", (8, 1024, 1, 46), False,
+     "leaky_relu", 0.01, True),
+    ("B3 expand: SiLU after", (2, 160, 40, 129), True, "silu", 0.0, False),
+    ("B3 depthwise, C=1392", (2, 1392, 5, 17), True, "silu", 0.0, False),
+    ("B3 project, C=136", (2, 136, 10, 33), True, None, 0.0, False),
+    ("B3 head, C=1536", (2, 1536, 5, 17), True, "silu", 0.0, False),
+    ("C=40 in the middle", (3, 40, 7, 9), False, "silu", 0.0, False),
+    ("C=7: one channel a thread", (3, 7, 11, 13), True, "leaky_relu", 0.3,
+     False),
+    ("C=20 SiLU first", (3, 20, 5, 6), True, "silu", 0.0, True),
+    ("C=4100: a grid past the cap", (2, 4100, 2, 3), True, "silu", 0.0,
+     False),
+]
+
+
+def _epilogue_case(dev, shape, channels_last, dtype, residual, seed=0):
+    """A conv output, its bias, running statistics, scale and offset, and
+    a residual (or None) on the card."""
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = (torch.randn(shape, generator=g) * 2).to(dev, dtype).contiguous(
+        memory_format=fmt)
+    params = [torch.randn(c, generator=g) * 0.5,  # conv bias
+              torch.randn(c, generator=g),  # running mean
+              torch.rand(c, generator=g) * 2 + 0.1,  # running variance
+              torch.rand(c, generator=g) + 0.5,  # scale
+              torch.randn(c, generator=g) * 0.3]  # offset
+    r = (torch.randn(shape, generator=g).to(dev, dtype).contiguous(
+        memory_format=fmt) if residual else None)
+    return x, [p.to(dev) for p in params], r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("name,shape,channels_last,act,slope,first",
+                         EPILOGUE_CASES, ids=[c[0] for c in EPILOGUE_CASES])
+def test_conv_epilogue_kernel_matches_plain(name, shape, channels_last, act,
+                                            slope, first, residual, dtype):
+    """The kernel and its plain version differ in f32 rounding order and
+    SiLU's exponential alone: bf16 within one step of the max and at most
+    1% of the values off, f32 within 1e-5 of the max; the output in the
+    input's layout."""
+    from audio_training_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    dev = _card()
+    x, params, r = _epilogue_case(dev, shape, channels_last, dtype, residual)
+    counts, got = _epilogue_counts(
+        lambda: ce.eval_epilogue(x, *params, 1e-3, act, slope, first, r))
+    want = ce.eval_epilogue_plain(x, *params, 1e-3, act, slope, first, r)
+    assert counts == {"rows": int(channels_last),
+                      "mid": int(not channels_last), "plain": 0}
+    assert got.dtype == dtype and got.stride() == x.stride()
+    assert _bn_close(got, want, BN_F32_REL)
+
+
+@pytest.mark.gpu
+def test_conv_epilogue_kernel_off_the_grid_and_with_a_residual_laid_out_otherwise():
+    """A conv output off the 16-byte grid (one element a thread) and a
+    NCHW residual of a channels-last output (copied into its layout)."""
+    from audio_training_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    dev = _card()
+    x, params, r = _epilogue_case(dev, (2, 48, 9, 11), True, torch.bfloat16,
+                                  True)
+    flat = torch.empty(x.numel() + 1, device=dev, dtype=x.dtype)
+    off = flat[1:].view(2, 9, 11, 48).permute(0, 3, 1, 2)
+    off.copy_(x)
+    for y, res in ((off, r), (x, r.contiguous())):
+        got = ce.eval_epilogue(y, *params, 1e-3, "silu", 0.0, False, res)
+        want = ce.eval_epilogue_plain(y, *params, 1e-3, "silu", 0.0, False,
+                                      res)
+        assert _bn_close(got, want, BN_F32_REL)
+
+
+@pytest.mark.gpu
+def test_conv_epilogue_kernel_refuses_what_it_does_not_take():
+    from audio_training_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    from audio_training_tpu_torch.utils import profiling
+
+    dev = _card()
+    x, params, r = _epilogue_case(dev, (2, 8, 3, 3), True, torch.bfloat16,
+                                  True)
+    profiling.reset_counts("conv_epilogue")
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ce.eval_epilogue(x.half(), *params, 1e-3)
+    with pytest.raises(ValueError, match="dense"):
+        ce.eval_epilogue(x[..., ::2], *params, 1e-3)
+    with pytest.raises(ValueError, match="float32 running_mean"):
+        ce.eval_epilogue(x, params[0], params[1].double(), *params[2:], 1e-3)
+    with pytest.raises(ValueError, match="residual"):
+        ce.eval_epilogue(x, *params, 1e-3, residual=r.float())
+    with pytest.raises(ValueError, match="activation"):
+        ce.eval_epilogue(x, *params, 1e-3, "relu")
+    assert profiling.counts("conv_epilogue") == {"rows": 0, "mid": 0,
+                                                 "plain": 0}
+
+
+def _epilogue_counts(run):
+    from audio_training_tpu_torch.utils import profiling
+
+    profiling.reset_counts("conv_epilogue")
+    out = run()
+    torch.cuda.synchronize()
+    return profiling.counts("conv_epilogue"), out
+
+
+def _epilogue_model(name, dev, dtype=None):
+    from audio_training_tpu_torch.models.backbones import EfficientNetV2
+    from audio_training_tpu_torch.models.badwinner2 import BadWinner2
+
+    g = torch.Generator().manual_seed(0)
+    if name == "badwinner2":
+        return BadWinner2(7, logits_only=True, dtype=dtype, generator=g,
+                          dropout=0.0).to(dev).eval()
+    return EfficientNetV2(3, "b3", dtype=dtype, generator=g).to(dev).eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,calls", [
+    ("badwinner2", (2, 160, 120, 1), 7),  # NHWC mel
+    ("efficientnetv2b3", (2, 3, 64, 64), 87),  # NCHW image
+])
+def test_eval_forward_on_the_card_runs_the_epilogue_kernel(name, shape,
+                                                           calls):
+    """Under no_grad every block's epilogue is the kernel (bf16 and f32);
+    with a gradient recorded none is, and in f32 the two agree: logits
+    within 1e-4 of the max."""
+    dev = _card()
+    # a mel's magnitudes, an image's [0, 1)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(0))
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    model = _epilogue_model(name, dev, torch.bfloat16)
+    with torch.no_grad():
+        counts, _ = _epilogue_counts(lambda: model(x))
+    assert counts["rows"] + counts["mid"] == calls and counts["plain"] == 0
+    model = _epilogue_model(name, dev)
+    with torch.no_grad():
+        counts, fused = _epilogue_counts(lambda: model(x))
+    assert counts["rows"] + counts["mid"] == calls and counts["plain"] == 0
+    counts, plain = _epilogue_counts(lambda: model(x))
+    assert counts == {"rows": 0, "mid": 0, "plain": calls}
+    assert _rel(fused.float(), plain.detach().float()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["a block", "badwinner2"])
+def test_fp16_eval_forward_raises(name):
+    """The kernel takes bf16 and f32 alone, and an eval forward on the
+    card hands it every block: an fp16 one raises rather than falling
+    back to the unfused passes."""
+    from audio_training_tpu_torch.models import layers
+    from audio_training_tpu_torch.models.badwinner2 import BadWinner2
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    if name == "a block":
+        conv = layers.Conv(8, 16, (3, 3), padding="SAME", generator=g,
+                           dtype=torch.float16).to(dev)
+        bn = layers.KerasBatchNorm(16).to(dev).eval()
+        x = torch.rand(2, 8, 5, 7, generator=g).to(dev)
+
+        def run():
+            return layers.conv_bn(conv, bn, x, "silu")
+    else:
+        model = BadWinner2(7, logits_only=True, dtype=torch.float16,
+                           generator=g, dropout=0.0).to(dev).eval()
+        x = torch.rand(2, 160, 120, 1, generator=g).to(dev)
+
+        def run():
+            return model(x)
+    with torch.no_grad(), pytest.raises(ValueError, match="float16"):
+        run()
+
+
+@pytest.mark.gpu
+def test_train_step_runs_no_epilogue_kernel():
+    from audio_training_tpu_torch.train import fresh_metrics, make_train_step
+
+    dev = _card()
+    state, pre, batch = _train_setup(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mel, yy = pre(*batch, gen)
+    step = make_train_step()
+    counts, _ = _epilogue_counts(
+        lambda: step(state, fresh_metrics(dev), mel, yy, gen))
+    assert counts == {"rows": 0, "mid": 0, "plain": 7}
